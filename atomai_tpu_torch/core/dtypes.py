@@ -1,11 +1,15 @@
 """Precision policy (counterpart of `atomai_tpu/core/dtypes.py:15-61`).
 
 Parameters and outputs are always float32. On a CUDA device the default
-is "mixed": convs run in bfloat16 under autocast. On the CPU everything
-runs in float32. The TF32 switches of cuDNN and cuBLAS are set from the
-policy every time a model runs under it, never left at torch's defaults
-(cuDNN runs float32 convs in TF32 unless told otherwise), and are put
-back as they were when the run ends.
+is "mixed": convs and ``nn.Linear`` layers run in bfloat16 under autocast,
+as the JAX package runs its Conv and hidden Dense layers in its compute
+dtype (`atomai_tpu/nets/blocks.py:49-51` ``_cdtype``). A head that the JAX
+package keeps in float32 (the VAE encoders' ``z_mu``/``z_logstd``, the
+decoders' output layer) runs through :func:`head_f32`, outside autocast.
+On the CPU everything runs in float32. The TF32 switches of cuDNN and
+cuBLAS are set from the policy every time a model runs under it, never
+left at torch's defaults (cuDNN runs float32 convs in TF32 unless told
+otherwise), and are put back as they were when the run ends.
 """
 
 import contextlib
@@ -60,6 +64,13 @@ def default_precision(device: Union[str, torch.device]) -> Precision:
     if torch.device(device).type == "cuda":
         return Precision.mixed()
     return Precision.full()
+
+
+def head_f32(layer: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in float32 with autocast off: the policy's rule for
+    heads, whatever scope the caller runs under."""
+    with torch.autocast(x.device.type, enabled=False):
+        return layer(x.float())
 
 
 def set_default_precision(p: Optional[Precision]) -> None:

@@ -1,14 +1,16 @@
-"""The weight bridge: a JAX Unet's variables -> the port's ``state_dict``.
+"""The weight bridge: JAX variables -> the port's ``state_dict``s.
 
 Counterpart of `atomai_tpu/models/conversion.py:25-32` (which block is
-which) and `:103-113` (layouts), run the other way. The JAX ``params`` and
+which), `:103-113` (layouts) and `:320-366` (the VAE family's names), run
+the other way. The JAX ``params`` and
 ``batch_stats`` trees arrive as nested dicts of numpy arrays (e.g. from
-``jax.device_get``). Conv kernels go HWIO -> OIHW; BatchNorm
-``scale/bias/mean/var`` become ``weight/bias/running_mean/running_var``.
+``jax.device_get``). Conv kernels go HWIO -> OIHW; Dense kernels (in, out)
+-> (out, in); BatchNorm ``scale/bias/mean/var`` become
+``weight/bias/running_mean/running_var``.
 numpy and torch only.
 """
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -110,3 +112,101 @@ def unet_from_jax(params: Mapping[str, Any],
             sub = _conv(params[flax], flax)
         state.update({f"{name}.{k}": v for k, v in sub.items()})
     return state
+
+
+def _dense(sub: Mapping[str, Any], where: str,
+           bias: bool = True) -> Dict[str, torch.Tensor]:
+    kernel = np.asarray(sub["kernel"], np.float32)
+    if kernel.ndim != 2:
+        raise ValueError(f"{where}: expected a 2D (in, out) Dense kernel, "
+                         f"got shape {kernel.shape}")
+    out = {"weight": torch.from_numpy(np.array(kernel.T, order="C"))}
+    if bias:
+        b = np.asarray(sub["bias"], np.float32)
+        if b.shape != (kernel.shape[1],):
+            raise ValueError(f"{where}: bias shape {b.shape} does not match "
+                             f"{kernel.shape[1]} outputs")
+        out["bias"] = torch.from_numpy(b.copy())
+    elif "bias" in sub:
+        raise ValueError(f"{where}: unexpected bias")
+    return out
+
+
+def _put(state: Dict[str, torch.Tensor], name: str,
+         tensors: Dict[str, torch.Tensor]) -> None:
+    state.update({f"{name}.{k}": v for k, v in tensors.items()})
+
+
+def _nhwc_rows_to_nchw(weight: torch.Tensor, hw: Tuple[int, int],
+                       c: int) -> torch.Tensor:
+    """A head's (out, H*W*C) weight over NHWC-flattened features ->
+    over NCHW-flattened ones."""
+    out = weight.shape[0]
+    return weight.reshape(out, hw[0], hw[1], c).permute(
+        0, 3, 1, 2).reshape(out, -1).contiguous()
+
+
+def vae_from_jax(params: Mapping[str, Any], meta: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(encoder, decoder) ``state_dict``s of the port's VAE nets from the
+    JAX package's ``{"encoder": ..., "decoder": ...}`` params and the
+    model's metadict (``init_VAE_nets``' keys: ``coord``,
+    ``conv_encoder``, ``numlayers_encoder``, ``numlayers_decoder``,
+    ``numhidden_encoder``, ``in_dim``).
+
+    Flax numbers its Dense layers in call order: the encoder's trunk is
+    ``Dense_0..Dense_{L-1}`` and its heads ``Dense_L`` (``fc11``) and
+    ``Dense_{L+1}`` (``fc12``); inside ``rDecoderNet``,
+    ``coord_latent_0/Dense_0`` is ``fc_coord`` and ``Dense_1``
+    ``fc_latent`` (no bias), then ``Dense_0..Dense_{L-1}`` are the hidden
+    layers and ``Dense_L`` the head. Raises ``ValueError`` on a tree that
+    does not fit the metadict.
+    """
+    if meta.get("discrete_dim"):
+        raise ValueError("discrete latents (jVAE, jrVAE) are not ported yet")
+    enc_p, dec_p = params["encoder"], params["decoder"]
+    conv = meta.get("conv_encoder", False)
+    n_e, n_d = meta["numlayers_encoder"], meta["numlayers_decoder"]
+    want_e = ({"ConvBlock_0", "Dense_0", "Dense_1"} if conv
+              else {f"Dense_{i}" for i in range(n_e + 2)})
+    want_d = {f"Dense_{i}" for i in range(n_d + 1)}
+    if meta.get("coord", 0):
+        want_d.add("coord_latent_0")
+    for part, tree, want in (("encoder", enc_p, want_e),
+                             ("decoder", dec_p, want_d)):
+        if set(tree) != want:
+            raise ValueError(f"{part} params {sorted(tree)} do not fit the "
+                             f"metadict (expected {sorted(want)})")
+
+    enc: Dict[str, torch.Tensor] = {}
+    if conv:
+        in_dim = tuple(meta["in_dim"])
+        enc.update({f"conv.{k}": v for k, v in _conv_block(
+            enc_p["ConvBlock_0"], {}, False, "encoder/ConvBlock_0").items()})
+        for name, flax in (("fc11", "Dense_0"), ("fc12", "Dense_1")):
+            d = _dense(enc_p[flax], f"encoder/{flax}")
+            d["weight"] = _nhwc_rows_to_nchw(
+                d["weight"], in_dim[:2], meta["numhidden_encoder"])
+            _put(enc, name, d)
+    else:
+        for i in range(n_e):
+            _put(enc, f"dense.{2 * i}", _dense(enc_p[f"Dense_{i}"],
+                                               f"encoder/Dense_{i}"))
+        for name, i in (("fc11", n_e), ("fc12", n_e + 1)):
+            _put(enc, name, _dense(enc_p[f"Dense_{i}"], f"encoder/Dense_{i}"))
+
+    dec: Dict[str, torch.Tensor] = {}
+    trunk = "decoder"
+    if meta.get("coord", 0):
+        cl = dec_p["coord_latent_0"]
+        _put(dec, "coord_latent.fc_coord",
+             _dense(cl["Dense_0"], "decoder/coord_latent_0/Dense_0"))
+        _put(dec, "coord_latent.fc_latent",
+             _dense(cl["Dense_1"], "decoder/coord_latent_0/Dense_1",
+                    bias=False))
+        trunk = "fc_decoder"
+    for i in range(n_d):
+        _put(dec, f"{trunk}.{2 * i}", _dense(dec_p[f"Dense_{i}"],
+                                             f"decoder/Dense_{i}"))
+    _put(dec, "out", _dense(dec_p[f"Dense_{n_d}"], f"decoder/Dense_{n_d}"))
+    return enc, dec

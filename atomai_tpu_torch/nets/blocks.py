@@ -7,9 +7,11 @@ Counterpart of `atomai_tpu/nets/blocks.py:104-161, 323-327`:
 
 Submodules carry the names of original atomai's modules (``block.<i>``,
 ``conv``), so ``state_dict`` keys line up with its checkpoints. torch's
-default init of ``nn.Conv2d`` is the distribution the JAX package imitates
-(`atomai_tpu/nets/blocks.py:72-101`); :func:`init_weights_` redraws it
-from an explicit generator.
+default init of ``nn.Conv2d`` and ``nn.Linear`` is the distribution the JAX
+package imitates (`atomai_tpu/nets/blocks.py:72-101` ``init_kwargs``):
+``kaiming_uniform(a=sqrt(5))`` weights, i.e. U(+-sqrt(1/fan_in)), and
+U(+-1/sqrt(fan_in)) biases. :func:`init_weights_` redraws both from an
+explicit generator.
 """
 
 import math
@@ -84,12 +86,16 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """Redraws every conv's weight and bias from U(+-1/sqrt(fan_in)) with
-    ``generator`` (torch's default conv init, drawn reproducibly) and resets
-    BatchNorm to identity statistics."""
+    """Redraws every conv's and linear layer's weight and bias from
+    U(+-1/sqrt(fan_in)) with ``generator`` (torch's default init, drawn
+    reproducibly) and resets BatchNorm to identity statistics. A linear
+    layer without bias (the rVAE's ``fc_latent``) draws its weight only."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+            else:
+                fan_in = m.in_features
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

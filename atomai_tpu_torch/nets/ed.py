@@ -1,0 +1,254 @@
+"""Encoders and decoders of the VAE family.
+
+Counterpart of `atomai_tpu/nets/ed.py:139-186, 256-276, 303-409, 443-501`:
+- fcEncoderNet / convEncoderNet -> (z_mu, z_logstd);
+- fcDecoderNet (the plain VAE's) and rDecoderNet with its coord_latent
+  (the rVAE's spatial decoder, after arXiv:1909.11663: a per-pixel MLP
+  over fc(coord) + fc(z) broadcast over the pixels);
+- init_VAE_nets, the factory with its metadict.
+
+Inputs and outputs keep the JAX package's channel-last layout: images
+(N, H, W) or (N, H, W, C). Submodules carry original atomai's names
+(``dense.{2i}``, ``fc11``, ``fc12``, ``coord_latent.fc_coord``,
+``coord_latent.fc_latent``, ``fc_decoder.{2i}``, ``out``), the names
+`atomai_tpu/models/conversion.py:320-366` maps. Hidden layers follow the
+precision scope the caller runs under (bf16 under the card's mixed
+policy); the heads run in float32 (:func:`head_f32`), as the JAX package's
+Dense heads without ``dtype`` do.
+"""
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..core.dtypes import head_f32
+from ..ops.spatial_mlp import mlp_shapes_supported, spatial_mlp
+from .blocks import ConvBlock
+
+
+def _tanh_stack(in_features: int, hidden_dim: int, num_layers: int
+                ) -> nn.Sequential:
+    """[Linear, Tanh] * num_layers: the Linear layers are ``{2i}``."""
+    layers = []
+    for i in range(num_layers):
+        layers += [nn.Linear(in_features if i == 0 else hidden_dim,
+                             hidden_dim), nn.Tanh()]
+    return nn.Sequential(*layers)
+
+
+class fcEncoderNet(nn.Module):
+    """MLP encoder -> (z_mu, z_logstd) (`ed.py:139-162`)."""
+
+    def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
+                 num_layers: int = 2, hidden_dim: int = 32,
+                 softplus_out: bool = False):
+        super().__init__()
+        n_in = int(np.prod(in_dim))
+        self.dense = _tanh_stack(n_in, hidden_dim, num_layers)
+        head_in = hidden_dim if num_layers else n_in
+        self.fc11 = nn.Linear(head_in, latent_dim)
+        self.fc12 = nn.Linear(head_in, latent_dim)
+        self.softplus_out = softplus_out
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.dense(x.reshape(x.shape[0], -1))
+        z_mu = head_f32(self.fc11, x)
+        z_logstd = head_f32(self.fc12, x)
+        if self.softplus_out:
+            z_logstd = nn.functional.softplus(z_logstd)
+        return z_mu, z_logstd
+
+
+class convEncoderNet(nn.Module):
+    """Conv encoder -> (z_mu, z_logstd) (`ed.py:165-186`); 2D images only.
+
+    The heads read the conv map flattened in NCHW order (original atomai's
+    order); the JAX package flattens NHWC, and ``vae_from_jax`` reorders
+    the heads' weights accordingly.
+    """
+
+    def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
+                 num_layers: int = 2, hidden_dim: int = 32,
+                 softplus_out: bool = False, lrelu_a: float = 0.1):
+        super().__init__()
+        if len(in_dim) < 2:
+            raise NotImplementedError("only 2D conv encoders are ported")
+        c = in_dim[2] if len(in_dim) > 2 else 1
+        self.conv = ConvBlock(2, num_layers, c, hidden_dim, lrelu_a=lrelu_a)
+        n_flat = hidden_dim * in_dim[0] * in_dim[1]
+        self.fc11 = nn.Linear(n_flat, latent_dim)
+        self.fc12 = nn.Linear(n_flat, latent_dim)
+        self.softplus_out = softplus_out
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)
+        x = self.conv(x).reshape(x.shape[0], -1)
+        z_mu = head_f32(self.fc11, x)
+        z_logstd = head_f32(self.fc12, x)
+        if self.softplus_out:
+            z_logstd = nn.functional.softplus(z_logstd)
+        return z_mu, z_logstd
+
+
+def _channel_last(h: torch.Tensor, out_dim: Tuple[int, ...]) -> torch.Tensor:
+    """(N, n_features) -> (N, H, W) for one channel, (N, H, W, C)
+    otherwise, (N, L) for spectra (`ed.py:248-276`)."""
+    c = out_dim[-1] if len(out_dim) > 2 else 1
+    if len(out_dim) > 1:
+        h = h.reshape((-1,) + tuple(out_dim[:2]) + (c,))
+    else:
+        h = h.reshape(-1, out_dim[0], c)
+    return h[..., 0] if c == 1 else h
+
+
+class fcDecoderNet(nn.Module):
+    """MLP decoder (`ed.py:256-276`). The output features are ordered
+    (h, w, c), the JAX package's order."""
+
+    def __init__(self, out_dim: Tuple[int, ...], latent_dim: int,
+                 num_layers: int = 2, hidden_dim: int = 32):
+        super().__init__()
+        self.out_dim = tuple(out_dim)
+        self.decoder = _tanh_stack(latent_dim, hidden_dim, num_layers)
+        self.out = nn.Linear(hidden_dim if num_layers else latent_dim,
+                             int(np.prod(out_dim)))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return _channel_last(head_f32(self.out, self.decoder(z)),
+                             self.out_dim)
+
+
+class coord_latent(nn.Module):
+    """Spatial part of the rVAE decoder (`ed.py:303-333`):
+    h = fc_coord(coords) + fc_latent(z) (no bias) broadcast over the
+    pixels, then tanh when ``activation``. (B, n, 2), (B, latent) ->
+    (B, n, out_dim)."""
+
+    def __init__(self, latent_dim: int, out_dim: int,
+                 activation: bool = False):
+        super().__init__()
+        self.fc_coord = nn.Linear(2, out_dim)
+        self.fc_latent = nn.Linear(latent_dim, out_dim, bias=False)
+        self.activation = activation
+
+    def forward(self, x_coord: torch.Tensor, z: torch.Tensor
+                ) -> torch.Tensor:
+        h = self.fc_coord(x_coord) + self.fc_latent(z)[:, None, :]
+        return torch.tanh(h) if self.activation else h
+
+
+class rDecoderNet(nn.Module):
+    """Spatial decoder with optional residual skips (`ed.py:336-409`).
+
+    Routing is by shape, decided before anything runs: without skips, with
+    one output channel and a hidden width the kernels take
+    (:func:`mlp_shapes_supported`), the whole per-pixel MLP is one
+    :func:`spatial_mlp` call (the CUDA kernels for CUDA tensors, the plain
+    version for CPU ones); otherwise the layers run one by one, as the JAX
+    package's XLA branch does. Both read the same parameters.
+    """
+
+    def __init__(self, out_dim: Tuple[int, ...], latent_dim: int,
+                 num_layers: int, hidden_dim: int, skip: bool = False):
+        super().__init__()
+        self.out_dim = tuple(out_dim)
+        self.c = 1 if len(out_dim) == 2 else out_dim[-1]
+        self.skip = skip
+        self.coord_latent = coord_latent(latent_dim, hidden_dim, not skip)
+        self.fc_decoder = _tanh_stack(hidden_dim, hidden_dim, num_layers)
+        self.out = nn.Linear(hidden_dim, self.c)
+
+    def fused(self) -> bool:
+        """Whether :meth:`forward` takes the fused :func:`spatial_mlp`."""
+        return (not self.skip and self.c == 1
+                and mlp_shapes_supported(self.out.in_features))
+
+    def forward(self, x_coord: torch.Tensor, z: torch.Tensor
+                ) -> torch.Tensor:
+        B = x_coord.shape[0]
+        reshape_ = (self.out_dim if self.c == 1
+                    else self.out_dim[:2] + (self.c,))
+        if self.fused():
+            cl = self.coord_latent
+            hidden = [self.fc_decoder[2 * i]
+                      for i in range(len(self.fc_decoder) // 2)]
+            H = cl.fc_coord.out_features
+            if hidden:
+                Ws = torch.stack([m.weight.T for m in hidden])
+                bs = torch.stack([m.bias for m in hidden])
+            else:
+                Ws = cl.fc_coord.weight.new_zeros((0, H, H))
+                bs = cl.fc_coord.weight.new_zeros((0, H))
+            y = spatial_mlp(
+                x_coord.float().transpose(1, 2), head_f32(cl.fc_latent, z),
+                cl.fc_coord.weight.T, cl.fc_coord.bias[None], Ws, bs,
+                self.out.weight.T, self.out.bias[None])
+            return y[:, 0].reshape((B,) + reshape_)
+        h = self.coord_latent(x_coord, z)
+        if self.skip:
+            # the residual is added after every Linear + Tanh pair
+            residual = h
+            for i in range(len(self.fc_decoder) // 2):
+                h = self.fc_decoder[2 * i + 1](self.fc_decoder[2 * i](h))
+                h = h + residual
+        else:
+            h = self.fc_decoder(h)
+        return head_f32(self.out, h).reshape((B,) + reshape_)
+
+
+def init_VAE_nets(in_dim: Tuple[int, ...], latent_dim: int, coord: int = 0,
+                  discrete_dim: Optional[List[int]] = None,
+                  nb_classes: int = 0, **kwargs: Any
+                  ) -> Tuple[nn.Module, nn.Module, Dict[str, Any]]:
+    """Encoder, decoder and metadict of the VAE family (`ed.py:443-501`).
+
+    The decoder takes ``latent_dim + nb_classes`` latents (the JAX
+    package's sizing). Discrete latents (jVAE, jrVAE) and the conv decoder
+    are not ported yet and raise.
+    """
+    if discrete_dim:
+        raise NotImplementedError(
+            "discrete latents (jVAE, jrVAE) are not ported yet")
+    conv_e = kwargs.get("conv_encoder", False)
+    conv_d = kwargs.get("conv_decoder", False) if not coord else False
+    if conv_d:
+        raise NotImplementedError("the conv decoder is not ported yet")
+    numlayers_e = kwargs.get("numlayers_encoder", 2)
+    numlayers_d = kwargs.get("numlayers_decoder", 2)
+    numhidden_e = kwargs.get("numhidden_encoder", 128)
+    numhidden_d = kwargs.get("numhidden_decoder", 128)
+    skip = kwargs.get("skip", False)
+    sigmoid_out = kwargs.get("sigmoid_out", False)
+    softplus_out = bool(kwargs.get("softplus_out") or False)
+    dec_latent = latent_dim + nb_classes
+
+    if coord:
+        decoder_net = rDecoderNet(tuple(in_dim), dec_latent, numlayers_d,
+                                  numhidden_d, skip)
+    else:
+        decoder_net = fcDecoderNet(tuple(in_dim), dec_latent, numlayers_d,
+                                   numhidden_d)
+    enet = convEncoderNet if conv_e else fcEncoderNet
+    encoder_net = enet(tuple(in_dim), latent_dim + coord, numlayers_e,
+                       numhidden_e, softplus_out=softplus_out)
+    meta_state_dict = {
+        "model_type": "vae",
+        "in_dim": tuple(in_dim),
+        "latent_dim": latent_dim,
+        "coord": coord,
+        "conv_encoder": conv_e,
+        "numlayers_encoder": numlayers_e,
+        "numlayers_decoder": numlayers_d,
+        "numhidden_encoder": numhidden_e,
+        "numhidden_decoder": numhidden_d,
+        "skip": skip,
+        "nb_classes": nb_classes,
+        "discrete_dim": discrete_dim,
+        "sigmoid_out": sigmoid_out,
+        "softplus_out": softplus_out,
+    }
+    if not coord:
+        meta_state_dict["conv_decoder"] = conv_d
+    return encoder_net, decoder_net, meta_state_dict

@@ -1,5 +1,5 @@
-"""Image resizing and padding (counterpart of `atomai_tpu/utils/img.py:28-39,
-73-83`)."""
+"""Image resizing, padding and random patches (counterpart of
+`atomai_tpu/utils/img.py:28-39, 73-83, 241-251`)."""
 
 from typing import Tuple
 
@@ -39,3 +39,17 @@ def img_pad(image_data: np.ndarray, pooling: int) -> np.ndarray:
     pad_width = [(0, 0), (0, ph), (0, pw)] + \
         [(0, 0)] * (image_data.ndim - 3)
     return np.pad(image_data, pad_width, mode="constant")
+
+
+def extract_patches_2d(image: np.ndarray, patch_size: Tuple[int, int],
+                       max_patches: int, random_state: int = 0
+                       ) -> np.ndarray:
+    """``max_patches`` random (ph, pw) patches of a 2D image, drawn from
+    ``np.random.RandomState(random_state)``: the JAX package's patches for
+    the same arguments."""
+    ph, pw = patch_size
+    h, w = image.shape[:2]
+    rng = np.random.RandomState(random_state)
+    ii = rng.randint(0, h - ph + 1, max_patches)
+    jj = rng.randint(0, w - pw + 1, max_patches)
+    return np.stack([image[i:i + ph, j:j + pw] for i, j in zip(ii, jj)])

@@ -1,6 +1,6 @@
 """Image canonicalization, channel-last (numpy only).
 
-Counterpart of `atomai_tpu/utils/preproc.py:39-54, 113-127`.
+Counterpart of `atomai_tpu/utils/preproc.py:39-54, 113-127, 192-201`.
 """
 
 import numpy as np
@@ -38,3 +38,15 @@ def format_image(image_data: np.ndarray, norm: bool = True) -> np.ndarray:
         ptp = np.ptp(image_data)
         image_data = (image_data - image_data.min()) / max(ptp, 1e-12)
     return image_data
+
+
+def to_onehot(idx: np.ndarray, n: int) -> np.ndarray:
+    """(k,) or (k, 1) integer labels -> (k, n) float32 one-hot rows."""
+    idx = np.asarray(idx).astype(np.int64)
+    if idx.ndim == 2 and idx.shape[1] == 1:
+        idx = idx[:, 0]
+    if idx.max() >= n:
+        raise AssertionError(
+            "Labelling must start from 0 and maximum label value must be "
+            "less than total number of classes")
+    return np.eye(n, dtype=np.float32)[idx]

@@ -1,4 +1,4 @@
-"""Writes the JAX-made fixture that the PyTorch port is held against where
+"""Writes the JAX-made fixtures that the PyTorch port is held against where
 JAX cannot run (on the GPU machine).
 
 ``tests/fixtures/torch_port_unet_fwd.npz`` holds:
@@ -10,9 +10,21 @@ JAX cannot run (on the GPU machine).
 - ``x``: a (2, 64, 64, 1) float32 input drawn from numpy seed 0;
 - ``y``: the JAX float32 output logits (2, 64, 64, 1).
 
+``tests/fixtures/torch_port_rvae_step.npz`` holds one training step of the
+rVAE at bench config C's width (`bench.py:291-327`): ``rVAE((32, 32),
+latent_dim=2)`` (seed 0) with
+- ``params/...``: its initial JAX params, flattened as above;
+- ``x``: 128 of config C's 1024 patches of 32x32 (every 8th), cut from
+  ``make_lattice_stack(n_images=2, size=256, spacing=16, seed=3)``;
+- ``eps``: the (128, 5) reparameterisation noise, numpy seed 0;
+- ``elbo``: the ELBO of that batch (``num_iter`` 0, both priors 0.1);
+- ``grads/...``: the ELBO's gradient with respect to every param;
+- ``adam/...``: the params after one ``optax.adam(1e-4)`` step on -ELBO.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
-``tests/test_torch_nets.py`` regenerates the contents and compares them
-with the file, so the fixture cannot go stale.
+``tests/test_torch_nets.py`` and ``tests/test_torch_vae.py`` regenerate
+the contents and compare them with the files, so the fixtures cannot go
+stale.
 """
 
 import os
@@ -24,6 +36,9 @@ import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_unet_fwd.npz")
+RVAE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                            "torch_port_rvae_step.npz")
+RVAE_BATCH = 128
 
 
 def flatten(tree, prefix):
@@ -90,12 +105,60 @@ def make_fixture():
     return out
 
 
+def config_c_patches():
+    """Bench config C's 1024 patches of 32x32 (`bench.py:300-304`)."""
+    from atomai_tpu_torch.utils import extract_patches_2d, make_lattice_stack
+    images, _, _ = make_lattice_stack(n_images=2, size=256, spacing=16,
+                                      seed=3)
+    return np.concatenate([extract_patches_2d(p, (32, 32), 512, i)
+                           for i, p in enumerate(images)])
+
+
+def make_rvae_fixture():
+    """One rVAE training step at config C's width, computed with the JAX
+    package on the CPU in float32."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    jax.config.update("jax_platforms", "cpu")
+    import atomai_tpu as aoi
+
+    x = config_c_patches()[::8][:RVAE_BATCH]
+    eps = np.random.RandomState(0).randn(RVAE_BATCH, 5).astype(np.float32)
+    m = aoi.models.rVAE((32, 32), latent_dim=2)
+    m._init_params()
+    m.dx_prior = 0.1
+    m.kdict_["phi_prior"] = 0.1
+    # the noise comes from the fixture, not from a JAX key
+    m.reparameterize = lambda key, mu, sd: mu + sd * jnp.asarray(eps)
+    params = jax.tree.map(np.asarray, jax.device_get(m.params))
+
+    def elbo_fn(p):
+        return m.forward_compute_elbo_fn(p, jnp.asarray(x), None,
+                                         jax.random.key(0), 0, True)
+
+    with jax.default_matmul_precision("highest"):
+        elbo, grads = jax.value_and_grad(elbo_fn)(params)
+    tx = optax.adam(1e-4)
+    neg = jax.tree.map(lambda g: -g, grads)
+    updates, _ = tx.update(neg, tx.init(params), params)
+    stepped = optax.apply_updates(params, updates)
+    out = {"x": x.astype(np.float32), "eps": eps,
+           "elbo": np.asarray(elbo, np.float32)}
+    for prefix, tree in (("params", params), ("grads", grads),
+                         ("adam", stepped)):
+        out.update(flatten(jax.tree.map(np.asarray, tree), prefix))
+    return out
+
+
 def main():
-    arrays = make_fixture()
-    os.makedirs(os.path.dirname(FIXTURE), exist_ok=True)
-    np.savez(FIXTURE, **arrays)
-    n_bytes = sum(a.nbytes for a in arrays.values())
-    print(f"wrote {FIXTURE}: {len(arrays)} arrays, {n_bytes} bytes")
+    for path, make in ((FIXTURE, make_fixture),
+                       (RVAE_FIXTURE, make_rvae_fixture)):
+        arrays = make()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez(path, **arrays)
+        n_bytes = sum(a.nbytes for a in arrays.values())
+        print(f"wrote {path}: {len(arrays)} arrays, {n_bytes} bytes")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,178 @@
+"""The port's fused spatial-decoder MLP against the JAX package's.
+
+- The plain versions (forward and explicit backward) against the JAX
+  reference forward and ``jax.grad`` of it, in float32: 1e-5 after
+  dividing by each output's scale.
+- The plain versions against the JAX Pallas kernel pair run in interpret
+  mode, as `tests/ops/test_pallas_mlp.py` runs it: 5e-2 after dividing by
+  each output's scale, since the kernel rounds its operands to bf16.
+- The explicit backward against torch autograd of the plain forward.
+- The wrapper's dispatch: a CPU tensor takes the plain version and counts
+  no launch; the CUDA entry points raise on a CPU tensor.
+- The decoder's routing, and its two routes computing one function.
+
+The CUDA kernels themselves are held against the plain versions on the
+card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from atomai_tpu.ops import pallas_mlp
+from atomai_tpu_torch.nets import rDecoderNet
+from atomai_tpu_torch.ops import spatial_mlp as sm
+
+torch.set_num_threads(1)
+
+NAMES = ["dx", "dzb", "dWc", "dbc", "dWs", "dbs", "dWo", "dbo"]
+TIGHT = 1e-5     # float32 plain versions against float32 XLA
+KERNEL = 5e-2    # against the bf16-operand Pallas kernel
+
+
+def _inputs(B, n, H, L, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.uniform(-1, 1, (B, 2, n)).astype(np.float32),
+            (rng.randn(B, H) * 0.3).astype(np.float32),
+            (rng.randn(2, H) / 2).astype(np.float32),
+            (rng.randn(1, H) * 0.1).astype(np.float32),
+            (rng.randn(L, H, H) / np.sqrt(H)).astype(np.float32),
+            (rng.randn(L, H) * 0.1).astype(np.float32),
+            (rng.randn(H, 1) / np.sqrt(H)).astype(np.float32),
+            (rng.randn(1, 1) * 0.1).astype(np.float32)], \
+        (rng.randn(B, 1, n) * 0.1).astype(np.float32)
+
+
+def _port(args, gy):
+    t = [torch.from_numpy(a) for a in args]
+    y = sm.spatial_mlp_reference(*t).numpy()
+    grads = sm.spatial_mlp_backward_reference(*t, torch.from_numpy(gy))
+    return y, [g.numpy() for g in grads]
+
+
+def _jax_grads(fn, args, gy):
+    def loss(*a):
+        return jnp.sum(fn(*a) * gy)
+    return [np.asarray(g) for g in
+            jax.grad(loss, argnums=tuple(range(8)))(*map(jnp.asarray, args))]
+
+
+def _assert_scaled(got, want, tol, name):
+    scale = max(float(np.abs(want).max()), 1e-3)
+    np.testing.assert_allclose(got / scale, want / scale, atol=tol,
+                               rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("B,n,H,L", [(3, 50, 32, 2), (2, 37, 16, 0),
+                                     (2, 64, 48, 3)])
+def test_plain_versions_match_jax_reference(B, n, H, L):
+    args, gy = _inputs(B, n, H, L, seed=n)
+    y, grads = _port(args, gy)
+    with jax.default_matmul_precision("highest"):
+        y_ref = np.asarray(pallas_mlp.spatial_mlp_reference(
+            *map(jnp.asarray, args)))
+        g_ref = _jax_grads(pallas_mlp.spatial_mlp_reference, args, gy)
+    assert y.shape == (B, 1, n)
+    _assert_scaled(y, y_ref, TIGHT, "y")
+    for name, a, b in zip(NAMES, grads, g_ref):
+        assert a.shape == b.shape, name
+        if b.size:
+            _assert_scaled(a, b, TIGHT, name)
+
+
+@pytest.mark.parametrize("n", [512, 2560])
+def test_plain_versions_match_pallas_kernel(n):
+    """B = 4, H = 128, L = 2, as the JAX package's kernel test; n = 2560 is
+    its tail case (n > MAX_TILE, not a multiple of it)."""
+    args, gy = _inputs(4, n, 128, 2, seed=n + 1)
+    y, grads = _port(args, gy)
+    with pltpu.force_tpu_interpret_mode():
+        y_k = np.asarray(pallas_mlp.spatial_mlp(*map(jnp.asarray, args)))
+        g_k = _jax_grads(pallas_mlp.spatial_mlp, args, gy)
+    _assert_scaled(y, y_k, KERNEL, "y")
+    for name, a, b in zip(NAMES, grads, g_k):
+        _assert_scaled(a, b, KERNEL, name)
+
+
+@pytest.mark.parametrize("L", [0, 1, 3])
+def test_backward_reference_matches_autograd(L):
+    args, gy = _inputs(3, 40, 32, L, seed=L)
+    t = [torch.from_numpy(a).double().requires_grad_() for a in args]
+    gy_t = torch.from_numpy(gy).double()
+    auto = torch.autograd.grad((sm.spatial_mlp_reference(*t) * gy_t).sum(),
+                               t, allow_unused=True, materialize_grads=True)
+    explicit = sm.spatial_mlp_backward_reference(
+        *[a.detach() for a in t], gy_t)
+    for name, a, b in zip(NAMES, explicit, auto):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12, msg=name)
+
+
+def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
+    args, gy = _inputs(2, 30, 16, 1, seed=5)
+    t = [torch.from_numpy(a).requires_grad_() for a in args]
+    before = (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES)
+    y = sm.spatial_mlp(*t)
+    (y * torch.from_numpy(gy)).sum().backward()
+    assert (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES) == before
+    torch.testing.assert_close(y.detach(), sm.spatial_mlp_reference(
+        *[a.detach() for a in t]), rtol=0, atol=0)
+    explicit = sm.spatial_mlp_backward_reference(
+        *[a.detach() for a in t], torch.from_numpy(gy))
+    for name, a, b in zip(NAMES, [a.grad for a in t], explicit):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_cuda_entry_points_raise_on_cpu_tensors():
+    args, gy = _inputs(2, 30, 16, 1, seed=6)
+    t = [torch.from_numpy(a) for a in args]
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.spatial_mlp_forward_cuda(*t)
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.spatial_mlp_backward_cuda(*t, torch.from_numpy(gy))
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
+        sm.spatial_mlp(*[a.to("meta") for a in t])
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda a: [a[0][:, :1]] + a[1:], "xT"),
+    (lambda a: a[:1] + [a[1][:, :8]] + a[2:], "zb"),
+    (lambda a: a[:4] + [a[4][:, :, :8]] + a[5:], "Ws"),
+    (lambda a: a[:6] + [a[6].T] + a[7:], "Wo"),
+])
+def test_kernel_entry_points_check_shapes(bad, match):
+    args, _ = _inputs(2, 30, 16, 1, seed=7)
+    with pytest.raises(ValueError, match=match):
+        sm.spatial_mlp_forward_cuda(*bad([torch.from_numpy(a)
+                                          for a in args]))
+
+
+@pytest.mark.parametrize("H,ok", [(16, True), (48, True), (128, True),
+                                  (512, True), (8, False), (100, False),
+                                  (528, False)])
+def test_kernel_range(H, ok):
+    assert sm.mlp_shapes_supported(H) is ok
+
+
+@pytest.mark.parametrize("kwargs,fused", [
+    ({}, True), ({"skip": True}, False), ({"hidden_dim": 100}, False),
+    ({"out_dim": (8, 8, 2)}, False), ({"num_layers": 0}, True)])
+def test_decoder_routes_by_shape_and_routes_agree(kwargs, fused):
+    cfg = dict(out_dim=(8, 8), latent_dim=2, num_layers=2, hidden_dim=32)
+    cfg.update(kwargs)
+    net = rDecoderNet(**cfg)
+    assert net.fused() is fused
+    rng = np.random.RandomState(0)
+    xc = torch.from_numpy(rng.uniform(-1, 1, (3, 64, 2)).astype(np.float32))
+    z = torch.from_numpy(rng.randn(3, 2).astype(np.float32))
+    with torch.no_grad():
+        y = net(xc, z)
+        # the per-layer route on the same parameters
+        net.fused = lambda: False
+        y_layers = net(xc, z)
+    assert y.shape == (3,) + tuple(cfg["out_dim"])
+    torch.testing.assert_close(y, y_layers, rtol=1e-5, atol=1e-6)

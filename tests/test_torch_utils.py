@@ -1,7 +1,7 @@
 """The port's host utilities and core policy against the JAX package.
 
-The lattice generator and padding are numpy copies and must agree bit for
-bit; ``img_resize`` goes through torch's antialiased bilinear resize and
+The lattice generator, padding, random patches and one-hot labels are
+numpy copies and must agree bit for bit; ``img_resize`` goes through torch's antialiased bilinear resize and
 must match ``jax.image.resize(..., "linear")`` to float32 rounding (atol
 1e-6) when it shrinks as well as when it grows.
 """
@@ -13,11 +13,12 @@ import torch
 from atomai_tpu.utils import imgen as jax_imgen
 from atomai_tpu.utils import img as jax_img
 from atomai_tpu.utils import preproc as jax_preproc
-from atomai_tpu_torch.core import (Precision, default_precision,
-                                   generator_from_seed,
-                                   set_default_precision)
-from atomai_tpu_torch.utils import (format_image, img_pad, img_resize,
-                                    make_lattice_stack)
+from atomai_tpu_torch.core import (GeneratorSeq, Precision,
+                                   default_precision, generator_from_seed,
+                                   head_f32, set_default_precision)
+from atomai_tpu_torch.utils import (extract_patches_2d, format_image,
+                                    img_pad, img_resize, make_lattice_stack,
+                                    to_onehot)
 
 torch.set_num_threads(1)
 
@@ -87,3 +88,43 @@ def test_generator_from_seed_is_reproducible():
     b = torch.rand(5, generator=generator_from_seed(3))
     c = torch.rand(5, generator=generator_from_seed(4))
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("shape,patch,n,seed", [
+    ((64, 64), (16, 16), 20, 0), ((50, 40), (32, 8), 7, 3)])
+def test_extract_patches_2d_equals_jax_package(shape, patch, n, seed):
+    image = np.random.RandomState(seed).rand(*shape).astype(np.float32)
+    np.testing.assert_array_equal(
+        extract_patches_2d(image, patch, n, seed),
+        jax_img.extract_patches_2d(image, patch, n, seed))
+
+
+@pytest.mark.parametrize("labels,n", [([0, 2, 1, 2], 3), ([[1], [0]], 2)])
+def test_to_onehot_equals_jax_package(labels, n):
+    np.testing.assert_array_equal(to_onehot(np.array(labels), n),
+                                  jax_preproc.to_onehot(np.array(labels), n))
+    with pytest.raises(AssertionError, match="Labelling"):
+        to_onehot(np.array(labels), 1)
+
+
+def test_mixed_policy_runs_linear_layers_in_bf16_and_heads_in_f32():
+    """Under the mixed scope a hidden ``nn.Linear`` computes in bf16 and a
+    head through ``head_f32`` in float32 (autocast on the CPU stands in
+    for the card's)."""
+    hidden, head = torch.nn.Linear(8, 8), torch.nn.Linear(8, 2)
+    x = torch.randn(4, 8)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        h = hidden(x)
+        out = head_f32(head, h)
+    assert h.dtype == torch.bfloat16
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, head(h.float()))
+
+
+def test_generator_seq_is_a_deterministic_stream():
+    a, b = GeneratorSeq(3), GeneratorSeq(3)
+    draws_a = [torch.rand(4, generator=g) for g in a.next(3)]
+    draws_b = [torch.rand(4, generator=b.next()) for _ in range(3)]
+    for x, y in zip(draws_a, draws_b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert not torch.equal(draws_a[0], draws_a[1])
