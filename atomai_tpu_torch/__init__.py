@@ -1,10 +1,13 @@
 """
 atomai_tpu_torch — the PyTorch/CUDA port of ``atomai_tpu``.
 
-Two paths are ported:
-- segmentation serving: ``Segmentor("Unet")`` -> ``SegPredictor`` (min-max
-  normalise, forward, sigmoid) -> ``Locator`` (threshold, connected-
-  component labels, centres of mass);
+Two workloads are ported:
+- segmentation: ``Segmentor("Unet").fit`` (the SegTrainer with its losses,
+  IoU, SWA, weight perturbation and on-device augmentation) ->
+  ``predict`` through ``SegPredictor`` (min-max normalise, forward,
+  sigmoid) and ``Locator`` (threshold, connected-component labels, centres
+  of mass, optional 2D-Gaussian refinement); ``load_model`` reads the
+  port's ``.aoit`` checkpoints;
 - rVAE (and VAE) training and inference: ``rVAE(...).fit`` -> encode,
   decode, reconstruct, manifold2d.
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
@@ -14,8 +17,8 @@ every other op is stock PyTorch. The package imports ``torch`` and never
 JAX.
 
 Public layout follows ``atomai_tpu``: ``models``, ``predictors``,
-``trainers``, ``losses_metrics``, ``utils``, ``ops`` (plus ``core`` and
-``nets``).
+``trainers``, ``transforms``, ``losses_metrics``, ``utils``, ``ops`` (plus
+``core`` and ``nets``).
 """
 
 from . import core
@@ -23,10 +26,12 @@ from . import utils
 from . import nets
 from . import ops
 from . import losses_metrics
+from . import transforms
 from . import trainers
 from . import predictors
 from . import models
+from .models import load_model
 from .__version__ import version as __version__
 
-__all__ = ["core", "utils", "nets", "ops", "losses_metrics", "trainers",
-           "predictors", "models", "__version__"]
+__all__ = ["core", "utils", "nets", "ops", "losses_metrics", "transforms",
+           "trainers", "predictors", "models", "load_model", "__version__"]

@@ -1,4 +1,5 @@
-"""Precision policy, seeding, checkpoints and the metrics log."""
+"""Precision policy, seeding, checkpoints, the metrics log and the SWA
+state."""
 
 from .checkpoint import (flush_async_checkpoints, load_checkpoint,
                          save_checkpoint, save_checkpoint_async)
@@ -6,9 +7,10 @@ from .dtypes import (Precision, default_precision, head_f32,
                      set_default_precision)
 from .mlog import MetricsLogger, open_metrics_log
 from .prng import GeneratorSeq, generator_from_seed
+from .state import SwaState
 
 __all__ = ["Precision", "default_precision", "head_f32",
            "set_default_precision", "GeneratorSeq", "generator_from_seed",
            "save_checkpoint", "save_checkpoint_async",
            "flush_async_checkpoints", "load_checkpoint", "MetricsLogger",
-           "open_metrics_log"]
+           "open_metrics_log", "SwaState"]

@@ -7,9 +7,10 @@ dtype (`atomai_tpu/nets/blocks.py:49-51` ``_cdtype``). A head that the JAX
 package keeps in float32 (the VAE encoders' ``z_mu``/``z_logstd``, the
 decoders' output layer) runs through :func:`head_f32`, outside autocast.
 On the CPU everything runs in float32. The TF32 switches of cuDNN and
-cuBLAS are set from the policy every time a model runs under it, never
-left at torch's defaults (cuDNN runs float32 convs in TF32 unless told
-otherwise), and are put back as they were when the run ends.
+cuBLAS are set from the policy every time a model runs under it, forward
+and backward, never left at torch's defaults (cuDNN runs float32 convs in
+TF32 unless told otherwise), and are put back as they were when the run
+ends.
 """
 
 import contextlib
@@ -36,20 +37,28 @@ class Precision:
         return cls()
 
     @contextlib.contextmanager
-    def scope(self, device: torch.device):
-        """Runs the enclosed forward under this policy on ``device``."""
-        device = torch.device(device)
+    def tf32_scope(self):
+        """Sets the TF32 switches of cuDNN and cuBLAS to this policy's for
+        the enclosed code, without autocast: a backward pass runs in it,
+        since the switches are read when a kernel launches."""
         saved = (torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = self.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = self.allow_tf32
         try:
-            with torch.autocast(device.type, dtype=self.compute_dtype,
-                                enabled=self.compute_dtype != torch.float32):
-                yield
+            yield
         finally:
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = saved
+
+    @contextlib.contextmanager
+    def scope(self, device: torch.device):
+        """Runs the enclosed forward under this policy on ``device``."""
+        device = torch.device(device)
+        with self.tf32_scope(), torch.autocast(
+                device.type, dtype=self.compute_dtype,
+                enabled=self.compute_dtype != torch.float32):
+            yield
 
 
 _OVERRIDE: Optional[Precision] = None

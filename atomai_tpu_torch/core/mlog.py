@@ -1,9 +1,10 @@
 """Training-metrics log, one JSON object per line (counterpart of
 `atomai_tpu/core/mlog.py:20-55`).
 
-``fit(..., metrics_log="run.jsonl")`` appends, per epoch::
+``fit(..., metrics_log="run.jsonl")`` appends, per epoch or cycle::
 
     {"cycle": 17, "wall_s": 12.93, "train_elbo": ..., "test_elbo": ...}
+    {"cycle": 17, "wall_s": 1.07, "train_loss": ..., "test_loss": ...}
 
 Lines are flushed as they are written, so ``tail -f`` follows a live run.
 """
@@ -28,6 +29,15 @@ class MetricsLogger:
             if v is not None:
                 rec[k] = float(v)
         self._fh.write(json.dumps(rec) + "\n")
+
+    def log_many(self, first_cycle: int, **series) -> None:
+        """Logs aligned per-cycle series, one line a cycle (the trainers
+        copy a chunk of cycles to the host at once)."""
+        arrays = {k: v for k, v in series.items() if v is not None}
+        if not arrays:
+            return
+        for i in range(min(len(v) for v in arrays.values())):
+            self.log(first_cycle + i, **{k: v[i] for k, v in arrays.items()})
 
     def close(self) -> None:
         if self._fh is not None:

@@ -3,7 +3,8 @@
 Counterpart of `atomai_tpu/nets/blocks.py:104-161, 323-327`:
 - ConvBlock: [conv -> (dropout) -> LeakyReLU(0.01) -> (BatchNorm)] x n,
 - UpsampleBlock: 2x interpolation (bilinear / nearest) + 1x1 conv,
-- max_pool: 2x2 window, stride 2.
+- max_pool: 2x2 window, stride 2;
+- Dropout: ``nn.Dropout`` that draws its mask from an explicit generator.
 
 Submodules carry the names of original atomai's modules (``block.<i>``,
 ``conv``), so ``state_dict`` keys line up with its checkpoints. torch's
@@ -19,6 +20,21 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` whose mask is drawn from ``self.generator`` when one
+    is set (the trainers set it for each step, so no draw touches torch's
+    global generator); without one it is ``nn.Dropout``."""
+
+    generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0 or self.generator is None:
+            return super().forward(x)
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
 class ConvBlock(nn.Module):
@@ -41,7 +57,7 @@ class ConvBlock(nn.Module):
             block.append(nn.Conv2d(cin, output_channels, kernel_size,
                                    stride=stride, padding=padding))
             if dropout_ > 0:
-                block.append(nn.Dropout(dropout_))
+                block.append(Dropout(dropout_))
             block.append(nn.LeakyReLU(negative_slope=lrelu_a))
             if batch_norm:
                 block.append(nn.BatchNorm2d(output_channels, eps=1e-5,

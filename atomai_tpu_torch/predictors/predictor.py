@@ -9,7 +9,8 @@ Counterpart of `atomai_tpu/predictors/predictor.py:57-352, 455-563`:
   whole stack), forward, sigmoid/softmax; NHWC maps out;
 - :class:`Locator`: background channel for one-class output, threshold,
   connected-component labels and centres of mass for all frames at once,
-  edge removal. Output: ``{frame: (n, 3) [row, col, class]}``.
+  edge removal, and with ``refine`` a batched 2D-Gaussian fit of every
+  atom on the device. Output: ``{frame: (n, 3) [row, col, class]}``.
 
 ``SegPredictor.run`` keeps the maps on the device: thresholds, labels and
 moments are taken there, and only the coordinates and the NHWC maps that
@@ -27,11 +28,10 @@ import torch.nn as nn
 from ..core.dtypes import default_precision
 from ..nets.fcnn import DOWNSAMPLE_FACTORS
 from ..ops.cc_label import blob_centers_tiled
+from ..ops.peakfit import refine_peaks
+from ..utils.coords import mean_nn_distance
 from ..utils.img import img_pad, img_resize
 from ..utils.preproc import format_image
-
-_REFINE_NOT_PORTED = ("refine=True is not ported yet: peak refinement is "
-                      "ROADMAP Queue 1 #8")
 
 
 class BasePredictor:
@@ -75,15 +75,17 @@ class SegPredictor(BasePredictor):
 
     Keyword args besides :class:`BasePredictor`'s: ``nb_classes``,
     ``downsampling`` (default from the net's class), ``thresh`` (0.5),
-    ``num_batches``, ``norm``.
+    ``num_batches``, ``norm``, and ``d``, the window half-side of
+    ``refine`` (default: a quarter of each frame's mean nearest-neighbour
+    distance).
     """
 
     def __init__(self, model: nn.Module, refine: bool = False,
                  resize: Optional[Tuple[int, int]] = None,
                  logits: bool = True, **kwargs):
-        if refine:
-            raise NotImplementedError(_REFINE_NOT_PORTED)
         super().__init__(model, **kwargs)
+        self.refine = refine
+        self.d = kwargs.get("d")
         self.nb_classes = kwargs.get("nb_classes") or \
             getattr(model, "nb_classes", 1)
         self.downsampling = kwargs.get("downsampling") or \
@@ -122,8 +124,10 @@ class SegPredictor(BasePredictor):
         bytes_total = n * h * w * 4 * max(self.nb_classes, 16)
         return min(max(1, int(np.ceil(bytes_total / (256 * 2 ** 20)))), n)
 
-    def predict_device(self, image_data, **kwargs) -> torch.Tensor:
-        """NHWC float32 probability maps, left on the device."""
+    def predict_device(self, image_data, return_image: bool = False,
+                       **kwargs):
+        """NHWC float32 probability maps, left on the device; with
+        ``return_image`` also the preprocessed NHWC images."""
         x = self.preprocess(image_data, kwargs.get("norm", True))
         n, h, w = x.shape[:3]
         num_batches = kwargs.get("num_batches") or \
@@ -134,7 +138,8 @@ class SegPredictor(BasePredictor):
                 else torch.sigmoid(y)
         elif self.nb_classes > 1:
             y = torch.exp(y)
-        return y.permute(0, 2, 3, 1).contiguous()
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return (y, x) if return_image else y
 
     def predict(self, image_data, **kwargs) -> np.ndarray:
         """NHWC float32 probability maps as numpy."""
@@ -145,9 +150,9 @@ class SegPredictor(BasePredictor):
         start_time = time.time()
         if not compute_coords:
             return self.predict(image_data, **kwargs)
-        y = self.predict_device(image_data, **kwargs)
+        y, x = self.predict_device(image_data, return_image=True, **kwargs)
         thresh = kwargs.get("thresh", self.thresh)
-        coordinates = Locator(thresh).run(y)
+        coordinates = Locator(thresh, refine=self.refine, d=self.d).run(y, x)
         decoded_imgs = y.cpu().numpy()
         if self.verbose:
             n_images_str = " image was " if decoded_imgs.shape[0] == 1 \
@@ -165,16 +170,19 @@ class Locator:
     All (frame, class) masks of the stack are labelled as one tiled image
     and reduced to centres of mass on the device; only the coordinates are
     copied to the host. A tensor input is labelled on its device (the CUDA
-    kernel for a CUDA tensor); a numpy input is labelled on the CPU.
+    kernel for a CUDA tensor); a numpy input is labelled on the CPU. With
+    ``refine=True`` (keyword args ``refine``, ``d``), ``run`` takes the
+    images too and refines every atom by a 2D Gaussian fit on the maps'
+    device (:func:`refine_peaks`), all frames in one batch per window size.
     """
 
     def __init__(self, threshold: float = 0.5, dist_edge: int = 5,
                  dim_order: str = "channel_last", **kwargs):
-        if kwargs.get("refine"):
-            raise NotImplementedError(_REFINE_NOT_PORTED)
         self.dim_order = dim_order
         self.threshold = threshold
         self.dist_edge = dist_edge
+        self.refine = kwargs.get("refine")
+        self.d = kwargs.get("d")
 
     def preprocess(self, nn_output: torch.Tensor) -> torch.Tensor:
         """Adds the background channel to one-class output
@@ -188,10 +196,11 @@ class Locator:
                 'For dim_order, use "channel_first" or "channel_last"')
         return nn_output
 
-    def run(self, nn_output: Union[np.ndarray, torch.Tensor]
-            ) -> Dict[int, np.ndarray]:
+    def run(self, nn_output: Union[np.ndarray, torch.Tensor],
+            *args: Union[np.ndarray, torch.Tensor]) -> Dict[int, np.ndarray]:
         """Coordinates for every frame: {frame: (n, 3) float64
-        [row, col, class]}, classes in channel order."""
+        [row, col, class]}, classes in channel order. With ``refine``, the
+        images (N, H, W[, 1]) follow ``nn_output``."""
         if not isinstance(nn_output, torch.Tensor):
             nn_output = torch.from_numpy(np.asarray(nn_output, np.float32))
         nn_output = self.preprocess(nn_output)
@@ -211,7 +220,36 @@ class Locator:
                  np.full((len(per_mask[i * n_cls + ch]), 1), float(ch))],
                 axis=1) for ch in range(n_cls)]
             d_coord[i] = np.concatenate(parts, axis=0)
+        if self.refine:
+            if not args:
+                raise AssertionError(
+                    "Pass input image(s) for coordinates refinement")
+            d_coord = self._refine(d_coord, args[0], nn_output.device)
         return d_coord
+
+    def _refine(self, d_coord: Dict[int, np.ndarray], images,
+                device: torch.device) -> Dict[int, np.ndarray]:
+        """Refines every frame's atoms in the images on ``device``: one
+        :func:`refine_peaks` call for each distinct window half-side."""
+        imgs = torch.as_tensor(images, dtype=torch.float32).to(device)
+        if imgs.ndim == 4:
+            imgs = imgs[..., 0]
+        frames = [i for i in d_coord if len(d_coord[i])]
+        d_of = {i: int(self.d) if self.d is not None else
+                int(mean_nn_distance(d_coord[i]) * 0.25) for i in frames}
+        out = dict(d_coord)
+        for d in sorted(set(d_of.values())):
+            sel = [i for i in frames if d_of[i] == d]
+            xy = np.concatenate([d_coord[i][:, :2] for i in sel])
+            idx = np.concatenate([np.full(len(d_coord[i]), i) for i in sel])
+            refined = refine_peaks(
+                imgs, torch.as_tensor(xy, dtype=torch.float32,
+                                      device=device), d,
+                torch.as_tensor(idx, device=device)).cpu().numpy()
+            for i, part in zip(sel, np.split(refined, np.cumsum(
+                    [len(d_coord[i]) for i in sel])[:-1])):
+                out[i] = np.concatenate([part, d_coord[i][:, 2:3]], axis=1)
+        return out
 
     def _rem_edge(self, coords: torch.Tensor, frames: torch.Tensor, h: int,
                   w: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,506 @@
+"""Supervised training engine and the segmentation trainer.
+
+Counterpart of `atomai_tpu/trainers/trainer.py:40-877` with one engine: a
+Python loop of eager steps, in place of the JAX package's scan/loop pair
+(which exists because XLA:CPU runs scan bodies single-threaded). What it
+keeps:
+- the batch schedule of `:40-47`, the same numpy draws, so a seed gives the
+  JAX package's batch order;
+- both epoch modes: ``full_epoch=False`` trains one scheduled minibatch a
+  cycle and scores one scheduled test batch; ``full_epoch=True`` trains
+  every batch in order, then scores every test batch;
+- Adam(1e-3) by default, or "adam", "sgd" (no momentum) and "adamw"
+  (weight decay 1e-4, optax's default; torch's is 1e-2), or a callable
+  ``params -> torch.optim.Optimizer``;
+- the per-step LR schedule (`:291-302`): step s takes
+  ``lrs[min(s, len - 1)]``, each entry repeated per batch in full-epoch
+  mode;
+- SWA over the last 5 (full epoch) or 30 cycles, of parameters only;
+- weight perturbation ``w += N(0, a / (1 + e)^gamma)`` every ``e_p``
+  cycles, refused with BatchNorm (`:238-248, 822-834`);
+- test metrics on clean (unaugmented) batches, with the net in eval mode;
+- per-cycle losses kept on the device and copied to the host once per
+  ``print_loss`` chunk, then printed and appended to the JSONL log;
+- ``eval_model``, ``save_model(include_optimizer=...)``,
+  ``resume_training``, ``train_step`` and ``test_step``.
+
+Every random draw of a run (augmentation, dropout, perturbation) comes
+from one generator on the model's device, seeded from the trainer's
+:class:`GeneratorSeq`. Not ported: device meshes (ROADMAP Queue 1 #21),
+rematerialisation (Queue 1 #22), ``plot_training_history`` (plotting,
+Queue 1 #19), and the XLA cost-analysis helpers.
+"""
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..core.dtypes import default_precision
+from ..core.mlog import open_metrics_log
+from ..core.prng import GeneratorSeq, generator_from_seed
+from ..core.state import SwaState
+from ..losses_metrics import iou_score, select_loss
+from ..nets import Dropout, init_fcnn_model, init_weights_
+from ..utils import preproc
+
+
+def _shuffled_batch_schedule(n_batches: int, cycles: int, seed: int
+                             ) -> np.ndarray:
+    """Batch-index schedule: every batch repeated to cover ``cycles``, then
+    shuffled by ``RandomState(seed)``."""
+    r = cycles // n_batches
+    idx = np.arange(n_batches).repeat(r + 1)[:cycles]
+    rng = np.random.RandomState(seed)
+    return rng.permutation(idx)
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    """numpy or tensor -> tensor on ``device``: floats as float32,
+    integers as int64 (torch's label dtype)."""
+    t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                        else a)
+    t = t.float() if t.is_floating_point() else t.long()
+    return t.to(device)
+
+
+class BaseTrainer:
+    """Generic supervised trainer: data staged on the device as stacked
+    (n_batches, batch, ...) tensors, the net, its optimizer and the cycle
+    loop. Subclasses set ``self.net`` and may override :meth:`set_data`,
+    :meth:`forward` and :meth:`accuracy_fn`."""
+
+    def __init__(self, seed: int = 1, device: Any = "cpu"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' was asked for, but torch "
+                               "sees no CUDA device")
+        self.seed = seed
+        self.keys = GeneratorSeq(seed)
+        self.precision = default_precision(self.device)
+        self.net: Optional[nn.Module] = None
+        self.criterion: Optional[Callable] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.lrs: Optional[List[float]] = None
+        self.num_steps = 0          # optimizer steps; indexes ``lrs``
+        self.compute_accuracy = False
+        self.full_epoch = True
+        self.swa = False
+        self.perturb_weights: Union[bool, Dict[str, float]] = False
+        self.training_cycles = 0
+        self.batch_idx_train = self.batch_idx_test = None
+        self.batch_size = 1
+        self.nb_classes = None
+        self.Xb_train = self.yb_train = None
+        self.Xb_test = self.yb_test = None
+        self.data_is_set = False
+        self.augment_fn: Optional[Callable] = None  # (generator, X, y)
+        self.filename = "model"
+        self.print_loss = 1
+        self.lr_scheduler = None
+        self.meta_state_dict: Dict[str, Any] = {}
+        self.accuracy_metrics = None
+        self.metrics_log = None
+        self.running_weights_stats = None
+        self._reset_training_history()
+
+    def _reset_training_history(self) -> None:
+        self.loss_acc = {"train_loss": [], "test_loss": [],
+                         "train_accuracy": [], "test_accuracy": []}
+
+    # -------------------------------------------------------------- data
+    def set_data(self, X_train, y_train, X_test=None, y_test=None,
+                 **kwargs) -> None:
+        """Splits off a test set when none is given and stages both."""
+        if X_test is None or y_test is None:
+            X_train, y_train, X_test, y_test = preproc.data_split(
+                X_train, y_train, kwargs.get("test_size", .15),
+                kwargs.get("seed", 1))
+        self._stage_batches(np.asarray(X_train, np.float32),
+                            np.asarray(y_train),
+                            np.asarray(X_test, np.float32),
+                            np.asarray(y_test))
+
+    def _stage_batches(self, X_train, y_train, X_test, y_test) -> None:
+        def stage(a):
+            return _as_tensor(np.ascontiguousarray(
+                preproc.stack_batches(a, self.batch_size)), self.device)
+        self.Xb_train, self.yb_train = stage(X_train), stage(y_train)
+        self.Xb_test, self.yb_test = stage(X_test), stage(y_test)
+        self.data_is_set = True
+
+    # ----------------------------------------------------------- compile
+    def compile_trainer(self, train_data: Optional[Tuple] = None,
+                        loss: Union[str, Callable] = "ce",
+                        optimizer: Optional[Any] = None,
+                        training_cycles: int = 1000,
+                        batch_size: int = 32,
+                        compute_accuracy: bool = False,
+                        full_epoch: bool = False,
+                        swa: bool = False,
+                        perturb_weights: Union[bool, Dict] = False,
+                        **kwargs) -> None:
+        """Stages the data and sets up the optimizer, the loss, the batch
+        schedule and the logging (the JAX package's contract)."""
+        if kwargs.get("mesh"):
+            raise NotImplementedError(
+                "device meshes are not ported yet (ROADMAP Queue 1 #21)")
+        if kwargs.get("remat"):
+            raise NotImplementedError(
+                "remat is not ported yet (ROADMAP Queue 1 #22)")
+        if kwargs.get("plot_training_history"):
+            raise NotImplementedError(
+                "plotting is not ported yet (ROADMAP Queue 1 #19)")
+        self.full_epoch = full_epoch
+        self.training_cycles = training_cycles
+        self.batch_size = batch_size
+        self.compute_accuracy = compute_accuracy
+        self.swa = swa
+        self.lr_scheduler = kwargs.get("lr_scheduler")
+        if self.data_is_set:
+            if kwargs.get("overwrite_train_data", True) and \
+                    train_data is not None:
+                self.set_data(*train_data, **kwargs)
+        else:
+            if train_data is None:
+                raise ValueError("Provide training data")
+            self.set_data(*train_data, **kwargs)
+
+        self.perturb_weights = perturb_weights
+        if self.perturb_weights:
+            if self.meta_state_dict.get("batchnorm",
+                                        self.meta_state_dict.get(
+                                            "batch_norm", False)):
+                raise AssertionError(
+                    "To use time-dependent weights perturbation, "
+                    "turn off the batch normalization layers")
+            if isinstance(self.perturb_weights, bool):
+                e_p = 1 if self.full_epoch else 50
+                self.perturb_weights = {"a": .01, "gamma": 1.5, "e_p": e_p}
+
+        if self.optimizer is None:
+            self.optimizer = self._make_optimizer(optimizer)
+        if self.criterion is None:
+            self.criterion = select_loss(loss, self.nb_classes)
+        if not self.full_epoch:
+            batch_seed = kwargs.get(
+                "batch_seed", getattr(self, "batch_seed", self.seed))
+            self.batch_idx_train = _shuffled_batch_schedule(
+                len(self.Xb_train), training_cycles, batch_seed)
+            self.batch_idx_test = _shuffled_batch_schedule(
+                len(self.Xb_test), training_cycles, batch_seed)
+        self.print_loss = kwargs.get("print_loss")
+        if self.print_loss is None:
+            self.print_loss = 100 if not self.full_epoch else 1
+        self.accuracy_metrics = kwargs.get("accuracy_metrics")
+        self.metrics_log = kwargs.get("metrics_log")
+        self.filename = kwargs.get("filename", "./model")
+
+    def _make_optimizer(self, optimizer) -> torch.optim.Optimizer:
+        params = self.net.parameters()
+        self.lrs = None
+        if optimizer is not None and not isinstance(optimizer, str):
+            return optimizer(params)      # a given optimizer keeps its LR
+        if self.lr_scheduler is not None:
+            lrs = np.asarray(self.lr_scheduler, np.float32)
+            if self.full_epoch:
+                lrs = np.repeat(lrs, max(len(self.Xb_train), 1))
+            self.lrs = [float(v) for v in lrs]
+        lr = self.lrs[0] if self.lrs else 1e-3
+        name = optimizer or "adam"
+        if name == "adam":
+            return torch.optim.Adam(params, lr=lr, eps=1e-8)
+        if name == "adamw":
+            return torch.optim.AdamW(params, lr=lr, eps=1e-8,
+                                     weight_decay=1e-4)
+        if name == "sgd":
+            return torch.optim.SGD(params, lr=lr)
+        raise ValueError(f"Unknown optimizer '{name}': use 'adam', 'sgd', "
+                         "'adamw' or a callable params -> optimizer")
+
+    # ------------------------------------------------------------ engine
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        """The net's output for a staged batch, under the precision
+        policy; subclasses adapt the layout."""
+        with self.precision.scope(self.device):
+            return self.net(X)
+
+    def accuracy_fn(self, y: torch.Tensor, y_prob: torch.Tensor
+                    ) -> torch.Tensor:
+        """Accuracy metric as a device scalar; subclasses implement."""
+        raise NotImplementedError
+
+    def _has_accuracy(self) -> bool:
+        return bool(self.compute_accuracy) and \
+            type(self).accuracy_fn is not BaseTrainer.accuracy_fn
+
+    def _set_dropout_generator(self, g: Optional[torch.Generator]) -> None:
+        for m in self.net.modules():
+            if isinstance(m, Dropout):
+                m.generator = g
+
+    def _train_batch(self, X, y):
+        """One optimizer step; (loss, accuracy or None), on the device."""
+        self.net.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        with self.precision.tf32_scope():     # the backward's convs too
+            out = self.forward(X)
+            loss = self.criterion(out, y)
+            loss.backward()
+        if self.lrs is not None:
+            lr = self.lrs[min(self.num_steps, len(self.lrs) - 1)]
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+        self.optimizer.step()
+        self.num_steps += 1
+        acc = self.accuracy_fn(y, out.detach()) if self._has_accuracy() \
+            else None
+        return loss.detach(), acc
+
+    @torch.no_grad()
+    def _eval_batch(self, X, y):
+        self.net.eval()
+        out = self.forward(X)
+        loss = self.criterion(out, y)
+        acc = self.accuracy_fn(y, out) if self._has_accuracy() else None
+        return loss, acc
+
+    def _augmented(self, X, y, g):
+        if self.augment_fn is None:
+            return X, y
+        return self.augment_fn(g, X, y)
+
+    def _cycle(self, e: int, g: torch.Generator, swa: Optional[SwaState],
+               swa_start: int) -> List[Optional[torch.Tensor]]:
+        """One training cycle; [train loss, test loss, train acc, test
+        acc] as device scalars (accuracies None when off)."""
+        if not self.full_epoch:
+            bi, bt = int(self.batch_idx_train[e]), int(self.batch_idx_test[e])
+            tr = [self._train_batch(*self._augmented(
+                self.Xb_train[bi], self.yb_train[bi], g))]
+            ts = [self._eval_batch(self.Xb_test[bt], self.yb_test[bt])]
+        else:
+            tr = [self._train_batch(*self._augmented(
+                self.Xb_train[i], self.yb_train[i], g))
+                for i in range(len(self.Xb_train))]
+            ts = [self._eval_batch(self.Xb_test[i], self.yb_test[i])
+                  for i in range(len(self.Xb_test))]
+        if swa is not None and e >= swa_start:
+            swa.update(dict(self.net.named_parameters()))
+        if self.perturb_weights:
+            self._perturb(e, g)
+
+        def mean(vals):
+            if len(vals) == 1 or vals[0] is None:
+                return vals[0]
+            return sum(vals) / len(vals)
+        return [mean([t[0] for t in tr]), mean([t[0] for t in ts]),
+                mean([t[1] for t in tr]), mean([t[1] for t in ts])]
+
+    @torch.no_grad()
+    def _perturb(self, e: int, g: torch.Generator) -> None:
+        """Adds N(0, a / (1 + e)^gamma) to every parameter every ``e_p``
+        cycles."""
+        cfg = self.perturb_weights
+        if (e + 1) % cfg["e_p"] != 0:
+            return
+        sd = math.sqrt(cfg["a"] / (1.0 + e) ** cfg["gamma"])
+        for p in self.net.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device=p.device,
+                               dtype=p.dtype), alpha=sd)
+
+    def run(self) -> nn.Module:
+        """Trains for ``training_cycles`` cycles, then applies SWA,
+        evaluates and saves ``<filename>_metadict_final``."""
+        if self.optimizer is None:
+            raise RuntimeError("Compile the trainer before running it")
+        cycles = self.training_cycles
+        chunk = max(1, min(self.print_loss, cycles))
+        swa = SwaState(dict(self.net.named_parameters())) \
+            if self.swa else None
+        swa_start = max(cycles - (5 if self.full_epoch else 30), 0)
+        g = self.keys.next(device=self.device)
+        self._set_dropout_generator(g)
+        mlog = open_metrics_log(self.metrics_log)
+        try:
+            pending = []
+            for e in range(cycles):
+                pending.append(self._cycle(e, g, swa, swa_start))
+                if len(pending) == chunk or e == cycles - 1:
+                    self._record(e + 1 - len(pending), pending, mlog)
+                    pending = []
+        finally:
+            self._set_dropout_generator(None)
+            if mlog is not None:
+                mlog.close()
+        if swa is not None:
+            print("Performing stochastic weight averaging...")
+            mean = swa.mean()
+            with torch.no_grad():
+                for k, p in self.net.named_parameters():
+                    p.copy_(mean[k])
+            self.running_weights_stats = (mean, swa.variance())
+        self.net.eval()
+        self.eval_model()
+        self.save_model(self.filename + "_metadict_final")
+        return self.net
+
+    def _record(self, e0: int, rows: List[List], mlog) -> None:
+        """Copies a chunk's device scalars to the host in one transfer,
+        appends them to ``loss_acc`` and the log, and prints."""
+        n_cols = 4 if self._has_accuracy() else 2
+        vals = torch.stack([torch.stack(r[:n_cols]) for r in rows])
+        vals = vals.cpu().numpy().astype(np.float64)
+        names = ["train_loss", "test_loss", "train_accuracy",
+                 "test_accuracy"][:n_cols]
+        for j, k in enumerate(names):
+            self.loss_acc[k].extend(vals[:, j].tolist())
+        if mlog is not None:
+            mlog.log_many(e0, **{k: vals[:, j] for j, k in
+                                 enumerate(names)})
+        self.print_statistics(e0 + len(rows) - 1)
+
+    # ----------------------------------------------------- one-off steps
+    def train_step(self, feat, tar) -> Tuple[float, ...]:
+        """One optimizer step on one batch (no augmentation); Adam(1e-3)
+        and MSE when nothing was compiled."""
+        if self.optimizer is None:
+            self.optimizer = torch.optim.Adam(self.net.parameters(),
+                                              lr=1e-3, eps=1e-8)
+        if self.criterion is None:
+            self.criterion = select_loss("mse")
+        loss, acc = self._train_batch(_as_tensor(feat, self.device),
+                                      _as_tensor(tar, self.device))
+        return (float(loss),) if acc is None else (float(loss), float(acc))
+
+    def test_step(self, feat, tar) -> Tuple[float, ...]:
+        """Loss (and accuracy) of one batch in eval mode."""
+        loss, acc = self._eval_batch(_as_tensor(feat, self.device),
+                                     _as_tensor(tar, self.device))
+        return (float(loss),) if acc is None else (float(loss), float(acc))
+
+    def eval_model(self) -> None:
+        """Prints the loss (and accuracy) of the final weights over the
+        whole test set."""
+        res = [self._eval_batch(self.Xb_test[i], self.yb_test[i])
+               for i in range(len(self.Xb_test))]
+        losses = torch.stack([r[0] for r in res]).cpu().numpy()
+        print("Model (final state) evaluation loss:",
+              np.around(np.mean(losses), 4))
+        if self._has_accuracy():
+            accs = torch.stack([r[1] for r in res]).cpu().numpy()
+            print("Model (final state) accuracy:",
+                  np.around(np.mean(accs), 4))
+
+    def print_statistics(self, e: int) -> None:
+        accuracy_metrics = self.accuracy_metrics or "Accuracy"
+        msg = "Epoch {}/{} ...".format(e + 1, self.training_cycles)
+        msg += " Training loss: {} ...".format(
+            np.around(self.loss_acc["train_loss"][-1], 4))
+        msg += " Test loss: {}".format(
+            np.around(self.loss_acc["test_loss"][-1], 4))
+        if self._has_accuracy() and self.loss_acc["train_accuracy"]:
+            msg += " ... Train {}: {} ... Test {}: {}".format(
+                accuracy_metrics,
+                np.around(self.loss_acc["train_accuracy"][-1], 4),
+                accuracy_metrics,
+                np.around(self.loss_acc["test_accuracy"][-1], 4))
+        print(msg)
+
+    # --------------------------------------------------------- serialize
+    def save_model(self, *args: str, include_optimizer: bool = False
+                   ) -> str:
+        """Writes the metadict and the net's ``state_dict`` (BatchNorm
+        statistics included) to ``<name>.aoit``; ``include_optimizer``
+        adds the optimizer state and the step counters, for
+        :meth:`resume_training`."""
+        filename = args[0] if args else self.filename
+        meta = {k: v for k, v in self.meta_state_dict.items()
+                if k not in ("weights", "optimizer")}
+        arrays = {"params": self.net.state_dict()}
+        if include_optimizer and self.optimizer is not None:
+            arrays["opt_state"] = self.optimizer.state_dict()["state"]
+            meta["completed_cycles"] = len(self.loss_acc["train_loss"])
+            meta["optimizer_steps"] = self.num_steps
+        return save_checkpoint(filename, meta, arrays)
+
+    def resume_training(self, filepath: str,
+                        additional_cycles: Optional[int] = None) -> None:
+        """Restores the weights and the optimizer state of a checkpoint
+        saved with ``include_optimizer=True`` into the compiled trainer and
+        trains on, for ``additional_cycles`` (default: the compiled
+        ``training_cycles``)."""
+        meta, arrays = load_checkpoint(filepath)
+        if "opt_state" not in arrays:
+            raise ValueError(
+                "Checkpoint has no optimizer state; save with "
+                "save_model(..., include_optimizer=True) to resume")
+        if self.optimizer is None:
+            raise RuntimeError("Compile the trainer before resuming")
+        self.net.load_state_dict(arrays["params"])
+        state = self.optimizer.state_dict()
+        state["state"] = arrays["opt_state"]
+        self.optimizer.load_state_dict(state)
+        self.num_steps = int(meta.get("optimizer_steps", 0))
+        if additional_cycles is not None:
+            self.training_cycles = additional_cycles
+            if not self.full_epoch:
+                seed = int(meta.get("completed_cycles", 0)) + 1
+                self.batch_idx_train = _shuffled_batch_schedule(
+                    len(self.Xb_train), additional_cycles, seed)
+                self.batch_idx_test = _shuffled_batch_schedule(
+                    len(self.Xb_test), additional_cycles, seed)
+        self.run()
+
+
+class SegTrainer(BaseTrainer):
+    """Semantic segmentation trainer (counterpart of
+    `atomai_tpu/trainers/trainer.py:837-877`).
+
+    The net is built, and its weights drawn from ``seed``, at
+    construction (the JAX package draws them when it compiles). Keyword
+    args: ``seed`` (default 1), ``batch_seed`` (default ``seed``),
+    ``device`` (default "cpu"), and the net's.
+    """
+
+    def __init__(self, model: str = "Unet", nb_classes: int = 1,
+                 **kwargs: Any):
+        seed = kwargs.get("seed", 1)
+        super().__init__(seed=seed, device=kwargs.get("device", "cpu"))
+        self.batch_seed = kwargs.get("batch_seed", seed)
+        self.nb_classes = nb_classes
+        self.net, self.meta_state_dict = init_fcnn_model(
+            model, nb_classes, **kwargs)
+        init_weights_(self.net, generator_from_seed(seed))
+        self.net.to(self.device).eval()
+
+    def set_data(self, X_train, y_train, X_test=None, y_test=None,
+                 **kwargs) -> None:
+        """NHWC float32 images and (n, h, w) masks (float32 for one class,
+        int64 for several); checks the class count against the net's."""
+        if X_test is None or y_test is None:
+            X_train, y_train, X_test, y_test = preproc.data_split(
+                X_train, y_train, kwargs.get("test_size", .15),
+                kwargs.get("seed", 1))
+        nb_classes = preproc.num_classes_from_labels(np.asarray(y_train))
+        data = preproc.check_image_dims(X_train, y_train, X_test, y_test,
+                                        nb_classes)
+        if self.nb_classes != nb_classes:
+            raise AssertionError("Number of classes in initialized model "
+                                 "is different from the number of classes "
+                                 "contained in training data")
+        self._stage_batches(*preproc.cast_image_arrays(*data, nb_classes))
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        """NHWC batch -> channel-last float32 logits (the Unet is NCHW)."""
+        with self.precision.scope(self.device):
+            out = self.net(X.permute(0, 3, 1, 2))
+        return out.float().permute(0, 2, 3, 1)
+
+    def accuracy_fn(self, y: torch.Tensor, y_prob: torch.Tensor
+                    ) -> torch.Tensor:
+        """IoU of the batch."""
+        return iou_score(y, y_prob)

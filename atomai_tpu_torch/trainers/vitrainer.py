@@ -165,8 +165,10 @@ class viBaseTrainer:
             idx = perm[i]
             y_i = self.y_train[idx] if self.y_train is not None else None
             self.optimizer.zero_grad(set_to_none=True)
-            elbo = self._elbo(self.X_train[idx], y_i, self.num_iter + i, g)
-            (-elbo).backward()
+            with self.precision.tf32_scope():   # the backward's GEMMs too
+                elbo = self._elbo(self.X_train[idx], y_i, self.num_iter + i,
+                                  g)
+                (-elbo).backward()
             self.optimizer.step()
             elbo_sum = elbo_sum + elbo.detach()
         self.num_iter += nb

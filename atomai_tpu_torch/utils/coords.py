@@ -1,10 +1,13 @@
-"""Pixel-coordinate grids of the rVAE (counterpart of
-`atomai_tpu/utils/coords.py:51-81`)."""
+"""Pixel-coordinate grids of the rVAE and atom-position refinement
+(counterpart of `atomai_tpu/utils/coords.py:51-81, 123-146`)."""
 
-from typing import Tuple, Union
+import warnings
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..ops.peakfit import refine_peaks
 
 
 def grid2xy(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
@@ -40,3 +43,33 @@ def transform_coordinates(coord: torch.Tensor, phi: torch.Tensor,
                               torch.stack([-s, c], 1)], 1)   # (B, 2, 2)
         coord = torch.einsum("bnk,bkm->bnm", coord, rotmat)
         return coord + coord_dx
+
+
+def mean_nn_distance(coordinates: np.ndarray, nn: int = 2) -> float:
+    """Mean distance of each atom to its ``nn`` nearest neighbours
+    (``scipy.spatial.cKDTree``); atoms with fewer neighbours are left
+    out."""
+    from scipy.spatial import cKDTree
+    xy = np.asarray(coordinates, np.float64)[:, :2]
+    d, _ = cKDTree(xy).query(xy, k=nn + 1)
+    d = d[:, 1:]
+    return float(np.mean(d[np.isfinite(d).all(axis=1)]))
+
+
+def peak_refinement(imgdata: Union[np.ndarray, torch.Tensor],
+                    coordinates: np.ndarray, d: Optional[int] = None
+                    ) -> np.ndarray:
+    """Refines (n, 3) [row, col, class] atom positions by batched 2D
+    Gaussian fits in windows of half-side ``d`` (default a quarter of the
+    mean nearest-neighbour distance), on the image's device; returns
+    float64 [row, col, class]."""
+    if d is None:
+        warnings.warn(
+            "The d-value for bounding box not found. Defaulting to 1/4 of "
+            "mean atomic distance.", stacklevel=2)
+        d = int(mean_nn_distance(coordinates) * 0.25)
+    img = torch.as_tensor(imgdata, dtype=torch.float32)
+    xy = torch.as_tensor(np.asarray(coordinates[:, :2], np.float32),
+                         device=img.device)
+    refined = refine_peaks(img, xy, int(d)).cpu().numpy()
+    return np.concatenate([refined, coordinates[:, 2:3]], axis=-1)

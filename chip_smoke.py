@@ -1,5 +1,6 @@
-"""Drives the PyTorch port's two paths once on one CUDA card, the
-segmentation serving path and rVAE training, and checks every step of them.
+"""Drives the PyTorch port's paths once on one CUDA card (segmentation
+serving, segmentation training with augmentation and peak refinement, and
+rVAE training) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -30,16 +31,34 @@ Phases, one JSON line each (all before the last line):
     patches for 20 epochs of batch 128 with per-epoch async checkpoints, then
     ``manifold2d``: launch counts of both kernels, a finite and rising ELBO,
     then steps/s of the loop and kernel against plain times at the path's
-    shapes, with CUDA events after warm-up.
+    shapes, with CUDA events after warm-up;
+ 9. seg_train_fixture: five cycles of ``Segmentor.fit`` at config A's width
+    in float32 (TF32 off) against the JAX run in ``tests/fixtures/``;
+10. seg_path: bench config A whole: ``Segmentor("Unet").fit`` for 300
+    cycles of batch 32 on 64 x 256 x 256 frames, then ``predict``: launch
+    count, kernel labels and coordinates equal to the plain labeller's on
+    the trained masks, held-out IoU and atom error, ``refine=True``; times
+    of the first fit, of a warm 300-cycle run, and of predict, locate and
+    the labellers on the trained masks;
+11. iou_protocol: the port arm of the IoU-parity protocol v2
+    (`scripts/measure_iou_parity.py`), seeds 1-3, beside the JAX arm's;
+12. augment: ``fit`` with config D's augmentation on 32 x 512 x 512
+    frames, and each op's apply half on the card against the same op on
+    the CPU with the same draws;
+13. refine_fixture: ``peak_refinement`` on the card against the JAX
+    package's golden fixture.
 Then one JSON line on the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +101,34 @@ MLP_SHAPES = [(128, 1024, 128, 2), (128, 784, 128, 2), (32, 2560, 128, 2),
 RVAE_EPOCHS = 20
 RVAE_BATCH = 128
 MLP_NAMES = ["dx", "dzb", "dWc", "dbc", "dWs", "dbs", "dWo", "dbo"]
+
+# seg_train_fixture: five Adam(1e-3) cycles against the JAX run. The c1
+# conv bias sits before a BatchNorm, so its gradient cancels to rounding
+# noise and Adam moves it by lr * sign(g) a step in a direction rounding
+# picks; the eval-mode test loss follows through the lagging running mean.
+# On the CPU: losses within 6.4e-5 (train) and 4.8e-4 (test) relative.
+SEG_FX_CYCLES = 5
+TOL_SEG_LOSS_REL = 1e-3
+TOL_SEG_ADAM = 2 * 1e-3 * SEG_FX_CYCLES   # 2 * lr * steps
+TOL_SEG_HEAD = 1e-4       # the px head's well-determined gradient
+# bench config A's training (`bench.py:198-207`), its held-out check, the
+# IoU protocol v2 (`scripts/measure_iou_parity.py:1-63`), config D's
+# augmentation (`bench.py:366-368`) and the refinement fixture
+SEG_CYCLES = 300
+SEG_BATCH = 32
+HELD_OUT = dict(n_images=8, size=256, spacing=16, seed=1)
+TOL_IOU = 0.90
+REFINE_D = 4              # a quarter of the 16 px spacing
+IOU_DATA = dict(n_images=16, size=128, spacing=16, seed=7)
+IOU_TRAIN, IOU_CYCLES, IOU_BATCH, IOU_SEEDS = 12, 100, 4, (1, 2, 3)
+JAX_IOU_MEDIAN, JAX_IOU_MIN = 0.9745, 0.9449   # the JAX arm (BENCH_r05)
+AUG = dict(rotation=True, zoom=True, gauss_noise=[10, 30],
+           poisson_noise=[30, 45], salt_and_pepper=True, blur=True,
+           contrast=True, background=True)
+AUG_DATA = dict(n_images=32, size=512, spacing=16, seed=0)
+AUG_CYCLES, AUG_BATCH = 30, 8
+TOL_AUG = 1e-5            # float32 on both; sums of a few terms
+TOL_REFINE_PX = 1e-3
 
 
 def check(cond, msg):
@@ -604,6 +651,300 @@ def phase_rvae_path(device, mlp_errs):
              "ms": bwd_ms, "plain_ms": bwd_plain_ms}]
 
 
+@contextlib.contextmanager
+def quiet():
+    """Keeps the trainers' progress prints off the script's output."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield
+
+
+def mean_jaccard(prob_fg, true):
+    """The IoU protocol's neutral metric (`scripts/measure_iou_parity.py:
+    72-83`): threshold at 0.5, 2-class confusion histogram over all frames,
+    mean Jaccard over the classes."""
+    pred = (np.asarray(prob_fg) >= 0.5).astype(np.int64).ravel()
+    true = (np.asarray(true) > 0.5).astype(np.int64).ravel()
+    hist = np.bincount(2 * true + pred, minlength=4).reshape(2, 2)
+    inter = np.diag(hist).astype(np.float64)
+    jcd = inter / (hist.sum(1) + hist.sum(0) - inter + 1e-10)
+    return float(np.mean(jcd[~np.isnan(jcd)]))
+
+
+def atom_errors(coords, true_xy, offset):
+    from scipy.spatial import cKDTree
+    return np.concatenate([
+        cKDTree(true_xy[i] + offset).query(coords[i][:, :2])[0]
+        for i in range(len(true_xy))])
+
+
+def phase_seg_train_fixture(device):
+    import torch
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import Segmentor, conversion
+    fx = dict(np.load(os.path.join(FIXTURES, "torch_port_seg_train.npz")))
+    base = dict(np.load(os.path.join(FIXTURES, "torch_port_unet_fwd.npz")))
+    m = Segmentor("Unet", 1, nb_filters=16, layers=(1, 2, 2, 3),
+                  device=device)
+    m.load_jax_variables(unflatten(base, "params"),
+                         unflatten(base, "batch_stats"))
+    m.precision = Precision.full()     # float32, TF32 off
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m.compile_trainer((fx["x_train"], fx["y_train"], fx["x_test"],
+                           fx["y_test"]), training_cycles=SEG_FX_CYCLES,
+                          batch_size=4, print_loss=SEG_FX_CYCLES,
+                          filename=os.path.join(tmp, "seg"))
+        check(np.array_equal(m.batch_idx_train, fx["schedule"]),
+              "batch schedule differs from the fixture's")
+        m.run()
+    loss_err = {k: float(np.max(np.abs(np.asarray(m.loss_acc[k]) / fx[k]
+                                       - 1)))
+                for k in ("train_loss", "test_loss")}
+    for k, err in loss_err.items():
+        check(err <= TOL_SEG_LOSS_REL, f"{k} off by {err} (relative)")
+    final = unflatten(fx, "final")
+    want = {f"c1.{k}": v for k, v in conversion._conv_block(
+        final["params"]["ConvBlock_0"], final["batch_stats"]["ConvBlock_0"],
+        False, "ConvBlock_0").items()}
+    want.update({f"px.{k}": v for k, v in conversion._conv(
+        final["params"]["Conv_0"], "Conv_0").items()})
+    got = m.net.state_dict()
+    w_err = {}
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = float((got[k].float().cpu() - w).abs().max())
+        if k.endswith("running_var"):
+            # relative: the c1 weights may differ by 2 * lr * steps (3% of
+            # their scale); BatchNorm's n / (n - 1) adds 6e-5
+            err /= float(w.abs().max())
+            tol = 1e-2
+        else:
+            tol = TOL_SEG_HEAD if k.startswith("px.") else TOL_SEG_ADAM
+        w_err[k] = err
+        check(err <= tol, f"{k} off by {err} (tolerance {tol})")
+    emit("seg_train_fixture", cycles=SEG_FX_CYCLES,
+         train_loss=m.loss_acc["train_loss"],
+         train_loss_ref=fx["train_loss"].tolist(),
+         test_loss=m.loss_acc["test_loss"],
+         test_loss_ref=fx["test_loss"].tolist(), loss_rel_err=loss_err,
+         weight_err=w_err, precision=str(m.precision.compute_dtype),
+         tolerances={"loss_rel": TOL_SEG_LOSS_REL, "adam": TOL_SEG_ADAM,
+                     "head": TOL_SEG_HEAD})
+
+
+def phase_seg_path(device):
+    import torch
+    from atomai_tpu_torch import models, ops
+    from atomai_tpu_torch.ops import cc_kernel, cc_label
+    from atomai_tpu_torch.predictors import Locator, SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**MAIN)
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m = models.Segmentor("Unet", 1, seed=1, device=device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m.fit(imgs, masks, training_cycles=SEG_CYCLES, batch_size=SEG_BATCH,
+              print_loss=SEG_CYCLES, filename=os.path.join(tmp, "seg"))
+        torch.cuda.synchronize(device)
+        fit_s = time.perf_counter() - t0
+        hist = list(m.loss_acc["train_loss"])
+        test_hist = list(m.loss_acc["test_loss"])
+        # the warm production loop: another 300 cycles of run()
+        m._reset_training_history()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        start.record()
+        m.run()
+        end.record()
+        torch.cuda.synchronize(device)
+        run_s = time.perf_counter() - t0
+        run_ms = start.elapsed_time(end)
+    staged = [list(m.Xb_train.shape), list(m.Xb_test.shape)]
+    check(staged == [[1, SEG_BATCH, 256, 256, 1], [1, 10, 256, 256, 1]],
+          f"config A staged as {staged}")
+    check(len(hist) == SEG_CYCLES and bool(np.isfinite(hist).all()) and
+          bool(np.isfinite(test_hist).all()), "non-finite losses")
+    check(hist[-1] < hist[0], f"train loss did not fall: {hist[0]} -> "
+          f"{hist[-1]}")
+
+    cc_kernel.LAUNCHES = 0
+    maps, coords = m.predict(imgs, verbose=False)
+    torch.cuda.synchronize(device)
+    launches = cc_kernel.LAUNCHES
+    check(launches > 0, "predict after fit never launched the labeller")
+    check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
+          "bad predict output")
+
+    # the trained masks, labelled by the kernel and by the plain version
+    pred = SegPredictor(m.net, nb_classes=1, verbose=False)
+    y = pred.predict_device(imgs)
+    tiled = ops.tile_frames(y[..., 0] > 0.5)
+    lab_k = ops.label_components_cuda(tiled)
+    lab_r = ops.label_components_reference(tiled)
+    max_abs_err = int((lab_k.long() - lab_r.long()).abs().max())
+    check(max_abs_err == 0, f"kernel labels off by {max_abs_err} on trained "
+          "masks")
+    n_components = int((lab_k.flatten() == torch.arange(
+        lab_k.numel(), device=device)).sum())
+    locator = Locator(0.5)
+    coords_kernel = locator.run(y)
+    kernel_labeller = cc_label.label_components
+    cc_label.label_components = ops.label_components_reference
+    try:
+        coords_plain = locator.run(y)
+        plain_locate_ms = cuda_ms(lambda: locator.run(y), 3, device)
+    finally:
+        cc_label.label_components = kernel_labeller
+    for i in coords_kernel:
+        check(np.array_equal(coords_kernel[i], coords_plain[i]),
+              f"frame {i}: trained-mask coordinates differ from the plain "
+              "labeller's")
+    kernel_ms = cuda_ms(lambda: ops.label_components_cuda(tiled), 20, device)
+    plain_ms = cuda_ms(lambda: ops.label_components_reference(tiled), 3,
+                       device)
+    locate_ms = cuda_ms(lambda: locator.run(y), 5, device)
+    predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 5, device)
+
+    # held-out frames: mask IoU, atom error, refinement
+    h_imgs, h_masks, h_xy = make_lattice_stack(**HELD_OUT)
+    prob = m.predict(h_imgs, compute_coords=False, verbose=False)
+    iou = mean_jaccard(prob[..., 0], h_masks)
+    check(iou >= TOL_IOU, f"held-out IoU {iou}")
+    _, h_coords = m.predict(h_imgs, verbose=False)
+    err = atom_errors(h_coords, h_xy, MASK_OFFSET)
+    median = float(np.median(err))
+    check(median < TOL_MEDIAN_PX, f"held-out median atom error {median} px")
+    with quiet():
+        _, r_coords = m.predict(h_imgs, refine=True, d=REFINE_D,
+                                verbose=False)
+    moved = 0.0
+    for i in h_coords:
+        check(r_coords[i].shape == h_coords[i].shape and
+              bool(np.isfinite(r_coords[i]).all()), f"frame {i} refined")
+        if len(h_coords[i]):
+            moved = max(moved, float(np.abs(r_coords[i][:, :2] -
+                                            h_coords[i][:, :2]).max()))
+    check(moved < 3.0, f"refinement moved an atom {moved} px")
+    # the generator pastes each atom at its rounded position, so the fit's
+    # target is np.round(true); the unrounded one is 0.38 px off it
+    refined_median = float(np.median(atom_errors(
+        r_coords, [np.round(xy) for xy in h_xy], 0.0)))
+    check(refined_median < TOL_MEDIAN_PX, f"refined median error "
+          f"{refined_median} px")
+    emit("seg_path", frames=list(imgs.shape), staged=staged,
+         cycles=SEG_CYCLES, batch=SEG_BATCH, loss_first=hist[0],
+         loss_last=hist[-1], test_loss_last=test_hist[-1], fit_s=fit_s,
+         run_s_host=run_s, run_ms_cuda_events=run_ms,
+         cycles_per_s=SEG_CYCLES / (run_ms / 1e3), launches=launches,
+         trained_foreground_share=float(tiled.float().mean()),
+         trained_components=n_components,
+         atoms=int(sum(len(c) for c in coords.values())),
+         predict_ms=predict_ms, locate_ms=locate_ms,
+         locate_plain_ms=plain_locate_ms, kernel_ms=kernel_ms,
+         kernel_plain_ms=plain_ms, held_out_iou=iou,
+         held_out_median_err_px=median,
+         refined_median_err_px=refined_median, refine_max_move_px=moved,
+         precision=str(m.precision.compute_dtype))
+    return {"launches": launches, "max_abs_err": max_abs_err,
+            "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def phase_iou_protocol(device):
+    from atomai_tpu_torch.models import Segmentor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**IOU_DATA)
+    ious = []
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        for seed in IOU_SEEDS:
+            m = Segmentor("Unet", 1, seed=seed, device=device)
+            m.fit(imgs[:IOU_TRAIN], masks[:IOU_TRAIN], imgs[IOU_TRAIN:],
+                  masks[IOU_TRAIN:], training_cycles=IOU_CYCLES,
+                  batch_size=IOU_BATCH, print_loss=IOU_CYCLES, seed=seed,
+                  filename=os.path.join(tmp, "iou"))
+            prob = m.predict(imgs[IOU_TRAIN:], compute_coords=False,
+                             verbose=False)
+            ious.append(mean_jaccard(prob[..., 0], masks[IOU_TRAIN:]))
+    median = float(np.median(ious))
+    check(median >= TOL_IOU, f"IoU protocol median {median}")
+    emit("iou_protocol", seeds=list(IOU_SEEDS), ious=ious, median=median,
+         jax_arm_median=JAX_IOU_MEDIAN, jax_arm_min=JAX_IOU_MIN,
+         below_jax_min=median < JAX_IOU_MIN, gate=TOL_IOU)
+
+
+def phase_augment(device):
+    import torch
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import Segmentor
+    from atomai_tpu_torch.transforms import DataTransform
+    from atomai_tpu_torch.transforms import imaug
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**AUG_DATA)
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m = Segmentor("Unet", 1, seed=1, device=device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m.fit(imgs, masks, training_cycles=AUG_CYCLES, batch_size=AUG_BATCH,
+              print_loss=AUG_CYCLES, filename=os.path.join(tmp, "aug"), **AUG)
+        torch.cuda.synchronize(device)
+        fit_s = time.perf_counter() - t0
+    hist = m.loss_acc["train_loss"] + m.loss_acc["test_loss"]
+    check(len(hist) == 2 * AUG_CYCLES and bool(np.isfinite(hist).all()),
+          "non-finite augmented-training losses")
+
+    # each op's apply on the card against the CPU, with the same draws,
+    # chained as in the pipeline so that each op sees its real input
+    dt = DataTransform(1, **AUG)
+    x = torch.from_numpy(imgs[:AUG_BATCH]).to(device)
+    x = (x - x.min()) / (x.max() - x.min())
+    gts = torch.from_numpy(masks[:AUG_BATCH, ..., None] > 0).float().to(
+        device)
+    g = torch.Generator(device).manual_seed(0)
+    grids = {"zoom": imaug.zoom_grid, "resize": imaug.resize_grid}
+    rows = {}
+    for name, draw, apply in dt.ops(tuple(x.shape)):
+        p = draw(g, x)
+        p_cpu = {k: v.cpu() for k, v in p.items()}
+        with Precision.full().scope(device):
+            xi, gi = apply(x, gts, p)
+        xc, gc = apply(x.cpu(), gts.cpu(), p_cpu)
+        err = float((xi.cpu() - xc).abs().max())
+        flips = int((gi.cpu() != gc).sum())
+        ties = 0
+        if name in grids:
+            # a warped mask value within 1e-5 of 0.5 may round either way
+            from atomai_tpu_torch.transforms import separable_sample_nhwc
+            ys, xs = grids[name](x.cpu(), p_cpu, apply.keywords["values"])
+            raw = separable_sample_nhwc(gts.cpu(), ys, xs)
+            ties = int(((raw - 0.5).abs() < 1e-5).sum())
+        check(err <= TOL_AUG, f"{name}: card and CPU apply differ by {err}")
+        check(flips <= ties, f"{name}: {flips} label pixels differ "
+              f"({ties} ties)")
+        rows[name] = {"max_abs_err": err, "label_flips": flips,
+                      "label_ties": ties}
+        x, gts = xi, gi
+    emit("augment", frames=list(imgs.shape), cycles=AUG_CYCLES,
+         batch=AUG_BATCH, fit_s=fit_s, loss_first=hist[0],
+         loss_last=m.loss_acc["train_loss"][-1], ops=rows,
+         tolerance=TOL_AUG)
+
+
+def phase_refine_fixture(device):
+    import torch
+    from atomai_tpu_torch.utils import make_lattice_stack, peak_refinement
+    imgs, _, coords = make_lattice_stack(n_images=2, size=64, spacing=12,
+                                         seed=7)
+    c3 = np.concatenate([coords[0], np.zeros((len(coords[0]), 1))], -1)
+    got = peak_refinement(torch.from_numpy(imgs[0]).to(device), c3, d=5)
+    expected = np.load(os.path.join(FIXTURES, "refined_coords_frame0.npy"))
+    check(got.shape == expected.shape, f"refined shape {got.shape}")
+    err = float(np.abs(got - expected).max())
+    check(err <= TOL_REFINE_PX, f"refined coordinates off by {err} px")
+    emit("refine_fixture", atoms=int(len(got)), max_abs_err_px=err,
+         tolerance_px=TOL_REFINE_PX)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -622,6 +963,11 @@ def main():
     mlp_errs = phase_spatial_mlp(device)
     phase_rvae_fixture(device)
     kernels += phase_rvae_path(device, mlp_errs)
+    phase_seg_train_fixture(device)
+    kernels[0]["trained_masks"] = phase_seg_path(device)
+    phase_iou_protocol(device)
+    phase_augment(device)
+    phase_refine_fixture(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

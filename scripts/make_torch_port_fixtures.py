@@ -21,10 +21,24 @@ latent_dim=2)`` (seed 0) with
 - ``grads/...``: the ELBO's gradient with respect to every param;
 - ``adam/...``: the params after one ``optax.adam(1e-4)`` step on -ELBO.
 
+``tests/fixtures/torch_port_seg_train.npz`` holds a short training run of
+the JAX ``Segmentor`` at bench config A's width (nb_filters 16, layers
+(1, 2, 2, 3), one class), started from the variables of
+``torch_port_unet_fwd.npz`` (not stored again):
+- ``x_train``, ``y_train`` (uint8), ``x_test``, ``y_test``: frames 0-7 and
+  8-9 of the JAX package's ``make_lattice_stack(n_images=10, size=64,
+  spacing=12, seed=0)``;
+- ``schedule``: the batch order of the 5 cycles (seed 1, 2 batches of 4);
+- ``train_loss``, ``test_loss``: the per-cycle losses of ``fit(...,
+  training_cycles=5, batch_size=4)`` with Adam(1e-3), float32 at the
+  highest matmul precision;
+- ``final/...``: the trained ``ConvBlock_0`` (c1) and ``Conv_0`` (px)
+  variables, params and BatchNorm statistics, flattened as above.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
-``tests/test_torch_nets.py`` and ``tests/test_torch_vae.py`` regenerate
-the contents and compare them with the files, so the fixtures cannot go
-stale.
+``tests/test_torch_nets.py``, ``tests/test_torch_vae.py`` and
+``tests/test_torch_seg_train_fixture.py`` regenerate the contents and
+compare them with the files, so the fixtures cannot go stale.
 """
 
 import os
@@ -39,6 +53,10 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_unet_fwd.npz")
 RVAE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_rvae_step.npz")
 RVAE_BATCH = 128
+SEG_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                 "torch_port_seg_train.npz")
+SEG_CYCLES = 5
+SEG_BATCH = 4
 
 
 def flatten(tree, prefix):
@@ -151,9 +169,48 @@ def make_rvae_fixture():
     return out
 
 
+def make_seg_train_fixture():
+    """Five cycles of the JAX Segmentor at config A's width from the Unet
+    fixture's variables, on the CPU in float32."""
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.models import Segmentor
+    from atomai_tpu.utils import make_lattice_stack
+
+    imgs, masks, _ = make_lattice_stack(n_images=10, size=64, spacing=12,
+                                        seed=0)
+    base = dict(np.load(FIXTURE))
+    m = Segmentor("Unet", 1, nb_filters=16, layers=(1, 2, 2, 3))
+    m.params = unflatten(base, "params")
+    m.batch_stats = unflatten(base, "batch_stats")
+    with tempfile.TemporaryDirectory() as tmp, \
+            jax.default_matmul_precision("highest"):
+        m.fit(imgs[:8], masks[:8], imgs[8:], masks[8:],
+              training_cycles=SEG_CYCLES, batch_size=SEG_BATCH,
+              print_loss=SEG_CYCLES, filename=os.path.join(tmp, "seg"),
+              mesh=False)
+    out = {"x_train": imgs[:8].astype(np.float32),
+           "y_train": masks[:8].astype(np.uint8),
+           "x_test": imgs[8:].astype(np.float32),
+           "y_test": masks[8:].astype(np.uint8),
+           "schedule": np.asarray(m.batch_idx_train, np.int64),
+           "train_loss": np.asarray(m.loss_acc["train_loss"], np.float32),
+           "test_loss": np.asarray(m.loss_acc["test_loss"], np.float32)}
+    params = jax.tree.map(np.asarray, jax.device_get(m.params))
+    stats = jax.tree.map(np.asarray, jax.device_get(m.batch_stats))
+    for name in ("ConvBlock_0", "Conv_0"):
+        out.update(flatten({name: params[name]}, "final/params"))
+        if name in stats:
+            out.update(flatten({name: stats[name]}, "final/batch_stats"))
+    return out
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
-                       (RVAE_FIXTURE, make_rvae_fixture)):
+                       (RVAE_FIXTURE, make_rvae_fixture),
+                       (SEG_TRAIN_FIXTURE, make_seg_train_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -135,10 +135,22 @@ def test_locator_empty_frames():
 
 
 def test_refine_is_not_ported_yet(nets):
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        Locator(0.5, refine=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        SegPredictor(nets[3], refine=True)
+    """Refinement is ported now (the name is kept): ``refine=True`` builds,
+    the Locator asks for the images, and SegPredictor refines with the
+    images it preprocessed (parity with JAX: test_torch_peakfit.py)."""
+    imgs, masks, _ = make_lattice_stack(n_images=2, size=64, spacing=12,
+                                        seed=6)
+    with pytest.raises(AssertionError, match="Pass input image"):
+        Locator(0.5, refine=True, d=4).run(masks[..., None])
+    refined = Locator(0.5, refine=True, d=4).run(masks[..., None], imgs)
+    plain = Locator(0.5).run(masks[..., None])
+    for k in plain:
+        assert refined[k].shape == plain[k].shape
+        np.testing.assert_array_equal(refined[k][:, 2], plain[k][:, 2])
+        assert np.abs(refined[k][:, :2] - plain[k][:, :2]).max() < 3
+    maps, coords = SegPredictor(nets[3], refine=True, d=4,
+                                verbose=False).run(imgs)
+    assert maps.shape == (2, 64, 64, 1) and sorted(coords) == [0, 1]
 
 
 @pytest.fixture(scope="module")
