@@ -13,42 +13,57 @@
 // Layouts are the JAX kernel's: xT (B, 2, n), y and gy (B, 1, n), dx
 // (B, 2, n); weights float32 and contiguous.
 //
-// What bounds it on an H100: arithmetic, not memory. At the rVAE's bench
-// shapes (B = 128, n = 1024, H = 128, L = 2) the forward is about
-// 8.6 GFLOP and the backward about three times that (recompute, dh and
-// dW), against some 1.5 MB of x, y and weights. So the design keeps every
-// activation on chip and feeds the tensor cores:
-//   - a block owns a tile of kTM = 64 rows of one sample; four warps own
-//     16 rows each. Activations live in shared memory as bf16 (the TPU
-//     kernel's operand type), accumulation is f32;
-//   - each hidden layer is a (64 x H) x (H x H) product on nvcuda::wmma
-//     bf16 16x16x16 fragments. Weights are staged into shared memory as
-//     bf16 in chunks of at most 128 x 128, so H = 512 (512 KB of f32
-//     weights a layer) fits the 227 KB budget;
-//   - the K = 2 coordinate product, the biases, tanh and the head are f32
-//     FMAs.
-// This first version is far from that bound: a block barrier per staged
-// weight chunk and, in the backward, a read-modify-write of the f32
-// weight-gradient partials per tile hold it back (PERF.md has the times;
-// wgmma, TMA and larger tiles are the next step).
-// The TPU backward sums dW over a sequential grid in revisited output
-// blocks; Hopper blocks run in no order. Here a fixed number of blocks
-// (the SMs times the blocks that fit on one, at most two) each walk a
-// contiguous range of tiles and keep per-block f32 partials of dWs, dbs,
-// dWo, dbo, dWc and dbc in global memory; dzb is kept per (sample,
-// segment), where a segment is the part of one sample that one block
-// walks. A second launch sums the partials in block order. No atomics:
-// on one card the result does not depend on launch order.
+// What bounds it on an H100: the tensor cores. At the rVAE's config C
+// (B 128, n 1024, H 128, L 2) the forward is 8.7 GFLOP and the backward
+// 26.0 GFLOP against about 2 MB of inputs and outputs: 8.8 and 26.3 us at
+// 989 bf16 TFLOP/s. Next come the 50 M tanh a pass on the MUFU units and
+// the epilogues between the layer products.
 //
-// Range: H a multiple of 16 with 16 <= H <= 512, any L >= 0, any n >= 1
-// (the tail tile is masked: no padding of n), any B >= 1.
+// Design (the wgmma path, H rounded up to HP, a multiple of 64, HP <= 256
+// forward and HP <= 128 backward, whenever its shared memory fits):
+//   - a pack launch converts the f32 weights to bf16 once per call, into
+//     the 128-byte-swizzled image wgmma reads: 64 x 64 pieces, 8 KB each,
+//     ordered (input-row block, output-column block). Zero padding from H
+//     to HP is exact: padded units stay tanh(0) = 0 and feed nothing;
+//   - persistent blocks walk row tiles (a warpgroup's 64 rows are one wgmma
+//     M; the tail of n is masked, never padded). The forward's blocks are
+//     one warpgroup; they bulk-copy (cp.async.bulk + mbarrier) all L
+//     layers once and keep them resident;
+//   - layer products are wgmma.mma_async m64n64k16, bf16 in, f32
+//     accumulate. The activation chain stays in registers: an f32
+//     accumulator, after bias, tanh.approx and the cast to bf16, is already
+//     the register A operand of the next product. h0 is K = 2 FMAs, the
+//     head a register dot product and a quad shuffle;
+//   - the backward's blocks are two warpgroups on 128-row tiles. Each
+//     recomputes its 64 rows' h1..hL, keeps h1..h(L-1) and G in shared
+//     memory as bf16 (h0 is recomputed into h1's tile when the last level
+//     needs it), forms G = dh (1 - h^2) in registers, and gets
+//     dh = G Ws[l]^T from the weight image through the B descriptor's
+//     transpose bit. dWs[l] += h_l^T G (K = the tile's 128 rows, both
+//     operands in shared memory) is split into 64 x 64 blocks between the
+//     warpgroups. Its f32 partials stay in shared memory, row-swizzled, for
+//     all of the block's tiles (128 KB at config C); beside them the
+//     weights do not fit (267 KB in all), so they stream through a two-stage ring
+//     of bulk-copied 8 KB pieces. Column sums (dbs, dbc, dWc, dWo, dzb) and
+//     dx come from registers by warp and quad shuffles;
+//   - per-block partials go to global memory once per block, and a second
+//     launch sums them in block order: no atomics, so the backward is
+//     bit-identical run to run.
+// Shapes outside that range (H above 256 forward or above 128 backward,
+// or L deep enough that the shared memory does not fit) take the staged
+// path below it: wmma 16x16x16
+// tiles with each 128 x 128 weight chunk converted per tile (the first
+// port's design, kept so that the range stays H a multiple of 16 in
+// [16, 512], any L >= 0, any n >= 1, any B <= 65535).
 //
 // Plain C interface (loaded with ctypes): no PyTorch headers. The caller
-// allocates every output and the backward's workspace, and passes
-// PyTorch's current stream; each launch is checked with
-// cudaGetLastError() and an error code is returned, never thrown.
+// allocates every output and the workspace (spatial_mlp_workspace) and
+// passes PyTorch's current stream; each launch is checked with
+// cudaGetLastError() and an error code is returned, never thrown. Launch
+// plans and kernel attributes are computed once per shape and device.
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -80,6 +95,10 @@ __host__ __device__ inline int chunk_of(int H) {
 }
 
 __host__ __device__ inline size_t round128(size_t b) { return (b + 127) / 128 * 128; }
+
+// ---------------------------------------------------------------------------
+// The staged path: shapes outside the wgmma path's range.
+// ---------------------------------------------------------------------------
 
 // Shared-memory layout, in bytes, of both kernels. Every region starts on
 // a 128-byte boundary, so every wmma pointer below is 32-byte aligned.
@@ -123,7 +142,7 @@ struct BwdPlan {
   int nblocks;
   int P;          // floats per block partial (rounded up to 8)
   int P_used;     // L*H*H + L*H + H + 1 + 2*H + H
-  size_t part_bytes, dzb_bytes, scratch_bytes, total_bytes;
+  size_t img_bytes, part_bytes, dzb_bytes, scratch_bytes, total_bytes;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -484,24 +503,783 @@ __global__ void reduce_kernel(const float* __restrict__ part, int nblocks, int P
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma path.
+// ---------------------------------------------------------------------------
+
+constexpr int kPiece = 8192;     // bytes of one 64 x 64 bf16 piece
+
+__host__ __device__ constexpr int round64(int h) { return (h + 63) / 64 * 64; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (r, c) in a 64-row tile stored as 64 x 64 pieces
+// with the 128-byte swizzle (16-byte chunk index XOR row within 8 rows).
+__host__ __device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * kPiece + (r >> 3) * 1024 + (r & 7) * 128 +
+         ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// wgmma matrix descriptor, 128-byte swizzle; lbo and sbo in bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define WG_D32(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+  "+f"(d[31])
+#define WG_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64 f32, the warpgroup's accumulator) += A (64 x 16 bf16, four
+// registers a thread) @ B (16 x 64 from shared memory). kTransB = 1: B is
+// stored with N contiguous (MN-major); 0: with K contiguous.
+template <int kTransB>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+// d += A @ B with both from shared memory, both MN-major (A stored with M
+// contiguous, B with N contiguous).
+__device__ __forceinline__ void mma_ss_mn(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread: expect `bytes` on the barrier and bulk-copy them, in pieces
+// of at most 32 KB, from global src to shared dst.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  for (uint32_t off = 0; off < bytes; off += 32768) {
+    const uint32_t len = bytes - off < 32768 ? bytes - off : 32768;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(static_cast<unsigned char*>(dst) + off)),
+           "l"(static_cast<const unsigned char*>(src) + off), "r"(len), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// The packed weight image: layer l at l * HP * HP * 2 bytes, piece (ib, ob)
+// (input rows 64 ib.., output columns 64 ob..) at (ib * HP / 64 + ob) * 8 KB,
+// rows of 128 bytes swizzled as swz(). One thread per 8 columns.
+__global__ void pack_kernel(const float* __restrict__ Ws, bf16* __restrict__ img, int H,
+                            int HP, int L) {
+  const int groups = HP / 8;
+  const long long total = (long long)L * HP * groups;
+  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < total;
+       g += (long long)gridDim.x * blockDim.x) {
+    const int l = (int)(g / ((long long)HP * groups));
+    const int rem = (int)(g % ((long long)HP * groups));
+    const int i = rem / groups, o0 = (rem % groups) * 8;
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int o = o0 + 2 * k;
+      const float* src = Ws + ((size_t)l * H + i) * H;
+      const float lo = (i < H && o < H) ? src[o] : 0.f;
+      const float hi = (i < H && o + 1 < H) ? src[o + 1] : 0.f;
+      __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+      w[k] = *reinterpret_cast<uint32_t*>(&v);
+    }
+    // piece (i / 64, o0 / 64): rows i % 64 inside it
+    const size_t off = (size_t)l * HP * HP * 2 + (size_t)((i >> 6) * (HP >> 6)) * kPiece +
+                       swz(i & 63, o0);
+    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(img) + off) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Thread geometry of a wgmma accumulator: element 4 j + e of a thread sits
+// at row rowA (e < 2) or rowA + 8, column 8 j + 2 q + (e & 1).
+struct Geo {
+  int warp, lane, q, rowA;
+  __device__ Geo() {
+    warp = threadIdx.x / 32;
+    lane = threadIdx.x % 32;
+    q = lane & 3;
+    rowA = (warp & 3) * 16 + lane / 4;   // the row in the warpgroup's 64
+  }
+};
+
+// h0 = tanh(x0 Wc[0] + x1 Wc[1] + bc + zb) into the accumulator layout.
+template <int HP>
+__device__ __forceinline__ void first_layer_regs(float* acc, const Geo& g, const float* wc0,
+                                                 const float* wc1, const float* bias,
+                                                 const float* zrow, int H, float xa0,
+                                                 float xa1, float xb0, float xb1) {
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * g.q + e;
+      const float b = bias[c] + (c < H ? __ldg(zrow + c) : 0.f);
+      acc[4 * j + e] = tanh_fast(fmaf(xa0, wc0[c], fmaf(xa1, wc1[c], b)));
+      acc[4 * j + 2 + e] = tanh_fast(fmaf(xb0, wc0[c], fmaf(xb1, wc1[c], b)));
+    }
+  }
+}
+
+// The bf16 A operand of the next product from an f32 accumulator.
+template <int HP>
+__device__ __forceinline__ void to_a_operand(const float* acc, uint32_t* a) {
+#pragma unroll
+  for (int k = 0; k < HP / 16; ++k) {
+    a[4 * k + 0] = pack_bf16(acc[8 * k + 0], acc[8 * k + 1]);
+    a[4 * k + 1] = pack_bf16(acc[8 * k + 2], acc[8 * k + 3]);
+    a[4 * k + 2] = pack_bf16(acc[8 * k + 4], acc[8 * k + 5]);
+    a[4 * k + 3] = pack_bf16(acc[8 * k + 6], acc[8 * k + 7]);
+  }
+}
+
+// acc = tanh(acc + b) over the thread's columns.
+template <int HP>
+__device__ __forceinline__ void bias_tanh(float* acc, const Geo& g, const float* b) {
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * j + e] = tanh_fast(acc[4 * j + e] + b[8 * j + 2 * g.q + (e & 1)]);
+}
+
+// Stores the accumulator as bf16 into a swizzled 64 x HP tile.
+template <int HP>
+__device__ __forceinline__ void store_tile(const float* acc, const Geo& g, unsigned char* tile) {
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j) {
+    const int c = 8 * j + 2 * g.q;
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA, c)) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA + 8, c)) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Sum over the eight lanes that hold the same columns (same q).
+__device__ __forceinline__ float rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// Index of dW[i][o] in the backward's f32 partial: rows of HP floats whose
+// 32-byte groups are XOR-swizzled by the row, so that the eight rows of an
+// accumulator access fall in eight bank groups.
+__host__ __device__ __forceinline__ int dw_index(int HP, int i, int o) {
+  return i * HP + ((((o >> 3) ^ (i & 7))) << 3) + (o & 7);
+}
+
+// Keeps the compiler from moving reads of wgmma accumulators above the
+// wait that makes them valid.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Forward: persistent blocks of one warpgroup; all L layers' bf16 images
+// resident in shared memory, loaded once per block.
+template <int HP>
+__global__ void __launch_bounds__(128)
+fwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
+          const float* __restrict__ Wc, const float* __restrict__ bc,
+          const bf16* __restrict__ img, const float* __restrict__ bs,
+          const float* __restrict__ Wo, const float* __restrict__ bo,
+          float* __restrict__ y, int n, int H, int L, int T, int total) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* wimg = align1024(smem_raw);
+  const size_t layer_bytes = (size_t)HP * HP * 2;
+  float* wc0 = reinterpret_cast<float*>(wimg + L * layer_bytes);
+  float* wc1 = wc0 + HP;
+  float* bcv = wc1 + HP;
+  float* wo = bcv + HP;
+  float* bsv = wo + HP;                    // L * HP
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bsv + L * HP);
+  const Geo g;
+  const int tid = threadIdx.x;
+  if (tid == 0) mbar_init(bar, 1);
+  for (int c = tid; c < HP; c += 128) {
+    const bool ok = c < H;
+    wc0[c] = ok ? Wc[c] : 0.f;
+    wc1[c] = ok ? Wc[H + c] : 0.f;
+    bcv[c] = ok ? bc[c] : 0.f;
+    wo[c] = ok ? Wo[c] : 0.f;
+  }
+  for (int e = tid; e < L * HP; e += 128) {
+    const int l = e / HP, c = e % HP;
+    bsv[e] = c < H ? bs[(size_t)l * H + c] : 0.f;
+  }
+  __syncthreads();
+  if (L > 0) {
+    if (tid == 0) bulk_load(wimg, img, (uint32_t)(L * layer_bytes), bar);
+    mbar_wait(bar, 0);
+  }
+  const float b_out = bo[0];
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int s = t / T, r0 = (t % T) * 64;
+    const int ra = r0 + g.rowA, rb = ra + 8;
+    const float* xs = xT + (size_t)s * 2 * n;
+    const float xa0 = ra < n ? xs[ra] : 0.f, xa1 = ra < n ? xs[n + ra] : 0.f;
+    const float xb0 = rb < n ? xs[rb] : 0.f, xb1 = rb < n ? xs[n + rb] : 0.f;
+    float acc[HP / 2];
+    first_layer_regs<HP>(acc, g, wc0, wc1, bcv, zb + (size_t)s * H, H, xa0, xa1, xb0, xb1);
+    for (int l = 0; l < L; ++l) {
+      uint32_t a[HP / 4];
+      to_a_operand<HP>(acc, a);
+#pragma unroll
+      for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
+      const uint32_t base = smem_addr(wimg + l * layer_bytes);
+      wg_fence();
+#pragma unroll
+      for (int nc = 0; nc < HP / 64; ++nc)
+#pragma unroll
+        for (int ks = 0; ks < HP / 16; ++ks)
+          mma_rs<1>(acc + 32 * nc, a + 4 * ks,
+                    desc(base + ((ks >> 2) * (HP / 64) + nc) * kPiece + (ks & 3) * 2048,
+                         kPiece, 1024));
+      wg_commit();
+      wg_wait();
+      fence_regs<HP / 2>(acc);
+      bias_tanh<HP>(acc, g, bsv + l * HP);
+    }
+    float pa = 0.f, pb = 0.f;
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float w = wo[8 * j + 2 * g.q + e];
+        pa = fmaf(acc[4 * j + e], w, pa);
+        pb = fmaf(acc[4 * j + 2 + e], w, pb);
+      }
+    pa = quad_sum(pa);
+    pb = quad_sum(pb);
+    if (g.q == 0) {
+      if (ra < n) y[(size_t)s * n + ra] = pa + b_out;
+      if (rb < n) y[(size_t)s * n + rb] = pb + b_out;
+    }
+  }
+}
+
+__host__ __device__ inline size_t fwd_smem_bytes(int HP, int L) {
+  return 1024 + (size_t)L * HP * HP * 2 + sizeof(float) * (4 + L) * HP + 16;
+}
+
+// The backward's weight ring: kStages stages of one 8 KB piece of a layer
+// image, refilled by bulk copies. Per 128-row tile the pieces go layer
+// 0..L-1 (the recompute), then layer L-1..0 (dh), each layer in image
+// order; every thread of the block walks the same sequence.
+constexpr int kStages = 2;
+
+struct Ring {
+  unsigned char* buf;
+  uint64_t* bar;
+  const unsigned char* img;
+  int L, pieces;                 // pieces of one layer: (HP / 64)^2
+  long long q, total;
+  size_t layer;
+
+  __device__ const unsigned char* src(long long k) const {
+    int idx = (int)(k % (2 * L * pieces)), l;
+    if (idx < L * pieces) {
+      l = idx / pieces;
+    } else {
+      idx -= L * pieces;
+      l = L - 1 - idx / pieces;
+    }
+    return img + l * layer + (size_t)(idx % pieces) * kPiece;
+  }
+  __device__ void fetch(long long k) {
+    const int st = (int)(k % kStages);
+    if (k < total) bulk_load(buf + st * kPiece, src(k), kPiece, bar + st);
+  }
+  __device__ uint32_t acquire() {
+    const int st = (int)(q % kStages);
+    mbar_wait(bar + st, (uint32_t)((q / kStages) & 1));
+    return smem_addr(buf + st * kPiece);
+  }
+  // every thread is done with the stage: refill it kStages pieces ahead
+  __device__ void release() {
+    __syncthreads();
+    if (threadIdx.x == 0) fetch(q + kStages);
+    ++q;
+  }
+};
+
+// Per-warp column sums of f(j, e) (a thread's two rows at column
+// 8 j + 2 q + e) into cp[warp * HP + column].
+template <int HP, typename F>
+__device__ __forceinline__ void col_partial(const Geo& g, float* cp, F f) {
+#pragma unroll
+  for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = rows_sum(f(j, e));
+      if (g.lane < 4) cp[g.warp * HP + 8 * j + 2 * g.q + e] = v;
+    }
+}
+
+// The eight warps' partials of column c, summed in warp order.
+template <int HP>
+__device__ __forceinline__ float warps_sum(const float* cp, int c) {
+  float v = cp[c];
+#pragma unroll
+  for (int w = 1; w < 8; ++w) v += cp[w * HP + c];
+  return v;
+}
+
+// Column sums of f over the block's 128 rows, added to dst (all threads;
+// synchronises the block twice).
+template <int HP, typename F>
+__device__ __forceinline__ void col_sums(const Geo& g, float* cp, float* dst, F f) {
+  col_partial<HP>(g, cp, f);
+  __syncthreads();
+  for (int c = threadIdx.x; c < HP; c += 256) dst[c] += warps_sum<HP>(cp, c);
+  __syncthreads();
+}
+
+// Tiles of 64 x HP bf16 a warpgroup keeps: G, then h_1..h_(L-1); h_0 is
+// recomputed into h_1's tile (its own for L = 1) when the last level needs
+// it.
+__host__ __device__ inline int bwd_slots(int L) { return L == 0 ? 1 : (L < 2 ? 2 : L); }
+
+template <int HP>
+__host__ __device__ inline size_t bwd_smem_bytes(int L) {
+  return 1024 + (size_t)kStages * kPiece + (size_t)2 * bwd_slots(L) * HP * 128 +
+         (size_t)L * HP * HP * 4 +
+         sizeof(float) * ((size_t)(3 + L) * HP + (size_t)(L + 4) * HP + 8 * HP + 16) +
+         8 * kStages;
+}
+
+// Backward: persistent blocks of two warpgroups; a block walks 128-row
+// tiles, 64 rows to a warpgroup. The f32 dW partials stay in shared memory
+// for all of the block's tiles; the 64 x 64 blocks of each layer's
+// h_l^T G product (K = the tile's 128 rows) are split between the
+// warpgroups.
+template <int HP>
+__global__ void __launch_bounds__(256, 1)
+bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
+          const float* __restrict__ Wc, const float* __restrict__ bc,
+          const bf16* __restrict__ img, const float* __restrict__ bs,
+          const float* __restrict__ Wo, const float* __restrict__ gy,
+          float* __restrict__ dx, float* __restrict__ part, float* __restrict__ dzb_part,
+          int n, int H, int L, int T, int total, int per, int seg_len, int segs, int P) {
+  constexpr int KC = HP / 64;
+  constexpr int TILE = HP * 128;           // bytes of a 64 x HP bf16 tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_buf = align1024(smem_raw);
+  const int S = bwd_slots(L);
+  unsigned char* tiles = ring_buf + kStages * kPiece;   // [warpgroup][slot]
+  float* dW = reinterpret_cast<float*>(tiles + 2 * S * TILE);
+  float* wc0 = dW + (size_t)L * HP * HP;
+  float* wc1 = wc0 + HP;
+  float* bcv = wc1 + HP;
+  float* bsv = bcv + HP;                   // L * HP
+  float* dbs = bsv + L * HP;               // L * HP, then dbc, dwc0, dwc1, dwo
+  float* dbc = dbs + L * HP;
+  float* dwc0 = dbc + HP;
+  float* dwc1 = dwc0 + HP;
+  float* dwo = dwc1 + HP;
+  float* cp = dwo + HP;                    // 8 warps x HP
+  float* scal = cp + 8 * HP;               // [0] dbo, [8..15] per warp
+  uint64_t* bar = reinterpret_cast<uint64_t*>(scal + 16);   // kStages
+  const Geo g;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x;
+  auto tile = [&](int w, int slot) { return tiles + (w * S + slot) * TILE; };
+  // h_l's tile: slot l for l >= 1, slot 1 for h_0; G in slot 0
+  auto h_slot = [&](int l) { return l == 0 ? 1 : l; };
+
+  if (tid == 0)
+    for (int st = 0; st < kStages; ++st) mbar_init(bar + st, 1);
+  for (int c = tid; c < HP; c += 256) {
+    const bool ok = c < H;
+    wc0[c] = ok ? Wc[c] : 0.f;
+    wc1[c] = ok ? Wc[H + c] : 0.f;
+    bcv[c] = ok ? bc[c] : 0.f;
+  }
+  for (int e = tid; e < L * HP; e += 256) {
+    const int l = e / HP, c = e % HP;
+    bsv[e] = c < H ? bs[(size_t)l * H + c] : 0.f;
+  }
+  for (size_t e = tid; e < (size_t)L * HP * HP; e += 256) dW[e] = 0.f;
+  for (int e = tid; e < (L + 4) * HP; e += 256) dbs[e] = 0.f;
+  if (tid < 16) scal[tid] = 0.f;
+  __syncthreads();
+
+  const int t_begin = blockIdx.x * per;
+  const int t_end = min(t_begin + per, total);
+  Ring ring{ring_buf, bar, reinterpret_cast<const unsigned char*>(img), L, KC * KC, 0,
+            (long long)(t_end - t_begin) * 2 * L * KC * KC, (size_t)HP * HP * 2};
+  if (tid == 0)
+    for (int st = 0; st < kStages; ++st) ring.fetch(st);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int s = t / T, jt = t % T, r0 = jt * 128 + 64 * wg;
+    const bool first_in_seg = t == t_begin || jt % seg_len == 0;
+    float* dzb_seg = dzb_part + ((size_t)s * segs + jt / seg_len) * H;
+    const int ra = r0 + g.rowA, rb = ra + 8;
+    const float* xs = xT + (size_t)s * 2 * n;
+    // masked rows get x = 0 and gy = 0: they add nothing
+    const float xa0 = ra < n ? xs[ra] : 0.f, xa1 = ra < n ? xs[n + ra] : 0.f;
+    const float xb0 = rb < n ? xs[rb] : 0.f, xb1 = rb < n ? xs[n + rb] : 0.f;
+    const float ga = ra < n ? gy[(size_t)s * n + ra] : 0.f;
+    const float gb = rb < n ? gy[(size_t)s * n + rb] : 0.f;
+    const float* zrow = zb + (size_t)s * H;
+
+    float acc[HP / 2];
+    uint32_t a[HP / 4];
+    first_layer_regs<HP>(acc, g, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+    for (int l = 0; l < L; ++l) {          // recompute h1..hL
+      to_a_operand<HP>(acc, a);
+#pragma unroll
+      for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int p = 0; p < KC * KC; ++p) {  // piece (input block kc, output block nc)
+        const int kc = p / KC, nc = p % KC;
+        const uint32_t base = ring.acquire();
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          mma_rs<1>(acc + 32 * nc, a + 4 * (4 * kc + k), desc(base + k * 2048, kPiece, 1024));
+        wg_commit();
+        wg_wait();
+        fence_regs<HP / 2>(acc);
+        ring.release();
+      }
+      bias_tanh<HP>(acc, g, bsv + l * HP);
+      if (l + 1 < L) store_tile<HP>(acc, g, tile(wg, h_slot(l + 1)));
+    }
+
+    // head: dWo += hL^T gy, dbo += sum gy, G_L = gy Wo^T (1 - hL^2)
+    {
+      float v = g.q == 0 ? ga + gb : 0.f;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (g.lane == 0) scal[8 + g.warp] = v;
+    }
+    col_sums<HP>(g, cp, dwo, [&](int j, int e) {
+      return acc[4 * j + e] * ga + acc[4 * j + 2 + e] * gb; });
+    if (tid == 0) {
+      float v = scal[8];
+      for (int w = 1; w < 8; ++w) v += scal[8 + w];
+      scal[0] += v;
+    }
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * g.q + e;
+        const float w = c < H ? __ldg(Wo + c) : 0.f;
+        float& u = acc[4 * j + e];
+        float& v = acc[4 * j + 2 + e];
+        u = ga * w * (1.f - u * u);
+        v = gb * w * (1.f - v * v);
+      }
+
+    for (int m = L; m >= 1; --m) {
+      const int l = m - 1;                 // the layer that maps h_l to h_m
+      col_sums<HP>(g, cp, dbs + l * HP, [&](int j, int e) {
+        return acc[4 * j + e] + acc[4 * j + 2 + e]; });
+      if (l == 0) {                        // h_0 again, into its tile
+        unsigned char* h0t = tile(wg, h_slot(0));
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j) {
+          const int c = 8 * j + 2 * g.q;
+          float ha[2], hb[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float b = bcv[c + e] + (c + e < H ? __ldg(zrow + c + e) : 0.f);
+            ha[e] = tanh_fast(fmaf(xa0, wc0[c + e], fmaf(xa1, wc1[c + e], b)));
+            hb[e] = tanh_fast(fmaf(xb0, wc0[c + e], fmaf(xb1, wc1[c + e], b)));
+          }
+          *reinterpret_cast<uint32_t*>(h0t + swz(g.rowA, c)) = pack_bf16(ha[0], ha[1]);
+          *reinterpret_cast<uint32_t*>(h0t + swz(g.rowA + 8, c)) = pack_bf16(hb[0], hb[1]);
+        }
+      }
+      store_tile<HP>(acc, g, tile(wg, 0));
+      fence_async_smem();
+      __syncthreads();
+      // dWs[l] += h_l^T G over the tile's 128 rows: 64 x 64 blocks of the
+      // block's f32 partial, alternating between the warpgroups
+      float* dw = dW + (size_t)l * HP * HP;
+#pragma unroll 1
+      for (int c = wg; c < KC * KC; c += 2) {
+        const int mc = c / KC, nc = c % KC;
+        float d[32];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int o = 64 * nc + 8 * jj + 2 * g.q;
+          const float2 u = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o));
+          const float2 v = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o));
+          d[4 * jj] = u.x;
+          d[4 * jj + 1] = u.y;
+          d[4 * jj + 2] = v.x;
+          d[4 * jj + 3] = v.y;
+        }
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const uint32_t h_l = smem_addr(tile(k >> 2, h_slot(l)));
+          const uint32_t gt = smem_addr(tile(k >> 2, 0));
+          mma_ss_mn(d, desc(h_l + mc * kPiece + (k & 3) * 2048, kPiece, 1024),
+                    desc(gt + nc * kPiece + (k & 3) * 2048, kPiece, 1024));
+        }
+        wg_commit();
+        wg_wait();
+        fence_regs<32>(d);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int o = 64 * nc + 8 * jj + 2 * g.q;
+          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o)) =
+              make_float2(d[4 * jj], d[4 * jj + 1]);
+          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o)) =
+              make_float2(d[4 * jj + 2], d[4 * jj + 3]);
+        }
+      }
+      // dh_l = G @ Ws[l]^T: the same image, K-major through the transpose bit
+      to_a_operand<HP>(acc, a);
+#pragma unroll
+      for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int p = 0; p < KC * KC; ++p) {  // piece (output block kc, input block ob)
+        const int kc = p / KC, ob = p % KC;
+        const uint32_t base = ring.acquire();
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          mma_rs<0>(acc + 32 * kc, a + 4 * (4 * ob + k), desc(base + k * 32, 16, 1024));
+        wg_commit();
+        wg_wait();
+        fence_regs<HP / 2>(acc);
+        ring.release();
+      }
+      // G at level l = dh_l (1 - h_l^2)
+      const unsigned char* ht = tile(wg, h_slot(l));
+#pragma unroll
+      for (int j = 0; j < HP / 8; ++j) {
+        const int c = 8 * j + 2 * g.q;
+        const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA, c)));
+        const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA + 8, c)));
+        acc[4 * j] *= 1.f - fa.x * fa.x;
+        acc[4 * j + 1] *= 1.f - fa.y * fa.y;
+        acc[4 * j + 2] *= 1.f - fb.x * fb.x;
+        acc[4 * j + 3] *= 1.f - fb.y * fb.y;
+      }
+    }
+
+    // level 0: dx from G0 by rows; dbc, dzb and dWc by columns
+    {
+      float da0 = 0.f, da1 = 0.f, db0 = 0.f, db1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * g.q + e;
+          da0 = fmaf(acc[4 * j + e], wc0[c], da0);
+          da1 = fmaf(acc[4 * j + e], wc1[c], da1);
+          db0 = fmaf(acc[4 * j + 2 + e], wc0[c], db0);
+          db1 = fmaf(acc[4 * j + 2 + e], wc1[c], db1);
+        }
+      da0 = quad_sum(da0);
+      da1 = quad_sum(da1);
+      db0 = quad_sum(db0);
+      db1 = quad_sum(db1);
+      if (g.q == 0) {
+        float* dxs = dx + (size_t)s * 2 * n;
+        if (ra < n) { dxs[ra] = da0; dxs[n + ra] = da1; }
+        if (rb < n) { dxs[rb] = db0; dxs[n + rb] = db1; }
+      }
+    }
+    col_partial<HP>(g, cp, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
+    __syncthreads();
+    for (int c = tid; c < HP; c += 256) {
+      const float sum = warps_sum<HP>(cp, c);
+      dbc[c] += sum;
+      if (c < H) dzb_seg[c] = first_in_seg ? sum : dzb_seg[c] + sum;
+    }
+    __syncthreads();
+    col_sums<HP>(g, cp, dwc0, [&](int j, int e) {
+      return fmaf(xa0, acc[4 * j + e], xb0 * acc[4 * j + 2 + e]); });
+    col_sums<HP>(g, cp, dwc1, [&](int j, int e) {
+      return fmaf(xa1, acc[4 * j + e], xb1 * acc[4 * j + 2 + e]); });
+  }
+
+  // the block's partials, once: [dWs | dbs | dWo | dbo | dWc | dbc]
+  float* out = part + (size_t)blockIdx.x * P;
+  for (size_t e = tid; e < (size_t)L * H * H; e += 256) {
+    const int l = (int)(e / ((size_t)H * H)), r = (int)(e % ((size_t)H * H));
+    out[e] = dW[(size_t)l * HP * HP + dw_index(HP, r / H, r % H)];
+  }
+  out += (size_t)L * H * H;
+  for (int e = tid; e < L * H; e += 256) out[e] = dbs[(e / H) * HP + e % H];
+  out += L * H;
+  for (int c = tid; c < H; c += 256) {
+    out[c] = dwo[c];
+    out[H + 1 + c] = dwc0[c];
+    out[2 * H + 1 + c] = dwc1[c];
+    out[3 * H + 1 + c] = dbc[c];
+  }
+  if (tid == 0) out[H] = scal[0];
+}
+
 int grad_floats(int H, int L) { return L * H * H + L * H + 4 * H + 1; }
 
+// Which path a shape takes, and the bytes of its packed weight image.
+bool fwd_fast(int H, int L) {
+  const int HP = round64(H);
+  return HP <= 256 && fwd_smem_bytes(HP, L) <= (size_t)kSmemLimit;
+}
+
+size_t bwd_fast_smem(int H, int L) {
+  const int HP = round64(H);
+  if (HP == 64) return bwd_smem_bytes<64>(L);
+  if (HP == 128) return bwd_smem_bytes<128>(L);
+  return SIZE_MAX;
+}
+
+bool bwd_fast(int H, int L) { return bwd_fast_smem(H, L) <= (size_t)kSmemLimit; }
+
+size_t image_bytes(int H, int L) {
+  const int HP = round64(H);
+  return round128((size_t)L * HP * HP * sizeof(bf16));
+}
+
+const void* fwd_fast_fn(int HP) {
+  switch (HP) {
+    case 64: return (const void*)fwd_wgmma<64>;
+    case 128: return (const void*)fwd_wgmma<128>;
+    case 192: return (const void*)fwd_wgmma<192>;
+    default: return (const void*)fwd_wgmma<256>;
+  }
+}
+
+const void* bwd_fast_fn(int HP) {
+  return HP == 64 ? (const void*)bwd_wgmma<64> : (const void*)bwd_wgmma<128>;
+}
+
+// Host-side state computed once: the SM count of each device, and for each
+// (kernel, device, shared memory) the attribute set and the occupancy.
+std::mutex g_mu;
+constexpr int kMaxDev = 64;
+int g_sms[kMaxDev];
+struct Prepared { const void* fn; int dev; int smem; int occ; };
+Prepared g_prepared[128];
+int g_n_prepared = 0;
+struct PlanEntry { int B, n, H, L, dev; BwdPlan p; };
+PlanEntry g_plans[32];
+int g_n_plans = 0;
+
+int current_device(int* dev, int* sms) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  if (*dev >= kMaxDev) return kErrShape;
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (g_sms[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&g_sms[*dev], cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = g_sms[*dev];
+  return 0;
+}
+
+// Sets the kernel's dynamic shared memory once and returns its blocks per SM.
+int prepare(const void* fn, int dev, int smem, int threads, int* occ) {
+  std::lock_guard<std::mutex> lock(g_mu);
+  for (int i = 0; i < g_n_prepared; ++i) {
+    const Prepared& e = g_prepared[i];
+    if (e.fn == fn && e.dev == dev && e.smem == smem) {
+      *occ = e.occ;
+      return 0;
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (*occ < 1) return kErrSmem;
+  g_prepared[g_n_prepared % 128] = Prepared{fn, dev, smem, *occ};
+  if (g_n_prepared < 128) ++g_n_prepared;
+  return 0;
+}
+
 int make_plan(int B, int n, int H, int L, BwdPlan* p) {
-  Layout lay(H, L, true);
   int dev = 0, sms = 0, occ = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)lay.total);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, bwd_kernel, kThreads,
-                                                      lay.total);
-  if (err != cudaSuccess) return (int)err;
-  if (occ < 1) return kErrSmem;
+  int err = current_device(&dev, &sms);
+  if (err) return err;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    for (int i = 0; i < g_n_plans; ++i) {
+      const PlanEntry& e = g_plans[i];
+      if (e.B == B && e.n == n && e.H == H && e.L == L && e.dev == dev) {
+        *p = e.p;
+        return 0;
+      }
+    }
+  }
+  const bool fast = bwd_fast(H, L);
+  Layout lay(H, L, true);
+  err = fast ? prepare(bwd_fast_fn(round64(H)), dev, (int)bwd_fast_smem(H, L), 256, &occ)
+             : prepare((const void*)bwd_kernel, dev, (int)lay.total, kThreads, &occ);
+  if (err) return err;
   const int target = sms * (occ < 2 ? occ : 2);
-  p->T = (n + kTM - 1) / kTM;
+  const int rows = fast ? 128 : kTM;   // rows of a tile
+  p->T = (n + rows - 1) / rows;
   p->total = B * p->T;
   const int want = (p->total + target - 1) / target;
   if (want <= p->T) {
@@ -516,13 +1294,26 @@ int make_plan(int B, int n, int H, int L, BwdPlan* p) {
   p->nblocks = (p->total + p->per - 1) / p->per;
   p->P_used = grad_floats(H, L);
   p->P = (p->P_used + 7) / 8 * 8;
+  p->img_bytes = fast ? image_bytes(H, L) : 0;
   p->part_bytes = round128(sizeof(float) * (size_t)p->nblocks * p->P);
   p->dzb_bytes = round128(sizeof(float) * (size_t)B * p->segs * H);
-  p->scratch_bytes = lay.acts_global
+  p->scratch_bytes = !fast && lay.acts_global
       ? round128(sizeof(bf16) * (size_t)p->nblocks * (L + 3) * lay.act_tile_elems())
       : 0;
-  p->total_bytes = p->part_bytes + p->dzb_bytes + p->scratch_bytes;
+  p->total_bytes = p->img_bytes + p->part_bytes + p->dzb_bytes + p->scratch_bytes;
+  std::lock_guard<std::mutex> lock(g_mu);
+  g_plans[g_n_plans % 32] = PlanEntry{B, n, H, L, dev, *p};
+  if (g_n_plans < 32) ++g_n_plans;
   return 0;
+}
+
+int pack_weights(const float* Ws, bf16* img, int H, int L, cudaStream_t st) {
+  if (L == 0) return 0;
+  const int HP = round64(H);
+  const long long groups = (long long)L * HP * (HP / 8);
+  const int blocks = (int)((groups + 255) / 256 < 1024 ? (groups + 255) / 256 : 1024);
+  pack_kernel<<<blocks, 256, 0, st>>>(Ws, img, H, HP, L);
+  return (int)cudaGetLastError();
 }
 
 bool shape_ok(int B, int n, int H, int L) {
@@ -533,31 +1324,60 @@ bool shape_ok(int B, int n, int H, int L) {
 
 extern "C" {
 
-// y (B, 1, n) from the inputs; see the file comment for the shapes.
-int spatial_mlp_forward(const float* xT, const float* zb, const float* Wc,
-                        const float* bc, const float* Ws, const float* bs,
-                        const float* Wo, const float* bo, float* y, int B, int n,
-                        int H, int L, void* stream) {
-  if (!shape_ok(B, n, H, L)) return kErrShape;
-  const Layout lay(H, L, false);
-  if (lay.total > (size_t)kSmemLimit) return kErrSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kTM - 1) / kTM, B);
-  fwd_kernel<<<grid, kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(
-      xT, zb, Wc, bc, Ws, bs, Wo, bo, y, n, H, L);
-  return (int)cudaGetLastError();
-}
-
-// Bytes of workspace the backward needs for these shapes on the current device.
-int spatial_mlp_backward_workspace(int B, int n, int H, int L, long long* bytes) {
+// Workspace bytes of the forward and of the backward for these shapes on
+// the current device.
+int spatial_mlp_workspace(int B, int n, int H, int L, long long* fwd_bytes,
+                          long long* bwd_bytes) {
   if (!shape_ok(B, n, H, L)) return kErrShape;
   BwdPlan p;
   const int err = make_plan(B, n, H, L, &p);
   if (err) return err;
-  *bytes = (long long)p.total_bytes;
+  *fwd_bytes = fwd_fast(H, L) ? (long long)image_bytes(H, L) : 0;
+  *bwd_bytes = (long long)p.total_bytes;
   return 0;
+}
+
+// y (B, 1, n) from the inputs; see the file comment for the shapes.
+int spatial_mlp_forward(const float* xT, const float* zb, const float* Wc,
+                        const float* bc, const float* Ws, const float* bs,
+                        const float* Wo, const float* bo, float* y, void* workspace,
+                        long long workspace_bytes, int B, int n, int H, int L,
+                        void* stream) {
+  if (!shape_ok(B, n, H, L)) return kErrShape;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, occ = 0;
+  int err = current_device(&dev, &sms);
+  if (err) return err;
+  if (fwd_fast(H, L)) {
+    const int HP = round64(H);
+    if ((long long)image_bytes(H, L) > workspace_bytes) return kErrWorkspace;
+    const int smem = (int)fwd_smem_bytes(HP, L);
+    err = prepare(fwd_fast_fn(HP), dev, smem, kThreads, &occ);
+    if (err) return err;
+    bf16* img = static_cast<bf16*>(workspace);
+    err = pack_weights(Ws, img, H, L, st);
+    if (err) return err;
+    const int T = (n + kTM - 1) / kTM, total = B * T;
+    const int grid = total < sms * occ ? total : sms * occ;
+#define SPATIAL_MLP_FWD(HPV)                                                         \
+  fwd_wgmma<HPV><<<grid, kThreads, smem, st>>>(xT, zb, Wc, bc, img, bs, Wo, bo, y, n, \
+                                                H, L, T, total)
+    switch (HP) {
+      case 64: SPATIAL_MLP_FWD(64); break;
+      case 128: SPATIAL_MLP_FWD(128); break;
+      case 192: SPATIAL_MLP_FWD(192); break;
+      default: SPATIAL_MLP_FWD(256); break;
+    }
+#undef SPATIAL_MLP_FWD
+    return (int)cudaGetLastError();
+  }
+  const Layout lay(H, L, false);
+  if (lay.total > (size_t)kSmemLimit) return kErrSmem;
+  err = prepare((const void*)fwd_kernel, dev, (int)lay.total, kThreads, &occ);
+  if (err) return err;
+  const dim3 grid((n + kTM - 1) / kTM, B);
+  fwd_kernel<<<grid, kThreads, lay.total, st>>>(xT, zb, Wc, bc, Ws, bs, Wo, bo, y, n, H, L);
+  return (int)cudaGetLastError();
 }
 
 // dx (B, 2, n), dzb (B, H), and dW = [dWs (L,H,H) | dbs (L,H) | dWo (H) |
@@ -573,16 +1393,31 @@ int spatial_mlp_backward(const float* xT, const float* zb, const float* Wc,
   int err = make_plan(B, n, H, L, &p);
   if (err) return err;
   if ((long long)p.total_bytes > workspace_bytes) return kErrWorkspace;
-  const Layout lay(H, L, true);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  float* part = reinterpret_cast<float*>(ws);
-  float* dzb_part = reinterpret_cast<float*>(ws + p.part_bytes);
-  bf16* scratch = lay.acts_global
-      ? reinterpret_cast<bf16*>(ws + p.part_bytes + p.dzb_bytes) : nullptr;
+  bf16* img = reinterpret_cast<bf16*>(ws);
+  float* part = reinterpret_cast<float*>(ws + p.img_bytes);
+  float* dzb_part = reinterpret_cast<float*>(ws + p.img_bytes + p.part_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bwd_kernel<<<p.nblocks, kThreads, lay.total, st>>>(
-      xT, zb, Wc, bc, Ws, bs, Wo, bo, gy, dx, part, dzb_part, scratch, n, H, L,
-      p.T, p.total, p.per, p.seg_len, p.segs, p.P);
+  if (bwd_fast(H, L)) {
+    err = pack_weights(Ws, img, H, L, st);
+    if (err) return err;
+    const int smem = (int)bwd_fast_smem(H, L);
+    if (round64(H) == 64)
+      bwd_wgmma<64><<<p.nblocks, 256, smem, st>>>(
+          xT, zb, Wc, bc, img, bs, Wo, gy, dx, part, dzb_part, n, H, L, p.T, p.total,
+          p.per, p.seg_len, p.segs, p.P);
+    else
+      bwd_wgmma<128><<<p.nblocks, 256, smem, st>>>(
+          xT, zb, Wc, bc, img, bs, Wo, gy, dx, part, dzb_part, n, H, L, p.T, p.total,
+          p.per, p.seg_len, p.segs, p.P);
+  } else {
+    const Layout lay(H, L, true);
+    bf16* scratch = lay.acts_global
+        ? reinterpret_cast<bf16*>(ws + p.img_bytes + p.part_bytes + p.dzb_bytes) : nullptr;
+    bwd_kernel<<<p.nblocks, kThreads, lay.total, st>>>(
+        xT, zb, Wc, bc, Ws, bs, Wo, bo, gy, dx, part, dzb_part, scratch, n, H, L,
+        p.T, p.total, p.per, p.seg_len, p.segs, p.P);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int BH = B * H;
@@ -600,7 +1435,7 @@ const char* spatial_mlp_error_string(int code) {
     case kErrSmem:
       return "the tile does not fit in shared memory";
     case kErrWorkspace:
-      return "workspace smaller than spatial_mlp_backward_workspace() asked for";
+      return "workspace smaller than spatial_mlp_workspace() asked for";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

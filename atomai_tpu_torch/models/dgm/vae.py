@@ -35,8 +35,8 @@ class BaseVAE(viBaseTrainer):
     """General class for VAE models.
 
     Keyword args besides the nets' (``numlayers_encoder``,
-    ``numhidden_decoder``, ...): ``device`` (default "cpu"; "cuda" needs a
-    card and raises without one). ``seed`` gives the weights and every
+    ``numhidden_decoder``, ...): ``device`` ("cuda", the default, needs a
+    card and raises without one; "cpu" when asked for). ``seed`` gives the weights and every
     random draw of ``fit``, as in the JAX package (``max(seed, 0) + 1``
     seeds the stream).
     """
@@ -46,7 +46,7 @@ class BaseVAE(viBaseTrainer):
                  discrete_dim: Optional[List[int]] = None, seed: int = 0,
                  **kwargs: Any) -> None:
         super().__init__(seed=max(seed, 0) + 1,
-                         device=kwargs.pop("device", "cpu"))
+                         device=kwargs.pop("device", "cuda"))
         if not isinstance(in_dim, (tuple, list)) or len(in_dim) == 0 \
                 or not isinstance(in_dim[0], int):
             raise AssertionError(

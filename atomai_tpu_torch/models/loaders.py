@@ -12,9 +12,9 @@ from ..core.checkpoint import load_checkpoint
 _NOT_PORTED = "ROADMAP Queue 1 #20"
 
 
-def load_model(filepath: str, device: str = "cpu"):
-    """A trained model, on ``device``, from a ``.aoit`` file written by
-    ``save_model``."""
+def load_model(filepath: str, device: str = "cuda"):
+    """A trained model, on ``device`` (the card by default; "cpu" when
+    asked for), from a ``.aoit`` file written by ``save_model``."""
     if filepath.endswith(".aoi"):
         raise NotImplementedError(
             f"the port reads its own .aoit files only; reading the JAX "

@@ -26,8 +26,8 @@ class Segmentor(SegTrainer):
         >>> nn_output, coordinates = m.predict(imgs, refine=True, d=4)
 
     Keyword args: ``seed`` (weights, batch order and every random draw of
-    ``fit``; default 1), ``batch_seed``, ``device`` (default "cpu"; "cuda"
-    needs a card and raises without one), and the net's ``nb_filters``,
+    ``fit``; default 1), ``batch_seed``, ``device`` ("cuda", the default,
+    needs a card and raises without one; "cpu" when asked for), and the net's ``nb_filters``,
     ``layers``, ``batch_norm``, ``dropout``, ``upsampling``.
     """
 

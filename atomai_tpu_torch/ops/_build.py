@@ -10,7 +10,9 @@ processes never load a half-written library (as
 `atomai_tpu/native/__init__.py:24-44` does for its g++ builds).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, with
-the compiler's output.
+the compiler's output. ``-Xptxas -v`` makes the assembler report each
+kernel's registers, shared memory and spills; a build in this process keeps
+that report in ``BUILD_LOG``.
 """
 
 import ctypes
@@ -23,7 +25,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# source -> the compiler's output of its build in this process
+BUILD_LOG = {}
 
 
 def find_nvcc() -> str:
@@ -64,6 +68,7 @@ def build(source: str) -> str:
                 f"nvcc failed on {source} (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp_path, lib_path)
+        BUILD_LOG[source] = proc.stdout + proc.stderr
     finally:
         if os.path.exists(tmp_path):
             os.unlink(tmp_path)

@@ -49,6 +49,12 @@ def build() -> None:
     _library()
 
 
+def cc_label_bytes(H: int, W: int) -> int:
+    """Device-memory bytes the labeller must move for an (H, W) mask: the
+    one-byte mask read once and the int32 labels written once."""
+    return H * W * (1 + 4)
+
+
 def _check_mask(mask: torch.Tensor) -> None:
     if mask.ndim != 2:
         raise ValueError(f"mask must be 2D (H, W), got shape "

@@ -21,6 +21,13 @@ rows::
 The kernels take bf16 operands with f32 accumulation (the TPU kernel's
 precision), H a multiple of 16 in [16, 512] (:func:`mlp_shapes_supported`),
 any L >= 0 and any n: the tail tile is masked, so rows need no padding.
+Their design is in the source's header: ``wgmma`` products with the
+activation chain in registers for H up to 256 (forward) and 128
+(backward), a staged ``wmma`` path beyond. Each call packs the weights to
+bf16 into a workspace that the wrapper keeps per device and pass, sized
+once per shape (:func:`_workspace`); the kernels allocate nothing.
+:func:`spatial_mlp_flops` and :func:`spatial_mlp_bytes` count the work for
+the bounds of ``roofline``.
 """
 
 import ctypes
@@ -45,11 +52,12 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(_SOURCE)
-        lib.spatial_mlp_forward.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.spatial_mlp_forward.argtypes = [_P] * 10 + [ctypes.c_longlong] \
+            + [_I] * 4 + [_P]
         lib.spatial_mlp_forward.restype = _I
-        lib.spatial_mlp_backward_workspace.argtypes = [_I] * 4 + [
-            ctypes.POINTER(ctypes.c_longlong)]
-        lib.spatial_mlp_backward_workspace.restype = _I
+        lib.spatial_mlp_workspace.argtypes = [_I] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong)] * 2
+        lib.spatial_mlp_workspace.restype = _I
         lib.spatial_mlp_backward.argtypes = [_P] * 13 + [ctypes.c_longlong] + \
             [_I] * 4 + [_P]
         lib.spatial_mlp_backward.restype = _I
@@ -67,6 +75,32 @@ def build() -> None:
 def mlp_shapes_supported(hidden: int) -> bool:
     """Whether the kernels take this hidden width (any depth, any rows)."""
     return 16 <= hidden <= 512 and hidden % 16 == 0
+
+
+def spatial_mlp_flops(B: int, n: int, H: int, L: int) -> Tuple[int, int]:
+    """Matrix-product FLOPs (2·M·K·N each, M = B·n rows) of the forward
+    and of the backward; elementwise work (biases, tanh, column sums) is
+    not counted. Forward: h0 (K = 2), L hidden layers, the head. Backward:
+    the recomputed h0..hL, the head's dWo and dh, each hidden layer's dW
+    and dh, and dWc and dx."""
+    M = B * n
+    forward = 2 * M * (2 * H + L * H * H + H)
+    backward = 2 * M * (2 * H + L * H * H) + 2 * M * (2 * H) \
+        + 2 * M * (2 * L * H * H) + 2 * M * (4 * H)
+    return forward, backward
+
+
+def spatial_mlp_bytes(B: int, n: int, H: int, L: int) -> Tuple[int, int]:
+    """Device-memory bytes the forward and the backward must move, each
+    float32 input read once and each output written once: x, zb and the
+    weights in, y out; the backward reads gy too and writes dx, dzb and a
+    gradient of every weight."""
+    weights = 4 * (3 * H + L * H * H + L * H + H + 1)
+    rows = 4 * B * n
+    forward = 2 * rows + 4 * B * H + weights + rows
+    backward = 2 * rows + 4 * B * H + weights + rows \
+        + 2 * rows + 4 * B * H + weights
+    return forward, backward
 
 
 def _dims(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> Tuple[int, int, int, int]:
@@ -101,6 +135,29 @@ def _check_cuda(tensors, B, H) -> None:
         raise ValueError(f"batch {B} above the kernels' 65535")
 
 
+# workspace bytes (forward, backward) per (B, n, H, L, device), and one
+# workspace tensor per (device, pass), grown when a shape needs more: both
+# are made once, not on every call
+_WS_BYTES = {}
+_WORKSPACES = {}
+
+
+def _workspace(dev: torch.device, which: int, dims) -> Tuple[torch.Tensor,
+                                                             int]:
+    key = dims + (dev.index,)
+    if key not in _WS_BYTES:
+        fwd, bwd = ctypes.c_longlong(0), ctypes.c_longlong(0)
+        _raise_on(_library().spatial_mlp_workspace(
+            *dims, ctypes.byref(fwd), ctypes.byref(bwd)), "workspace query")
+        _WS_BYTES[key] = (fwd.value, bwd.value)
+    nbytes = _WS_BYTES[key][which]
+    ws = _WORKSPACES.get((dev.index, which))
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=dev)
+        _WORKSPACES[(dev.index, which)] = ws
+    return ws, nbytes
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"spatial_mlp {what} failed: "
@@ -117,9 +174,11 @@ def spatial_mlp_forward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
     lib = _library()
     y = torch.empty((B, 1, n), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
+        ws, nbytes = _workspace(xT.device, 0, (B, n, H, L))
         stream = torch.cuda.current_stream(xT.device).cuda_stream
         err = lib.spatial_mlp_forward(*(a.data_ptr() for a in args),
-                                      y.data_ptr(), B, n, H, L, stream)
+                                      y.data_ptr(), ws.data_ptr(), nbytes,
+                                      B, n, H, L, stream)
     _raise_on(err, "forward launch")
     FORWARD_LAUNCHES += 1
     return y
@@ -142,14 +201,11 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     sizes = [L * H * H, L * H, H, 1, 2 * H, H]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        nbytes = ctypes.c_longlong(0)
-        _raise_on(lib.spatial_mlp_backward_workspace(
-            B, n, H, L, ctypes.byref(nbytes)), "workspace query")
-        ws = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device=dev)
+        ws, nbytes = _workspace(dev, 1, (B, n, H, L))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_mlp_backward(
             *(a.data_ptr() for a in args), gy.data_ptr(), dx.data_ptr(),
-            dzb.data_ptr(), flat.data_ptr(), ws.data_ptr(), nbytes.value,
+            dzb.data_ptr(), flat.data_ptr(), ws.data_ptr(), nbytes,
             B, n, H, L, stream)
     _raise_on(err, "backward launch")
     BACKWARD_LAUNCHES += 1

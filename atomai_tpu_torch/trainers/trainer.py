@@ -73,7 +73,7 @@ class BaseTrainer:
     loop. Subclasses set ``self.net`` and may override :meth:`set_data`,
     :meth:`forward` and :meth:`accuracy_fn`."""
 
-    def __init__(self, seed: int = 1, device: Any = "cpu"):
+    def __init__(self, seed: int = 1, device: Any = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but torch "
@@ -463,13 +463,14 @@ class SegTrainer(BaseTrainer):
     The net is built, and its weights drawn from ``seed``, at
     construction (the JAX package draws them when it compiles). Keyword
     args: ``seed`` (default 1), ``batch_seed`` (default ``seed``),
-    ``device`` (default "cpu"), and the net's.
+    ``device`` ("cuda", the default, raises without a card; "cpu" when
+    asked for), and the net's.
     """
 
     def __init__(self, model: str = "Unet", nb_classes: int = 1,
                  **kwargs: Any):
         seed = kwargs.get("seed", 1)
-        super().__init__(seed=seed, device=kwargs.get("device", "cpu"))
+        super().__init__(seed=seed, device=kwargs.get("device", "cuda"))
         self.batch_seed = kwargs.get("batch_seed", seed)
         self.nb_classes = nb_classes
         self.net, self.meta_state_dict = init_fcnn_model(

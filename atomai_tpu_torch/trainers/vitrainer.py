@@ -38,7 +38,7 @@ class viBaseTrainer:
     """Base trainer for VAE models: holds the nets, the optimizer, the data
     on the device and the epoch loop."""
 
-    def __init__(self, seed: int = 1, device: Any = "cpu"):
+    def __init__(self, seed: int = 1, device: Any = "cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' was asked for, but torch "

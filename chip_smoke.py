@@ -8,7 +8,8 @@ Phases, one JSON line each (all before the last line):
  0. device: the card, the CUDA version, and ``nvidia-smi``'s name and power
     limit (also printed raw on a line of their own);
  1. build: compiles the CUDA sources of ``atomai_tpu_torch/csrc``, one nvcc
-    for each, all started together, and times them;
+    for each, all started together, times them, and reports each kernel's
+    registers and spills from ``-Xptxas -v``;
  2. kernel: the connected-component labeller against its plain torch version
     and a scipy oracle, exact int32 equality, on random masks, empty and full
     masks, a one-pixel-wide spiral and a tiled stack of lattice masks;
@@ -29,9 +30,13 @@ Phases, one JSON line each (all before the last line):
     against the numbers the JAX package left in ``tests/fixtures/``;
  8. rvae_path: ``rVAE((32, 32), latent_dim=2).fit`` on bench config C's 1024
     patches for 20 epochs of batch 128 with per-epoch async checkpoints, then
-    ``manifold2d``: launch counts of both kernels, a finite and rising ELBO,
-    then steps/s of the loop and kernel against plain times at the path's
-    shapes, with CUDA events after warm-up;
+    ``manifold2d``: launch counts of both kernels, a finite and rising ELBO;
+    then, with CUDA events after warm-up, steps/s of the loop on the kernels
+    and on the decoder's stock per-layer route (cuBLAS bf16 GEMMs and
+    elementwise tanh, ``fused()`` false; the port never takes it on this
+    path), in turns; each kernel's time beside its plain version, its bound
+    (``ops.roofline`` on the counts of ``ops.spatial_mlp``) and the stock
+    route's time, at the path's shapes;
  9. seg_train_fixture: five cycles of ``Segmentor.fit`` at config A's width
     in float32 (TF32 off) against the JAX run in ``tests/fixtures/``;
 10. seg_path: bench config A whole: ``Segmentor("Unet").fit`` for 300
@@ -202,6 +207,31 @@ def cuda_ms(fn, reps, device):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, device):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up run, by CUDA events. The runs are queued behind a sleep kernel
+    that outlasts their enqueueing, so the host's time between launches
+    (Python, ctypes, autograd) does not count: for kernels that take less
+    time on the card than their launch takes on the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))   # cycles, at <= 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
 def phase_device(device):
     import torch
     smi = subprocess.run(
@@ -229,7 +259,36 @@ def phase_build():
         futures = {name: pool.submit(timed, mod.build) for name, mod in
                    (("cc_label", cc_kernel), ("spatial_mlp", spatial_mlp))}
         seconds = {name: f.result() for name, f in futures.items()}
-    emit("build", seconds=time.perf_counter() - t0, per_source=seconds)
+    emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
+         ptxas=ptxas_report())
+
+
+def ptxas_report():
+    """Registers and spill bytes of each kernel, from the ``-Xptxas -v``
+    output of this run's builds."""
+    import re
+    from atomai_tpu_torch.ops import _build
+    report = {}
+    for log in _build.BUILD_LOG.values():
+        name = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                # the kernel's name and template argument, out of the mangling
+                k = re.search(r"\d+([a-z_]+(?:kernel|wgmma))(?:ILi(\d+)E)?",
+                              m.group(1))
+                k = k or re.search(r"_Z\d+([a-z_]+)()", m.group(1))
+                name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                        if k else m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and name:
+                report.setdefault(name, {})["spill_bytes"] = int(m.group(1)) \
+                    + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                report.setdefault(name, {})["registers"] = int(m.group(1))
+    return report
 
 
 def phase_kernel(device, lattice_masks):
@@ -334,7 +393,7 @@ def phase_unet(device):
 def phase_main_path(device):
     import torch
     from atomai_tpu_torch import models, ops
-    from atomai_tpu_torch.ops import cc_kernel, cc_label
+    from atomai_tpu_torch.ops import cc_kernel, cc_label, roofline
     from atomai_tpu_torch.predictors import Locator, SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, gt_masks, _ = make_lattice_stack(**MAIN)
@@ -377,14 +436,14 @@ def phase_main_path(device):
         check(np.array_equal(coords_kernel[i], coords_plain[i]),
               f"frame {i}: coordinates differ from the plain labeller's")
 
-    kernel_ms = cuda_ms(lambda: ops.label_components_cuda(tiled), 20,
+    kernel_ms = device_ms(lambda: ops.label_components_cuda(tiled), 20,
                         device)
     plain_ms = cuda_ms(lambda: ops.label_components_reference(tiled), 3,
                        device)
     # random weights mark nearly every pixel: one component per frame. The
     # ground-truth masks of the same stack are what a trained net marks.
     gt = ops.tile_frames(torch.from_numpy(gt_masks > 0).to(device))
-    gt_kernel_ms = cuda_ms(lambda: ops.label_components_cuda(gt), 20, device)
+    gt_kernel_ms = device_ms(lambda: ops.label_components_cuda(gt), 20, device)
     gt_plain_ms = cuda_ms(lambda: ops.label_components_reference(gt), 3,
                           device)
     locate_ms = cuda_ms(lambda: locator.run(maps), 5, device)
@@ -399,11 +458,16 @@ def phase_main_path(device):
          locate_plain_ms=plain_locate_ms, kernel_ms=kernel_ms,
          kernel_plain_ms=plain_ms, gt_mask_kernel_ms=gt_kernel_ms,
          gt_mask_kernel_plain_ms=gt_plain_ms)
+    bound_ms, bound_by = roofline.bound(0, cc_kernel.cc_label_bytes(
+        *tiled.shape))
+    # no one PyTorch call labels connected components: no library time
     return {"name": "cc_label", "route": "cuda",
             "source": "atomai_tpu_torch/csrc/cc_label.cu",
             "replaces": "atomai_tpu/ops/pallas_cc.py:27",
             "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
+            "library_ms": None}
 
 
 def mlp_inputs(B, n, H, L, seed, device):
@@ -559,11 +623,46 @@ def decoder_args(model, x, device):
     return [a.float().contiguous() for a in args]
 
 
+def loop_rate(model, fname, steps, device):
+    """The production loop body (epoch, metadict, async checkpoint) for
+    ``RVAE_EPOCHS`` epochs of ``steps`` steps, warm: steps/s and ms by CUDA
+    events, host seconds, and the last epoch's ELBO."""
+    import torch
+    from atomai_tpu_torch.core import flush_async_checkpoints
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(RVAE_EPOCHS):
+        elbo = model.train_epoch_lazy()
+        model.update_metadict()
+        model.save_model(fname, async_write=True)
+    end.record()
+    flush_async_checkpoints()
+    torch.cuda.synchronize(device)
+    loop_s = time.perf_counter() - t0
+    loop_ms = start.elapsed_time(end)
+    return RVAE_EPOCHS * steps / (loop_ms / 1e3), loop_ms, loop_s, float(elbo)
+
+
+@contextlib.contextmanager
+def stock_decoder(model):
+    """The decoder on its per-layer route (``fused()`` false): cuBLAS GEMMs
+    and elementwise tanh under the model's precision policy."""
+    model.decoder_net.fused = lambda: False
+    try:
+        yield
+    finally:
+        del model.decoder_net.fused
+
+
 def phase_rvae_path(device, mlp_errs):
     import tempfile
     import torch
-    from atomai_tpu_torch.core import Precision, flush_async_checkpoints
+    from atomai_tpu_torch.core import Precision
     from atomai_tpu_torch.models import rVAE
+    from atomai_tpu_torch.ops import roofline
     from atomai_tpu_torch.ops import spatial_mlp as sm
     X = config_c_patches()
     steps = len(X) // RVAE_BATCH
@@ -595,60 +694,116 @@ def phase_rvae_path(device, mlp_errs):
         check(z_mean.shape == (256, 5) and rec.shape == (32, 32, 32) and
               bool(np.isfinite(rec).all()), "bad encode/reconstruct output")
 
-        # steps/s of the production loop body (warm: the fit above)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(RVAE_EPOCHS):
-            m.train_epoch_lazy()
-            m.update_metadict()
-            m.save_model(fname, async_write=True)
-        end.record()
-        flush_async_checkpoints()
-        torch.cuda.synchronize(device)
-        loop_s = time.perf_counter() - t0
-        loop_ms = start.elapsed_time(end)
+        # steps/s of the production loop (warm: the fit above), on the
+        # kernels and on the stock route, in turns: kernel, stock, stock,
+        # kernel
+        with stock_decoder(m):
+            m.train_epoch_lazy()          # warm-up: cuBLAS plans
+        rates = {"kernel": [], "stock": []}
+        for route in ("kernel", "stock", "stock", "kernel"):
+            with (stock_decoder(m) if route == "stock"
+                  else contextlib.nullcontext()):
+                rates[route].append(loop_rate(m, fname, steps, device))
+        check(all(np.isfinite(r[3]) for v in rates.values() for r in v),
+              "non-finite ELBO in the timed loops")
 
-    # kernel against plain at the path's own shapes and values
+    # kernel against plain, bound and stock route at the path's own shapes
     x = torch.from_numpy(X[:RVAE_BATCH]).to(device)
     args = decoder_args(m, x, device)
     gy = torch.randn((RVAE_BATCH, 1, X.shape[1] * X.shape[2]),
                      generator=torch.Generator(device).manual_seed(0),
                      device=device) * 1e-2
     with Precision.full().scope(device):
-        fwd_ms = cuda_ms(lambda: sm.spatial_mlp_forward_cuda(*args), 50,
+        fwd_ms = device_ms(lambda: sm.spatial_mlp_forward_cuda(*args), 50,
                          device)
-        fwd_plain_ms = cuda_ms(lambda: sm.spatial_mlp_reference(*args), 50,
+        fwd_plain_ms = device_ms(lambda: sm.spatial_mlp_reference(*args), 50,
                                device)
-        bwd_ms = cuda_ms(lambda: sm.spatial_mlp_backward_cuda(*args, gy), 50,
+        bwd_ms = device_ms(lambda: sm.spatial_mlp_backward_cuda(*args, gy), 50,
                          device)
-        bwd_plain_ms = cuda_ms(
+        bwd_plain_ms = device_ms(
             lambda: sm.spatial_mlp_backward_reference(*args, gy), 50, device)
         y_err = scaled_err(sm.spatial_mlp_forward_cuda(*args),
                            sm.spatial_mlp_reference(*args))
     check(y_err <= TOL_MLP_SCALED, f"kernel off by {y_err} at the path's "
           "own decoder inputs")
+
+    # the whole decoder call, forward and forward + autograd backward, on
+    # each route under the model's bf16 policy
+    dec = m.decoder_net
+    with torch.no_grad():
+        z = m.encoder_net(x)[0][:, 3:].contiguous()
+    xc = args[0].transpose(1, 2).contiguous()
+    gy_img = gy.reshape((RVAE_BATCH,) + X.shape[1:])
+
+    def dec_fwd():
+        with m.precision.scope(device), torch.no_grad():
+            return dec(xc, z)
+
+    def dec_fwd_bwd():
+        zz = z.detach().requires_grad_()
+        with m.precision.scope(device):
+            y = dec(xc, zz)
+        with m.precision.tf32_scope():
+            torch.autograd.backward(y, gy_img)
+
+    # 10 runs: tens of launches each must stay within the card's launch
+    # queue, or a slow host starves the card and its time counts again
+    route_ms = {}
+    with stock_decoder(m):
+        stock_out = dec_fwd()
+        route_ms["stock_fwd"] = device_ms(dec_fwd, 10, device)
+        route_ms["stock_fwd_bwd"] = device_ms(dec_fwd_bwd, 10, device)
+    kernel_out = dec_fwd()
+    route_ms["kernel_fwd"] = device_ms(dec_fwd, 10, device)
+    route_ms["kernel_fwd_bwd"] = device_ms(dec_fwd_bwd, 10, device)
+    routes_err = scaled_err(kernel_out.float(), stock_out.float())
+    check(routes_err <= TOL_MLP_SCALED, f"the decoder's two routes differ by "
+          f"{routes_err} of scale")
+    # the stock route's backward alone: its forward + backward less its
+    # forward
+    stock_fwd_ms = route_ms["stock_fwd"]
+    stock_bwd_ms = route_ms["stock_fwd_bwd"] - route_ms["stock_fwd"]
+
+    dims = (RVAE_BATCH, X.shape[1] * X.shape[2], args[2].shape[1],
+            args[4].shape[0])
+    flops = sm.spatial_mlp_flops(*dims)
+    nbytes = sm.spatial_mlp_bytes(*dims)
+    bounds = [roofline.bound(f, b) for f, b in zip(flops, nbytes)]
+    kernel_rate = [r[0] for r in rates["kernel"]]
+    stock_rate = [r[0] for r in rates["stock"]]
     emit("rvae_path", patches=list(X.shape), epochs=RVAE_EPOCHS,
          batch=RVAE_BATCH, steps_per_epoch=steps,
          fwd_launches=launches[0], bwd_launches=launches[1],
          elbo_first=hist[0], elbo_last=hist[-1], fit_s=fit_s,
-         loop_steps_per_s=RVAE_EPOCHS * steps / (loop_ms / 1e3),
-         loop_ms_cuda_events=loop_ms, loop_s_host=loop_s,
+         loop_steps_per_s=kernel_rate, loop_steps_per_s_stock=stock_rate,
+         loop_ms_cuda_events={k: [r[1] for r in v] for k, v in rates.items()},
+         loop_s_host={k: [r[2] for r in v] for k, v in rates.items()},
          fwd_kernel_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
          bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+         fwd_bound_ms=bounds[0][0], bwd_bound_ms=bounds[1][0],
+         fwd_share_of_bound=bounds[0][0] / fwd_ms,
+         bwd_share_of_bound=bounds[1][0] / bwd_ms,
+         flops={"fwd": flops[0], "bwd": flops[1]},
+         decoder_route_ms=route_ms, decoder_routes_scaled_err=routes_err,
          path_inputs_scaled_err=y_err,
          precision=str(Precision.mixed().compute_dtype))
     source = "atomai_tpu_torch/csrc/spatial_mlp.cu"
+    # no one PyTorch call computes the fused MLP: no library time; the
+    # stock route is the decoder's per-layer route (several calls)
     return [{"name": "spatial_mlp_fwd", "route": "cuda", "source": source,
              "replaces": "atomai_tpu/ops/pallas_mlp.py:80",
              "launches": launches[0], "max_abs_err": mlp_errs[0],
-             "ms": fwd_ms, "plain_ms": fwd_plain_ms},
+             "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+             "bound_ms": bounds[0][0], "bound_by": bounds[0][1],
+             "share_of_bound": bounds[0][0] / fwd_ms, "library_ms": None,
+             "stock_ms": stock_fwd_ms},
             {"name": "spatial_mlp_bwd", "route": "cuda", "source": source,
              "replaces": "atomai_tpu/ops/pallas_mlp.py:94",
              "launches": launches[1], "max_abs_err": mlp_errs[1],
-             "ms": bwd_ms, "plain_ms": bwd_plain_ms}]
+             "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+             "bound_ms": bounds[1][0], "bound_by": bounds[1][1],
+             "share_of_bound": bounds[1][0] / bwd_ms, "library_ms": None,
+             "stock_ms": stock_bwd_ms}]
 
 
 @contextlib.contextmanager
@@ -735,7 +890,7 @@ def phase_seg_train_fixture(device):
 def phase_seg_path(device):
     import torch
     from atomai_tpu_torch import models, ops
-    from atomai_tpu_torch.ops import cc_kernel, cc_label
+    from atomai_tpu_torch.ops import cc_kernel, cc_label, roofline
     from atomai_tpu_torch.predictors import Locator, SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, masks, _ = make_lattice_stack(**MAIN)
@@ -801,7 +956,7 @@ def phase_seg_path(device):
         check(np.array_equal(coords_kernel[i], coords_plain[i]),
               f"frame {i}: trained-mask coordinates differ from the plain "
               "labeller's")
-    kernel_ms = cuda_ms(lambda: ops.label_components_cuda(tiled), 20, device)
+    kernel_ms = device_ms(lambda: ops.label_components_cuda(tiled), 20, device)
     plain_ms = cuda_ms(lambda: ops.label_components_reference(tiled), 3,
                        device)
     locate_ms = cuda_ms(lambda: locator.run(y), 5, device)
@@ -848,7 +1003,9 @@ def phase_seg_path(device):
          refined_median_err_px=refined_median, refine_max_move_px=moved,
          precision=str(m.precision.compute_dtype))
     return {"launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "share_of_bound": roofline.bound_ms(0, cc_kernel.cc_label_bytes(
+                *tiled.shape)) / kernel_ms}
 
 
 def phase_iou_protocol(device):

@@ -211,3 +211,13 @@ def test_library_path_tracks_the_source():
     assert path.startswith(_build.BUILD_DIR)
     assert path == _build.library_path("cc_label.cu")
     assert path.endswith(".so") and "cc_label-" in path
+
+
+def test_byte_count_matches_hand_count():
+    """Config A's 64 frames of 256²: 4,194,304 one-byte mask pixels in and
+    as many int32 labels out; the labeller is memory-bound."""
+    from atomai_tpu_torch.ops import roofline
+    assert cc_kernel.cc_label_bytes(64 * 256, 256) == 20_971_520
+    assert cc_kernel.cc_label_bytes(3, 7) == 105
+    t, by = roofline.bound(0, cc_kernel.cc_label_bytes(64 * 256, 256))
+    assert by == "bytes" and t == pytest.approx(20_971_520 / 3.35e9)

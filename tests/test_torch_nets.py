@@ -179,7 +179,8 @@ def test_bridge_rejects_bad_trees(small_unet_variables, breakage, match):
 
 def test_bridge_width_mismatch_raises(small_unet_variables):
     """Variables of a 4-filter Unet do not load into a 16-filter one."""
-    m = Segmentor("Unet", nb_classes=1, nb_filters=16, layers=(1, 1, 1, 1))
+    m = Segmentor("Unet", nb_classes=1, nb_filters=16, layers=(1, 1, 1, 1),
+                  device="cpu")
     with pytest.raises(RuntimeError, match="size mismatch"):
         m.load_jax_variables(*small_unet_variables)
 

@@ -73,7 +73,8 @@ def test_seg_train_fixture_is_current(script, stored):
 
 def test_port_reproduces_seg_train_fixture(script, stored, tmp_path):
     base = dict(np.load(script.FIXTURE))
-    m = Segmentor("Unet", 1, nb_filters=16, layers=(1, 2, 2, 3))
+    m = Segmentor("Unet", 1, nb_filters=16, layers=(1, 2, 2, 3),
+                  device="cpu")
     m.load_jax_variables(script.unflatten(base, "params"),
                          script.unflatten(base, "batch_stats"))
     m.compile_trainer((stored["x_train"], stored["y_train"],

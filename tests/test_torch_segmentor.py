@@ -53,7 +53,8 @@ def test_segmentor_predict_matches_jax(jax_unet):
     jnet, params, stats = jax_unet
     imgs, _, _ = make_lattice_stack(n_images=10, size=64, spacing=12, seed=1)
     jpred = JaxSegPredictor(jnet, params, stats, nb_classes=1, verbose=False)
-    m = Segmentor("Unet", nb_classes=1, nb_filters=16, layers=(1, 2, 2, 3))
+    m = Segmentor("Unet", nb_classes=1, nb_filters=16, layers=(1, 2, 2, 3),
+                  device="cpu")
     m.load_jax_variables(params, stats)
     jax_maps = jpred.predict(imgs)
     diff = np.abs(m.predict(imgs, compute_coords=False, verbose=False)
@@ -77,7 +78,7 @@ def test_segmentor_predict_matches_jax(jax_unet):
 
 def test_segmentor_seeded_weights_are_reproducible():
     imgs, _, _ = make_lattice_stack(n_images=2, size=32, spacing=8, seed=2)
-    kw = dict(nb_filters=4, layers=(1, 1, 1, 1))
+    kw = dict(nb_filters=4, layers=(1, 1, 1, 1), device="cpu")
     a = Segmentor("Unet", 1, seed=3, **kw)
     b = Segmentor("Unet", 1, seed=3, **kw)
     c = Segmentor("Unet", 1, seed=4, **kw)
@@ -99,6 +100,6 @@ def test_segmentor_cuda_without_card_raises():
 
 def test_segmentor_unported_options_raise():
     with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        Segmentor("dilnet", 1)
+        Segmentor("dilnet", 1, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        Segmentor("Unet", 1, with_dilation=True)
+        Segmentor("Unet", 1, with_dilation=True, device="cpu")

@@ -176,3 +176,31 @@ def test_decoder_routes_by_shape_and_routes_agree(kwargs, fused):
         y_layers = net(xc, z)
     assert y.shape == (3,) + tuple(cfg["out_dim"])
     torch.testing.assert_close(y, y_layers, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,n,H,L,forward,backward", [
+    # config C: M = 131,072 rows
+    (128, 1024, 128, 2, 8_690_597_888, 26_038_239_232),
+    # M = 10: h0 2·10·2·16 = 640, hidden 0, head 2·10·16 = 320; backward
+    # recompute 640, head 640, hidden 0, dWc 640 and dx 640
+    (2, 5, 16, 0, 960, 2_560),
+])
+def test_flop_counts_match_hand_counts(B, n, H, L, forward, backward):
+    assert sm.spatial_mlp_flops(B, n, H, L) == (forward, backward)
+
+
+def test_bytes_and_bound_at_config_c():
+    from atomai_tpu_torch.ops import roofline
+    fwd_bytes, bwd_bytes = sm.spatial_mlp_bytes(128, 1024, 128, 2)
+    weights = 4 * (3 * 128 + 2 * 128 * 128 + 2 * 128 + 128 + 1)
+    assert fwd_bytes == 4 * 128 * 1024 * 3 + 4 * 128 * 128 + weights
+    # gy in for y out; dx, dzb and the weights' gradients out
+    assert bwd_bytes == fwd_bytes + 4 * 128 * 1024 * 2 + 4 * 128 * 128 \
+        + weights
+    fwd_flops, bwd_flops = sm.spatial_mlp_flops(128, 1024, 128, 2)
+    # compute-bound: 8.69 GFLOP / 989 TFLOP/s against 1.7 MB / 3.35 TB/s
+    assert roofline.bound(fwd_flops, fwd_bytes) == (
+        pytest.approx(8.787257e-3, rel=1e-6), "operations")
+    assert roofline.bound_ms(bwd_flops, bwd_bytes) == pytest.approx(
+        2.632784e-2, rel=1e-6)
+    assert roofline.bound(0, 3.35e9) == (pytest.approx(1.0), "bytes")

@@ -40,7 +40,7 @@ W_ABS = 1e-5
 RTOL_RUNNING_VAR = 1.0 / (64 - 1)
 ATOL_RUNNING_MEAN = 1e-4
 ATOL_IOU = 2e-3
-SMALL = dict(nb_filters=4, layers=(1, 1, 1, 1))
+SMALL = dict(nb_filters=4, layers=(1, 1, 1, 1), device="cpu")
 
 
 def _data(seed=1, n=8, size=32, nb_classes=1):
@@ -225,7 +225,7 @@ def test_perturb_weights_requires_no_batch_norm(tmp_path):
 def test_perturbation_noise_sigma():
     """w += N(0, a / (1 + e)^gamma) every e_p cycles, nothing between."""
     m = Segmentor("Unet", 1, batch_norm=False, nb_filters=16,
-                  layers=(1, 1, 1, 1))
+                  layers=(1, 1, 1, 1), device="cpu")
     m.perturb_weights = {"a": 0.01, "gamma": 1.5, "e_p": 3}
     g = torch.Generator().manual_seed(0)
     before = torch.cat([p.detach().flatten().clone()
@@ -324,7 +324,7 @@ def test_save_load_predict_round_trip(tmp_path):
     path = m.save_model(str(tmp_path / "saved"))
     assert path.endswith(".aoit")
     assert (tmp_path / "rt_metadict_final.aoit").exists()
-    m2 = load_model(path)
+    m2 = load_model(path, device="cpu")
     assert isinstance(m2, Segmentor)
     assert m2.meta_state_dict["nb_filters"] == 4
     imgs = _data(seed=9, n=3)[0]
@@ -340,11 +340,11 @@ def test_save_load_predict_round_trip(tmp_path):
 def test_load_model_vae_and_unported(tmp_path):
     from atomai_tpu_torch.models import rVAE
     v = rVAE((8, 8), latent_dim=2, numlayers_encoder=1, numhidden_encoder=8,
-             numlayers_decoder=1, numhidden_decoder=8)
+             numlayers_decoder=1, numhidden_decoder=8, device="cpu")
     X = np.random.RandomState(0).rand(32, 8, 8).astype(np.float32)
     v.fit(X, training_cycles=2, batch_size=16,
           filename=str(tmp_path / "rvae"), verbose=False)
-    v2 = load_model(str(tmp_path / "rvae.aoit"))
+    v2 = load_model(str(tmp_path / "rvae.aoit"), device="cpu")
     assert type(v2) is rVAE and v2.num_iter == v.num_iter == 4
     np.testing.assert_allclose(v2.encode(X[:4])[0], v.encode(X[:4])[0],
                                atol=1e-6)
@@ -362,6 +362,33 @@ def test_cuda_trainer_without_card_raises():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Segmentor("Unet", 1, device="cuda")
+
+
+def _default_device_segmentor(tmp_path):
+    return Segmentor("Unet", 1, nb_filters=4, layers=(1, 1, 1, 1))
+
+
+def _default_device_rvae(tmp_path):
+    from atomai_tpu_torch.models import rVAE
+    return rVAE((8, 8), latent_dim=2, numhidden_encoder=8,
+                numhidden_decoder=8)
+
+
+def _default_device_load_model(tmp_path):
+    path = Segmentor("Unet", 1, **SMALL).save_model(str(tmp_path / "m"))
+    return load_model(path)
+
+
+@pytest.mark.parametrize("make", [_default_device_segmentor,
+                                  _default_device_rvae,
+                                  _default_device_load_model])
+def test_entry_points_default_to_the_card(make, tmp_path):
+    """Without ``device``, an entry point runs on the card: with no card it
+    raises instead of returning a model on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make(tmp_path)
 
 
 def _record_tf32_in_backward(module, seen):
@@ -388,7 +415,7 @@ def test_backward_runs_under_the_policy_tf32_switches(monkeypatch, tmp_path):
     _record_tf32_in_backward(m.net, seen)
     _fit(m, training_cycles=2, filename=str(tmp_path / "tf32"))
     v = rVAE((8, 8), latent_dim=2, numlayers_encoder=1, numhidden_encoder=8,
-             numlayers_decoder=1, numhidden_decoder=8)
+             numlayers_decoder=1, numhidden_decoder=8, device="cpu")
     v.precision = Precision.full()
     _record_tf32_in_backward(v.encoder_net, seen)
     v.fit(np.random.RandomState(0).rand(32, 8, 8).astype(np.float32),

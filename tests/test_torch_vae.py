@@ -69,7 +69,7 @@ def _models(name, seed=0):
     cls, kwargs, in_dim, labels = CONFIGS[name]
     jm = getattr(jaoi.models, cls)(in_dim, seed=seed, **kwargs)
     jm._init_params()
-    tm = getattr(aoi.models, cls)(in_dim, seed=seed, **kwargs)
+    tm = getattr(aoi.models, cls)(in_dim, seed=seed, device="cpu", **kwargs)
     params = jax.tree.map(np.asarray, jax.device_get(jm.params))
     tm.load_jax_params(params)
     if cls == "rVAE":
@@ -300,7 +300,7 @@ def _patches(n=64, size=16):
 
 def test_rvae_fit_trains_saves_reloads_and_serves(tmp_path):
     X = _patches()
-    kw = dict(numhidden_encoder=64, numhidden_decoder=64)
+    kw = dict(numhidden_encoder=64, numhidden_decoder=64, device="cpu")
     m = aoi.models.rVAE((16, 16), latent_dim=2, **kw)
     fname = str(tmp_path / "rvae")
     log = str(tmp_path / "run.jsonl")
@@ -335,7 +335,7 @@ def test_same_seed_same_weights_and_training(tmp_path):
     runs = []
     for seed, name in ((3, "a"), (3, "b"), (4, "c")):
         m = aoi.models.rVAE((8, 8), seed=seed, numhidden_encoder=16,
-                            numhidden_decoder=16)
+                            numhidden_decoder=16, device="cpu")
         w0 = [p.detach().clone() for p in m.parameters()]
         m.fit(X, training_cycles=2, batch_size=8, verbose=False,
               filename=str(tmp_path / name))
@@ -350,7 +350,7 @@ def test_vae_fit_with_labels_and_test_set(tmp_path):
     X = _patches(32, 8)
     y = np.arange(32) % 2
     m = aoi.models.VAE((8, 8), nb_classes=2, numhidden_encoder=16,
-                       numhidden_decoder=16)
+                       numhidden_decoder=16, device="cpu")
     m.fit(X[:24], y[:24], X[24:], y[24:], training_cycles=2, batch_size=8,
           filename=str(tmp_path / "vae"), verbose=False)
     assert len(m.loss_history["test_loss"]) == 2
@@ -409,7 +409,7 @@ def test_rvae_fixture_is_current_and_port_matches_it():
             # XLA:CPU on another host may round differently
             np.testing.assert_allclose(stored[k], fresh[k], rtol=1e-5,
                                        atol=1e-7, err_msg=k)
-    m = aoi.models.rVAE((32, 32), latent_dim=2)
+    m = aoi.models.rVAE((32, 32), latent_dim=2, device="cpu")
     m.load_jax_params(script.unflatten(stored, "params"))
     m.dx_prior = 0.1
     m.kdict_["phi_prior"] = 0.1
