@@ -3,6 +3,7 @@ state."""
 
 from .checkpoint import (flush_async_checkpoints, load_checkpoint,
                          save_checkpoint, save_checkpoint_async)
+from .device import resolve_device
 from .dtypes import (Precision, default_precision, head_f32,
                      set_default_precision)
 from .mlog import MetricsLogger, open_metrics_log
@@ -13,4 +14,4 @@ __all__ = ["Precision", "default_precision", "head_f32",
            "set_default_precision", "GeneratorSeq", "generator_from_seed",
            "save_checkpoint", "save_checkpoint_async",
            "flush_async_checkpoints", "load_checkpoint", "MetricsLogger",
-           "open_metrics_log", "SwaState"]
+           "open_metrics_log", "SwaState", "resolve_device"]

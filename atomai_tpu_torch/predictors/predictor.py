@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..nets.fcnn import DOWNSAMPLE_FACTORS
 from ..ops.cc_label import blob_centers_tiled
@@ -169,18 +170,22 @@ class Locator:
 
     All (frame, class) masks of the stack are labelled as one tiled image
     and reduced to centres of mass on the device; only the coordinates are
-    copied to the host. A tensor input is labelled on its device (the CUDA
-    kernel for a CUDA tensor); a numpy input is labelled on the CPU. With
+    copied to the host. A tensor input is labelled on its own device (the
+    CUDA kernel for a CUDA tensor); a numpy input is copied to ``device``
+    first (default ``"cuda"``, which raises where torch sees no card;
+    ``device="cpu"`` labels it with the plain version). With
     ``refine=True`` (keyword args ``refine``, ``d``), ``run`` takes the
     images too and refines every atom by a 2D Gaussian fit on the maps'
     device (:func:`refine_peaks`), all frames in one batch per window size.
     """
 
     def __init__(self, threshold: float = 0.5, dist_edge: int = 5,
-                 dim_order: str = "channel_last", **kwargs):
+                 dim_order: str = "channel_last",
+                 device: Union[str, torch.device] = "cuda", **kwargs):
         self.dim_order = dim_order
         self.threshold = threshold
         self.dist_edge = dist_edge
+        self.device = device
         self.refine = kwargs.get("refine")
         self.d = kwargs.get("d")
 
@@ -202,24 +207,26 @@ class Locator:
         [row, col, class]}, classes in channel order. With ``refine``, the
         images (N, H, W[, 1]) follow ``nn_output``."""
         if not isinstance(nn_output, torch.Tensor):
-            nn_output = torch.from_numpy(np.asarray(nn_output, np.float32))
-        nn_output = self.preprocess(nn_output)
-        n, h, w, c = nn_output.shape
-        n_cls = c - 1  # the last channel is background
+            nn_output = torch.from_numpy(np.asarray(
+                nn_output, np.float32)).to(resolve_device(self.device))
+        if nn_output.shape[-1] == 1 and self.dim_order == "channel_last":
+            n_cls = 1  # the background channel preprocess adds is unread
+        else:
+            nn_output = self.preprocess(nn_output)
+            n_cls = nn_output.shape[-1] - 1  # the last is background
+        n, h, w = nn_output.shape[:3]
         masks = (nn_output[..., :n_cls] > self.threshold).permute(
             0, 3, 1, 2).reshape(n * n_cls, h, w)
         coords, frames, _ = blob_centers_tiled(masks)
-        coords, frames = self._rem_edge(coords, frames, h, w)
-        counts = torch.bincount(frames, minlength=n * n_cls).cpu().numpy()
-        coords = coords.cpu().numpy().astype(np.float64)
-        per_mask = np.split(coords, np.cumsum(counts)[:-1])
-        d_coord = {}
-        for i in range(n):
-            parts = [np.concatenate(
-                [per_mask[i * n_cls + ch],
-                 np.full((len(per_mask[i * n_cls + ch]), 1), float(ch))],
-                axis=1) for ch in range(n_cls)]
-            d_coord[i] = np.concatenate(parts, axis=0)
+        # one copy to the host: [row, col, mask], masks ascending (frame,
+        # then class); each frame's rows are then one slice of the table
+        table = self._rem_edge(torch.cat(
+            [coords.double(), frames.double()[:, None]], dim=1).cpu().numpy(),
+            h, w)
+        mask_idx = table[:, 2].astype(np.int64)
+        table[:, 2] = mask_idx % n_cls
+        bounds = np.searchsorted(mask_idx, np.arange(1, n) * n_cls)
+        d_coord = dict(enumerate(np.split(table, bounds)))
         if self.refine:
             if not args:
                 raise AssertionError(
@@ -251,11 +258,11 @@ class Locator:
                 out[i] = np.concatenate([part, d_coord[i][:, 2:3]], axis=1)
         return out
 
-    def _rem_edge(self, coords: torch.Tensor, frames: torch.Tensor, h: int,
-                  w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Drops blobs within ``dist_edge`` of the (padded) frame's edges
+    def _rem_edge(self, table: np.ndarray, h: int, w: int) -> np.ndarray:
+        """Drops the rows of a [row, col, ...] table whose blob lies within
+        ``dist_edge`` of the (padded) frame's edges
         (`atomai_tpu/predictors/predictor.py:554-563`)."""
         e = self.dist_edge
-        bad = ((coords[:, 0] > h - e) | (coords[:, 0] < e) |
-               (coords[:, 1] > w - e) | (coords[:, 1] < e))
-        return coords[~bad], frames[~bad]
+        row, col = table[:, 0], table[:, 1]
+        bad = (row > h - e) | (row < e) | (col > w - e) | (col < e)
+        return table[~bad]

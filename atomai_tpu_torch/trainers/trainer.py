@@ -39,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.mlog import open_metrics_log
 from ..core.prng import GeneratorSeq, generator_from_seed
@@ -74,10 +75,7 @@ class BaseTrainer:
     :meth:`forward` and :meth:`accuracy_fn`."""
 
     def __init__(self, seed: int = 1, device: Any = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was asked for, but torch "
-                               "sees no CUDA device")
+        self.device = resolve_device(device)
         self.seed = seed
         self.keys = GeneratorSeq(seed)
         self.precision = default_precision(self.device)

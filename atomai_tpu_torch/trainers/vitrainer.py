@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from ..core.checkpoint import (load_checkpoint, save_checkpoint,
                                save_checkpoint_async)
+from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.prng import GeneratorSeq
 from ..nets.blocks import init_weights_
@@ -39,10 +40,7 @@ class viBaseTrainer:
     on the device and the epoch loop."""
 
     def __init__(self, seed: int = 1, device: Any = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was asked for, but torch "
-                               "sees no CUDA device")
+        self.device = resolve_device(device)
         self.keys = GeneratorSeq(seed)
         self.precision = default_precision(self.device)
         self.in_dim: Optional[Tuple[int, ...]] = None

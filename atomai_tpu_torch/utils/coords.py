@@ -7,6 +7,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..ops.peakfit import refine_peaks
 
 
@@ -57,18 +58,24 @@ def mean_nn_distance(coordinates: np.ndarray, nn: int = 2) -> float:
 
 
 def peak_refinement(imgdata: Union[np.ndarray, torch.Tensor],
-                    coordinates: np.ndarray, d: Optional[int] = None
+                    coordinates: np.ndarray, d: Optional[int] = None,
+                    device: Union[str, torch.device] = "cuda"
                     ) -> np.ndarray:
     """Refines (n, 3) [row, col, class] atom positions by batched 2D
     Gaussian fits in windows of half-side ``d`` (default a quarter of the
-    mean nearest-neighbour distance), on the image's device; returns
-    float64 [row, col, class]."""
+    mean nearest-neighbour distance); returns float64 [row, col, class].
+    A tensor image is fitted on its own device; a numpy image on
+    ``device`` (default ``"cuda"``, which raises where torch sees no card;
+    ``device="cpu"`` fits on the CPU)."""
+    if not isinstance(imgdata, torch.Tensor):
+        imgdata = torch.from_numpy(np.asarray(imgdata, np.float32)).to(
+            resolve_device(device))
     if d is None:
         warnings.warn(
             "The d-value for bounding box not found. Defaulting to 1/4 of "
             "mean atomic distance.", stacklevel=2)
         d = int(mean_nn_distance(coordinates) * 0.25)
-    img = torch.as_tensor(imgdata, dtype=torch.float32)
+    img = imgdata.float()
     xy = torch.as_tensor(np.asarray(coordinates[:, :2], np.float32),
                          device=img.device)
     refined = refine_peaks(img, xy, int(d)).cpu().numpy()

@@ -11,8 +11,11 @@ Phases, one JSON line each (all before the last line):
     for each, all started together, times them, and reports each kernel's
     registers and spills from ``-Xptxas -v``;
  2. kernel: the connected-component labeller against its plain torch version
-    and a scipy oracle, exact int32 equality, on random masks, empty and full
-    masks, a one-pixel-wide spiral and a tiled stack of lattice masks;
+    and a scipy oracle, exact int32 equality, and its fused blob sums
+    (counts, row and column sums, blob order) against the plain sums of the
+    same labels, exactly, on random masks, empty and full masks, ragged and
+    narrow shapes, a one-pixel-wide spiral, a tiled stack of lattice masks
+    and a random tiled stack;
  3. locator: the port's lattice generator and Locator against the numbers the
     JAX package left in ``tests/fixtures/``, and the Locator's error against
     the true atom positions of 64 512x512 frames;
@@ -20,8 +23,10 @@ Phases, one JSON line each (all before the last line):
     off) and in the card's default mixed bf16 policy;
  5. main_path: ``Segmentor("Unet").predict`` on bench config A's shapes
     (64 x 256 x 256) with seeded random weights: output checks, kernel launch
-    count, coordinates equal to those of the plain labeller, and times taken
-    with CUDA events after warm-up;
+    count, labels, fused sums and coordinates equal to those of the plain
+    version, and times taken with CUDA events after warm-up: predict,
+    forward, locate on each route, the fused kernel beside its plain
+    version and its bound, the kernel without the sums;
  6. spatial_mlp: the rVAE decoder's forward and backward kernels against
     their plain versions on the same CUDA tensors, at config C's shapes
     (B 128, n 1024, H 128, L 2), at n 784 and 2560, at H 256 and 512 and at
@@ -41,10 +46,9 @@ Phases, one JSON line each (all before the last line):
     in float32 (TF32 off) against the JAX run in ``tests/fixtures/``;
 10. seg_path: bench config A whole: ``Segmentor("Unet").fit`` for 300
     cycles of batch 32 on 64 x 256 x 256 frames, then ``predict``: launch
-    count, kernel labels and coordinates equal to the plain labeller's on
-    the trained masks, held-out IoU and atom error, ``refine=True``; times
-    of the first fit, of a warm 300-cycle run, and of predict, locate and
-    the labellers on the trained masks;
+    count, the main path's labeller checks and times on the trained masks,
+    held-out IoU and atom error, ``refine=True``; times of the first fit,
+    of a warm 300-cycle run, and of predict;
 11. iou_protocol: the port arm of the IoU-parity protocol v2
     (`scripts/measure_iou_parity.py`), seeds 1-3, beside the JAX arm's;
 12. augment: ``fit`` with config D's augmentation on 32 x 512 x 512
@@ -98,6 +102,8 @@ MAIN = dict(n_images=64, size=256, spacing=16, seed=0)
 LATTICE = dict(n_images=64, size=512, spacing=16, seed=0)
 RANDOM_SHAPES = [(512, 512), (509, 331), (2048, 2048)]
 FULL_SHAPES = [(2048, 2048), (509, 331)]
+RAGGED_SHAPES = [(33, 1), (1, 2048), (257, 33), (4099, 2)]
+RANDOM_STACK = (8, 255, 2048)   # tiled to (2048, 2048)
 SPIRAL = 1024
 # (B, n, H, L) of the spatial MLP phase; the first is config C's
 MLP_SHAPES = [(128, 1024, 128, 2), (128, 784, 128, 2), (32, 2560, 128, 2),
@@ -232,6 +238,31 @@ def device_ms(fn, reps, device):
     return start.elapsed_time(end) / reps
 
 
+def device_split(fn, device, reps=5):
+    """Device microseconds a call of ``fn`` spends in each kernel (CUDA
+    kernels, copies and fills by name), from a ``torch.profiler`` trace of
+    ``reps`` calls after a warm-up."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = evt.cuda_time_total
+        if us:
+            name = re.sub(r"^.*?(cc_\w+|Memcpy \w+|Memset|\w+_kernel\w*)"
+                          r".*$", r"\1", evt.key)[:60]
+            split[name] = split.get(name, 0) + us / reps
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def phase_device(device):
     import torch
     smi = subprocess.run(
@@ -291,11 +322,11 @@ def ptxas_report():
     return report
 
 
-def phase_kernel(device, lattice_masks):
+def kernel_cases(device, lattice_masks):
+    """(name, mask as numpy, band, whether the plain labeller runs) of the
+    labeller's checks."""
     import torch
-    from atomai_tpu_torch.ops import (label_components_cuda,
-                                      label_components_reference,
-                                      tile_frames)
+    from atomai_tpu_torch.ops import tile_frames
     cases = []
     seed = 0
     for shape in RANDOM_SHAPES:
@@ -303,30 +334,66 @@ def phase_kernel(device, lattice_masks):
             rng = np.random.RandomState(seed)
             seed += 1
             cases.append((f"random{shape}@{density}",
-                          rng.rand(*shape) < density, True))
+                          rng.rand(*shape) < density, 0, True))
     for shape in FULL_SHAPES:
-        cases += [(f"zeros{shape}", np.zeros(shape, bool), True),
-                  (f"ones{shape}", np.ones(shape, bool), True)]
+        cases += [(f"zeros{shape}", np.zeros(shape, bool), 0, True),
+                  (f"ones{shape}", np.ones(shape, bool), 0, True)]
+    # ragged and narrow tiles (the kernel's tiles are 32 x 64)
+    for shape in RAGGED_SHAPES:
+        rng = np.random.RandomState(seed)
+        seed += 1
+        cases.append((f"ragged{shape}@0.6", rng.rand(*shape) < 0.6, 0, True))
     # min-propagation needs ~H*W/2 sweeps on a spiral: scipy only
-    cases.append((f"spiral({SPIRAL},{SPIRAL})", spiral_mask(SPIRAL), False))
+    cases.append((f"spiral({SPIRAL},{SPIRAL})", spiral_mask(SPIRAL), 0,
+                  False))
     tiled = tile_frames(torch.from_numpy(lattice_masks > 0).to(device))
     cases.append((f"lattice_tiled{tuple(tiled.shape)}", tiled.cpu().numpy(),
-                  True))
-    results = []
-    for name, mask, with_plain in cases:
-        m = torch.from_numpy(mask).to(device)
-        got = label_components_cuda(m)
+                  lattice_masks.shape[1] + 1, True))
+    n, h, w = RANDOM_STACK
+    frames = np.random.RandomState(seed).rand(n, h, w) < 0.5
+    tiled = tile_frames(torch.from_numpy(frames)).numpy()
+    cases.append((f"random_tiled{tiled.shape}", tiled, h + 1, True))
+    return cases
+
+
+def check_kernel_case(device, name, mask, band, with_plain):
+    """The kernel's labels (alone and with the sums fused in) against scipy
+    and, ``with_plain``, the plain labeller, exactly; its fused sums and
+    blob order against the plain sums of the reference labels, exactly.
+    Returns the number of components."""
+    import torch
+    from atomai_tpu_torch.ops import cc_kernel, cc_label
+    m = torch.from_numpy(mask).to(device)
+    got = cc_kernel.label_components_cuda(m)
+    fused = cc_kernel.launch(m, band).labels
+    sums = cc_kernel.blob_sums_cuda(m, band)
+    again = cc_kernel.blob_sums_cuda(m, band)
+    torch.cuda.synchronize(device)
+    got = got.cpu().numpy()
+    want = scipy_labels(mask)
+    check(np.array_equal(got, want), f"kernel != scipy oracle on {name}")
+    check(np.array_equal(fused.cpu().numpy(), want),
+          f"fused kernel's labels != scipy oracle on {name}")
+    if with_plain:
+        ref = cc_kernel.label_components_reference(m)
         torch.cuda.synchronize(device)
-        got = got.cpu().numpy()
-        check(np.array_equal(got, scipy_labels(mask)),
-              f"kernel != scipy oracle on {name}")
-        if with_plain:
-            ref = label_components_reference(m)
-            torch.cuda.synchronize(device)
-            check(np.array_equal(got, ref.cpu().numpy()),
-                  f"kernel != plain labeller on {name}")
-        results.append(name)
-    emit("kernel", cases=len(results), names=results, exact=True)
+        check(np.array_equal(got, ref.cpu().numpy()),
+              f"kernel != plain labeller on {name}")
+    ref_sums = cc_label._blob_extract(*cc_label._blob_moments(
+        torch.from_numpy(want).to(device), band))
+    for label, a, b, c in zip(("roots", "counts", "row sums", "col sums"),
+                              sums, ref_sums, again):
+        check(torch.equal(a, b), f"fused {label} != plain on {name}")
+        check(torch.equal(a, c), f"fused {label} differ run to run on {name}")
+    return int(len(sums[0]))
+
+
+def phase_kernel(device, lattice_masks):
+    results = {}
+    for name, mask, band, with_plain in kernel_cases(device, lattice_masks):
+        results[name] = check_kernel_case(device, name, mask, band,
+                                          with_plain)
+    emit("kernel", cases=len(results), components=results, exact=True)
 
 
 def phase_locator(device, lattice):
@@ -393,8 +460,8 @@ def phase_unet(device):
 def phase_main_path(device):
     import torch
     from atomai_tpu_torch import models, ops
-    from atomai_tpu_torch.ops import cc_kernel, cc_label, roofline
-    from atomai_tpu_torch.predictors import Locator, SegPredictor
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, gt_masks, _ = make_lattice_stack(**MAIN)
     n, size = MAIN["n_images"], MAIN["size"]
@@ -417,57 +484,91 @@ def phase_main_path(device):
     pred = SegPredictor(m.net, nb_classes=1, verbose=False)
     maps = pred.predict_device(imgs)
     repeat_diff = float(np.abs(maps.cpu().numpy() - nn_output).max())
-    tiled = ops.tile_frames(maps[..., 0] > 0.5)
-    lab_k = ops.label_components_cuda(tiled)
-    lab_r = ops.label_components_reference(tiled)
-    max_abs_err = int((lab_k.long() - lab_r.long()).abs().max())
-    check(max_abs_err == 0, f"kernel labels off by {max_abs_err}")
-    locator = Locator(0.5)
-    coords_kernel = locator.run(maps)
-    kernel_labeller = cc_label.label_components
-    cc_label.label_components = ops.label_components_reference
-    try:
-        coords_plain = locator.run(maps)
-        plain_locate_ms = cuda_ms(lambda: locator.run(maps), 3, device)
-    finally:
-        cc_label.label_components = kernel_labeller
-    check(coords_plain.keys() == coords_kernel.keys(), "frames differ")
-    for i in coords_kernel:
-        check(np.array_equal(coords_kernel[i], coords_plain[i]),
-              f"frame {i}: coordinates differ from the plain labeller's")
-
-    kernel_ms = device_ms(lambda: ops.label_components_cuda(tiled), 20,
-                        device)
-    plain_ms = cuda_ms(lambda: ops.label_components_reference(tiled), 3,
-                       device)
+    lab = labeller_on(maps, device)
     # random weights mark nearly every pixel: one component per frame. The
     # ground-truth masks of the same stack are what a trained net marks.
     gt = ops.tile_frames(torch.from_numpy(gt_masks > 0).to(device))
-    gt_kernel_ms = device_ms(lambda: ops.label_components_cuda(gt), 20, device)
-    gt_plain_ms = cuda_ms(lambda: ops.label_components_reference(gt), 3,
+    gt_kernel_ms = device_ms(lambda: cc_kernel.launch(gt, size + 1), 20,
+                             device)
+    gt_plain_ms = cuda_ms(lambda: ops.blob_sums_reference(gt, size + 1), 3,
                           device)
-    locate_ms = cuda_ms(lambda: locator.run(maps), 5, device)
     forward_ms = cuda_ms(lambda: pred.predict_device(imgs), 5, device)
     predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 5, device)
     emit("main_path", maps=list(nn_output.shape), frames=len(coords),
          atoms=int(sum(len(c) for c in coords.values())),
-         launches=launches, tiled_mask=list(tiled.shape),
-         foreground_share=float(tiled.float().mean()),
-         maps_repeat_max_diff=repeat_diff,
-         predict_ms=predict_ms, forward_ms=forward_ms, locate_ms=locate_ms,
-         locate_plain_ms=plain_locate_ms, kernel_ms=kernel_ms,
-         kernel_plain_ms=plain_ms, gt_mask_kernel_ms=gt_kernel_ms,
-         gt_mask_kernel_plain_ms=gt_plain_ms)
-    bound_ms, bound_by = roofline.bound(0, cc_kernel.cc_label_bytes(
-        *tiled.shape))
+         launches=launches, maps_repeat_max_diff=repeat_diff,
+         predict_ms=predict_ms, forward_ms=forward_ms, **lab,
+         gt_mask_kernel_ms=gt_kernel_ms, gt_mask_kernel_plain_ms=gt_plain_ms)
     # no one PyTorch call labels connected components: no library time
     return {"name": "cc_label", "route": "cuda",
             "source": "atomai_tpu_torch/csrc/cc_label.cu",
             "replaces": "atomai_tpu/ops/pallas_cc.py:27",
-            "launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "share_of_bound": bound_ms / kernel_ms,
-            "library_ms": None}
+            "launches": launches, "max_abs_err": lab["max_abs_err"],
+            "ms": lab["kernel_ms"], "plain_ms": lab["kernel_plain_ms"],
+            "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"],
+            "share_of_bound": lab["share_of_bound"], "library_ms": None,
+            "labels_only_ms": lab["labels_only_ms"],
+            "locate_ms": lab["locate_ms"]}
+
+
+def labeller_on(maps, device):
+    """The Locator's labelling of the (N, H, W, 1) device ``maps`` at 0.5,
+    by the kernel and by the plain version: labels, fused sums and the
+    Locator's coordinates must agree exactly. Times (CUDA events after a
+    warm-up; the kernel by queued device time): the fused kernel
+    (``kernel_ms``, labels and sums: what the Locator launches) and its
+    plain version, the kernel without the sums and the plain labeller, and
+    the Locator on each route; the bound on the fused kernel's bytes."""
+    import torch
+    from atomai_tpu_torch import ops
+    from atomai_tpu_torch.ops import cc_kernel, cc_label, roofline
+    from atomai_tpu_torch.predictors import Locator
+    tiled = ops.tile_frames(maps[..., 0] > 0.5)
+    band = maps.shape[1] + 1
+    lab_k = ops.label_components_cuda(tiled)
+    lab_r = ops.label_components_reference(tiled)
+    max_abs_err = int((lab_k.long() - lab_r.long()).abs().max())
+    check(max_abs_err == 0, f"kernel labels off by {max_abs_err}")
+    sums_k = ops.blob_sums_cuda(tiled, band)
+    sums_r = ops.blob_sums_reference(tiled, band)
+    check(all(torch.equal(a, b) for a, b in zip(sums_k, sums_r)),
+          "fused sums differ from the plain version's")
+    locator = Locator(0.5)
+    coords_kernel = locator.run(maps)
+    fused = cc_label.blob_sums
+    cc_label.blob_sums = ops.blob_sums_reference
+    try:
+        coords_plain = locator.run(maps)
+        locate_plain_ms = cuda_ms(lambda: locator.run(maps), 3, device)
+    finally:
+        cc_label.blob_sums = fused
+    check(coords_plain.keys() == coords_kernel.keys(), "frames differ")
+    for i in coords_kernel:
+        check(np.array_equal(coords_kernel[i], coords_plain[i]),
+              f"frame {i}: coordinates differ from the plain labeller's")
+    blobs = int(len(sums_k[0]))
+    kernel_ms = device_ms(lambda: cc_kernel.launch(tiled, band), 20, device)
+    # where a locate call's device time goes (the rest of its wall time is
+    # the host's: torch's launches, the two syncs, numpy)
+    split = device_split(lambda: locator.run(maps), device)
+    bound_ms, bound_by = roofline.bound(0, cc_kernel.cc_label_bytes(
+        *tiled.shape, blobs))
+    return dict(
+        tiled_mask=list(tiled.shape), blobs=blobs,
+        foreground_share=float(tiled.float().mean()),
+        max_abs_err=max_abs_err, kernel_ms=kernel_ms,
+        kernel_plain_ms=cuda_ms(lambda: ops.blob_sums_reference(tiled, band),
+                                3, device),
+        labels_only_ms=device_ms(lambda: ops.label_components_cuda(tiled),
+                                 20, device),
+        labels_plain_ms=cuda_ms(
+            lambda: ops.label_components_reference(tiled), 3, device),
+        locate_ms=cuda_ms(lambda: locator.run(maps), 20, device),
+        locate_plain_ms=locate_plain_ms,
+        locate_device_ms=sum(split.values()) / 1e3,
+        locate_device_us={k: round(v, 2) for k, v in split.items()},
+        bound_ms=bound_ms,
+        bound_by=bound_by, share_of_bound=bound_ms / kernel_ms)
 
 
 def mlp_inputs(B, n, H, L, seed, device):
@@ -889,9 +990,9 @@ def phase_seg_train_fixture(device):
 
 def phase_seg_path(device):
     import torch
-    from atomai_tpu_torch import models, ops
-    from atomai_tpu_torch.ops import cc_kernel, cc_label, roofline
-    from atomai_tpu_torch.predictors import Locator, SegPredictor
+    from atomai_tpu_torch import models
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, masks, _ = make_lattice_stack(**MAIN)
     with tempfile.TemporaryDirectory() as tmp, quiet():
@@ -934,32 +1035,7 @@ def phase_seg_path(device):
 
     # the trained masks, labelled by the kernel and by the plain version
     pred = SegPredictor(m.net, nb_classes=1, verbose=False)
-    y = pred.predict_device(imgs)
-    tiled = ops.tile_frames(y[..., 0] > 0.5)
-    lab_k = ops.label_components_cuda(tiled)
-    lab_r = ops.label_components_reference(tiled)
-    max_abs_err = int((lab_k.long() - lab_r.long()).abs().max())
-    check(max_abs_err == 0, f"kernel labels off by {max_abs_err} on trained "
-          "masks")
-    n_components = int((lab_k.flatten() == torch.arange(
-        lab_k.numel(), device=device)).sum())
-    locator = Locator(0.5)
-    coords_kernel = locator.run(y)
-    kernel_labeller = cc_label.label_components
-    cc_label.label_components = ops.label_components_reference
-    try:
-        coords_plain = locator.run(y)
-        plain_locate_ms = cuda_ms(lambda: locator.run(y), 3, device)
-    finally:
-        cc_label.label_components = kernel_labeller
-    for i in coords_kernel:
-        check(np.array_equal(coords_kernel[i], coords_plain[i]),
-              f"frame {i}: trained-mask coordinates differ from the plain "
-              "labeller's")
-    kernel_ms = device_ms(lambda: ops.label_components_cuda(tiled), 20, device)
-    plain_ms = cuda_ms(lambda: ops.label_components_reference(tiled), 3,
-                       device)
-    locate_ms = cuda_ms(lambda: locator.run(y), 5, device)
+    lab = labeller_on(pred.predict_device(imgs), device)
     predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 5, device)
 
     # held-out frames: mask IoU, atom error, refinement
@@ -993,19 +1069,17 @@ def phase_seg_path(device):
          loss_last=hist[-1], test_loss_last=test_hist[-1], fit_s=fit_s,
          run_s_host=run_s, run_ms_cuda_events=run_ms,
          cycles_per_s=SEG_CYCLES / (run_ms / 1e3), launches=launches,
-         trained_foreground_share=float(tiled.float().mean()),
-         trained_components=n_components,
          atoms=int(sum(len(c) for c in coords.values())),
-         predict_ms=predict_ms, locate_ms=locate_ms,
-         locate_plain_ms=plain_locate_ms, kernel_ms=kernel_ms,
-         kernel_plain_ms=plain_ms, held_out_iou=iou,
+         predict_ms=predict_ms, trained_masks=lab, held_out_iou=iou,
          held_out_median_err_px=median,
          refined_median_err_px=refined_median, refine_max_move_px=moved,
          precision=str(m.precision.compute_dtype))
-    return {"launches": launches, "max_abs_err": max_abs_err,
-            "ms": kernel_ms, "plain_ms": plain_ms,
-            "share_of_bound": roofline.bound_ms(0, cc_kernel.cc_label_bytes(
-                *tiled.shape)) / kernel_ms}
+    return {"launches": launches, "max_abs_err": lab["max_abs_err"],
+            "ms": lab["kernel_ms"], "plain_ms": lab["kernel_plain_ms"],
+            "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"],
+            "share_of_bound": lab["share_of_bound"],
+            "labels_only_ms": lab["labels_only_ms"],
+            "locate_ms": lab["locate_ms"], "blobs": lab["blobs"]}
 
 
 def phase_iou_protocol(device):

@@ -137,10 +137,25 @@ def test_peak_refinement_golden_fixture(lattice):
     """The JAX package's pinned refinement of frame 0, within 1e-3 px."""
     imgs, _, coords = lattice
     c3 = np.concatenate([coords[0], np.zeros((len(coords[0]), 1))], -1)
-    got = peak_refinement(imgs[0], c3, d=5)
+    got = peak_refinement(imgs[0], c3, d=5, device="cpu")
     expected = np.load(os.path.join(FIXDIR, "refined_coords_frame0.npy"))
     assert got.dtype == np.float64 and got.shape == expected.shape
     np.testing.assert_allclose(got, expected, atol=TOL_PX)
+
+
+def test_peak_refinement_numpy_image_goes_to_the_card(lattice):
+    """A numpy image is fitted on ``device``, by default the card: with no
+    card that raises instead of fitting on the CPU. A tensor image stays on
+    its own device."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    imgs, _, coords = lattice
+    c3 = np.concatenate([coords[0], np.zeros((len(coords[0]), 1))], -1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        peak_refinement(imgs[0], c3, d=5)
+    got = peak_refinement(torch.from_numpy(imgs[0]), c3, d=5)
+    np.testing.assert_array_equal(
+        got, peak_refinement(imgs[0], c3, d=5, device="cpu"))
 
 
 def _assert_lattice_coords_close(got, want):
@@ -164,7 +179,7 @@ def test_peak_refinement_default_d_matches_jax(lattice):
     with pytest.warns(UserWarning, match="d-value"):
         want = jax_peak_refinement(imgs[1], c3)
     with pytest.warns(UserWarning, match="d-value"):
-        got = peak_refinement(imgs[1], c3)
+        got = peak_refinement(imgs[1], c3, device="cpu")
     _assert_lattice_coords_close(got, want)
 
 
@@ -176,12 +191,13 @@ def test_predictor_refine_matches_jax(lattice, d):
     imgs, masks, _ = lattice
     maps = masks[..., None].astype(np.float32)
     want = JaxLocator(0.5, refine=True, d=d).run(maps, imgs[..., None])
-    got = Locator(0.5, refine=True, d=d).run(maps, imgs[..., None])
+    got = Locator(0.5, refine=True, d=d, device="cpu").run(
+        maps, imgs[..., None])
     assert sorted(got) == sorted(want)
     for k in want:
         _assert_lattice_coords_close(got[k], want[k])
     with pytest.raises(AssertionError, match="Pass input image"):
-        Locator(0.5, refine=True, d=d).run(maps)
+        Locator(0.5, refine=True, d=d, device="cpu").run(maps)
 
     class MaskNet(torch.nn.Module):
         """NCHW logits of the ground-truth masks."""

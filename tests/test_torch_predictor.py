@@ -101,7 +101,7 @@ def test_locator_matches_jax(n_images):
     _, masks, _ = make_lattice_stack(n_images=n_images, size=64, spacing=12,
                                      seed=3)
     nn_output = masks[..., None].astype(np.float32)
-    _assert_same_coords(Locator(0.5).run(nn_output),
+    _assert_same_coords(Locator(0.5, device="cpu").run(nn_output),
                         JaxLocator(0.5).run(nn_output))
 
 
@@ -114,7 +114,7 @@ def test_locator_two_classes_matches_jax(n_images):
     b = b * (a == 0)
     nn_output = np.stack([a, b, 1 - np.maximum(a, b)], -1).astype(
         np.float32)
-    got = Locator(0.5).run(nn_output)
+    got = Locator(0.5, device="cpu").run(nn_output)
     _assert_same_coords(got, JaxLocator(0.5).run(nn_output))
     assert set(np.unique(got[0][:, 2])) == {0.0, 1.0}
 
@@ -127,9 +127,24 @@ def test_locator_channel_first_and_tensor_input():
     _assert_same_coords(got, ref)
 
 
+def test_locator_numpy_input_goes_to_the_card():
+    """A numpy input is labelled on ``device``, by default the card: with no
+    card that raises instead of labelling on the CPU. A tensor input stays
+    on its own device whatever ``device`` says (SegPredictor's route)."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    _, masks, _ = make_lattice_stack(n_images=2, size=48, spacing=12, seed=8)
+    nn_output = masks[..., None].astype(np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Locator(0.5).run(nn_output)
+    got = Locator(0.5).run(torch.from_numpy(nn_output))
+    _assert_same_coords(got, Locator(0.5, device="cpu").run(nn_output))
+    _assert_same_coords(got, JaxLocator(0.5).run(nn_output))
+
+
 def test_locator_empty_frames():
     nn_output = np.zeros((3, 32, 32, 1), np.float32)
-    got = Locator(0.5).run(nn_output)
+    got = Locator(0.5, device="cpu").run(nn_output)
     assert sorted(got) == [0, 1, 2]
     assert all(v.shape == (0, 3) for v in got.values())
 
@@ -141,9 +156,10 @@ def test_refine_is_not_ported_yet(nets):
     imgs, masks, _ = make_lattice_stack(n_images=2, size=64, spacing=12,
                                         seed=6)
     with pytest.raises(AssertionError, match="Pass input image"):
-        Locator(0.5, refine=True, d=4).run(masks[..., None])
-    refined = Locator(0.5, refine=True, d=4).run(masks[..., None], imgs)
-    plain = Locator(0.5).run(masks[..., None])
+        Locator(0.5, refine=True, d=4, device="cpu").run(masks[..., None])
+    refined = Locator(0.5, refine=True, d=4, device="cpu").run(
+        masks[..., None], imgs)
+    plain = Locator(0.5, device="cpu").run(masks[..., None])
     for k in plain:
         assert refined[k].shape == plain[k].shape
         np.testing.assert_array_equal(refined[k][:, 2], plain[k][:, 2])
@@ -165,7 +181,8 @@ def test_golden_lattice_images(golden_lattice):
 
 def test_golden_locator_coordinates(golden_lattice):
     _, masks, _ = golden_lattice
-    got = Locator(0.5).run(masks[..., None].astype(np.float32))[0]
+    got = Locator(0.5, device="cpu").run(
+        masks[..., None].astype(np.float32))[0]
     expected = np.load(os.path.join(FIXDIR, "locator_coords_frame0.npy"))
     assert got.shape == expected.shape
     a = got[np.lexsort(got[:, :2].T)]

@@ -379,12 +379,26 @@ def _default_device_load_model(tmp_path):
     return load_model(path)
 
 
+def _default_device_locator(tmp_path):
+    from atomai_tpu_torch.predictors import Locator
+    return Locator(0.5).run(np.zeros((2, 16, 16, 1), np.float32))
+
+
+def _default_device_peak_refinement(tmp_path):
+    from atomai_tpu_torch.utils import peak_refinement
+    return peak_refinement(np.zeros((16, 16), np.float32),
+                           np.array([[8.0, 8.0, 0.0]]), d=3)
+
+
 @pytest.mark.parametrize("make", [_default_device_segmentor,
                                   _default_device_rvae,
-                                  _default_device_load_model])
+                                  _default_device_load_model,
+                                  _default_device_locator,
+                                  _default_device_peak_refinement])
 def test_entry_points_default_to_the_card(make, tmp_path):
     """Without ``device``, an entry point runs on the card: with no card it
-    raises instead of returning a model on the CPU."""
+    raises instead of returning a model, or coordinates of numpy input,
+    made on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
