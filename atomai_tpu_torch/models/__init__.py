@@ -1,9 +1,12 @@
-"""User-facing models, their loader and the JAX weight bridge."""
+"""User-facing models, their loaders and the JAX weight bridge."""
 
-from .conversion import unet_from_jax, vae_from_jax
+from .conversion import (ensemble_from_jax, signal_ed_from_jax,
+                         unet_from_jax, vae_from_jax)
 from .dgm import VAE, rVAE
-from .loaders import load_model
+from .imspec import ImSpec
+from .loaders import load_ensemble, load_model
 from .segmentor import Segmentor
 
-__all__ = ["Segmentor", "VAE", "rVAE", "load_model", "unet_from_jax",
-           "vae_from_jax"]
+__all__ = ["Segmentor", "ImSpec", "VAE", "rVAE", "load_model",
+           "load_ensemble", "unet_from_jax", "vae_from_jax",
+           "signal_ed_from_jax", "ensemble_from_jax"]

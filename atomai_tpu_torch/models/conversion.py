@@ -4,13 +4,14 @@ Counterpart of `atomai_tpu/models/conversion.py:25-32` (which block is
 which), `:103-113` (layouts) and `:320-366` (the VAE family's names), run
 the other way. The JAX ``params`` and
 ``batch_stats`` trees arrive as nested dicts of numpy arrays (e.g. from
-``jax.device_get``). Conv kernels go HWIO -> OIHW; Dense kernels (in, out)
--> (out, in); BatchNorm ``scale/bias/mean/var`` become
-``weight/bias/running_mean/running_var``.
+``jax.device_get``). Conv kernels go HWIO -> OIHW (1D: WIO -> OIW); Dense
+kernels (in, out) -> (out, in); BatchNorm ``scale/bias/mean/var`` become
+``weight/bias/running_mean/running_var``. The nets covered: the Unet, the
+VAE family, SignalED (ImSpec) and ensembles of the Unet or SignalED.
 numpy and torch only.
 """
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,18 +29,24 @@ _UNET_BLOCKS = [("c1", "ConvBlock_0"), ("c2", "ConvBlock_1"),
 _DROPOUT_BLOCKS = ("c3", "bn", "c4")
 
 
-def _conv(sub: Mapping[str, Any], where: str) -> Dict[str, torch.Tensor]:
+_LAYOUT = {4: ((3, 2, 0, 1), "4D HWIO"), 3: ((2, 1, 0), "3D WIO")}
+
+
+def _conv(sub: Mapping[str, Any], where: str,
+          rank: int = 4) -> Dict[str, torch.Tensor]:
+    """A conv's weight (and bias); ``rank`` 4 for 2D convs, 3 for 1D."""
     kernel = np.asarray(sub["kernel"], np.float32)
-    if kernel.ndim != 4:
-        raise ValueError(f"{where}: expected a 4D HWIO kernel, got shape "
+    axes, name = _LAYOUT[rank]
+    if kernel.ndim != rank:
+        raise ValueError(f"{where}: expected a {name} kernel, got shape "
                          f"{kernel.shape}")
     out = {"weight": torch.from_numpy(
-        np.array(kernel.transpose(3, 2, 0, 1), order="C"))}
+        np.array(kernel.transpose(axes), order="C"))}
     if "bias" in sub:
         bias = np.asarray(sub["bias"], np.float32)
-        if bias.shape != (kernel.shape[3],):
+        if bias.shape != (kernel.shape[-1],):
             raise ValueError(f"{where}: bias shape {bias.shape} does not "
-                             f"match {kernel.shape[3]} output channels")
+                             f"match {kernel.shape[-1]} output channels")
         out["bias"] = torch.from_numpy(bias.copy())
     return out
 
@@ -62,14 +69,14 @@ def _batch_norm(p: Mapping[str, Any], s: Mapping[str, Any], channels: int,
 
 
 def _conv_block(p: Mapping[str, Any], s: Mapping[str, Any], dropout: bool,
-                where: str) -> Dict[str, torch.Tensor]:
+                where: str, rank: int = 4) -> Dict[str, torch.Tensor]:
     n_layers = sum(1 for k in p if k.startswith("Conv_"))
     has_bn = "BatchNorm_0" in p
     # Sequential layout per layer: conv, (dropout), LeakyReLU, (BatchNorm)
     stride = 2 + int(dropout) + int(has_bn)
     out = {}
     for i in range(n_layers):
-        conv = _conv(p[f"Conv_{i}"], f"{where}/Conv_{i}")
+        conv = _conv(p[f"Conv_{i}"], f"{where}/Conv_{i}", rank)
         out.update({f"block.{i * stride}.{k}": v for k, v in conv.items()})
         if has_bn:
             name = f"BatchNorm_{i}"
@@ -210,3 +217,77 @@ def vae_from_jax(params: Mapping[str, Any], meta: Mapping[str, Any]
                                              f"decoder/Dense_{i}"))
     _put(dec, "out", _dense(dec_p[f"Dense_{n_d}"], f"decoder/Dense_{n_d}"))
     return enc, dec
+
+
+def _expect(tree: Mapping[str, Any], want, where: str) -> None:
+    if set(tree) != set(want):
+        raise ValueError(f"{where} params {sorted(tree)} do not fit the "
+                         f"metadict (expected {sorted(want)})")
+
+
+def signal_ed_from_jax(params: Mapping[str, Any],
+                       batch_stats: Optional[Mapping[str, Any]],
+                       meta: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's SignalED ``state_dict`` from the JAX SignalED's
+    ``params`` and ``batch_stats`` and the model's metadict
+    (``init_imspec_model``' keys; ``decoder_upsampling`` decides the
+    decoder's layout).
+
+    Flax names the decoder's blocks in call order: with upsampling,
+    ``ConvBlock_0`` and ``ConvBlock_1`` are the two upsampling steps and
+    ``ConvBlock_2`` the block to one channel; without, that block is
+    ``ConvBlock_0``. ``DilatedBlock_0`` numbers its convs and BatchNorms as
+    a ConvBlock does. Raises ``ValueError`` on a tree that does not fit.
+    """
+    batch_stats = batch_stats or {}
+    enc_p, dec_p = params["encoder"], params["decoder"]
+    enc_s = batch_stats.get("encoder", {})
+    dec_s = batch_stats.get("decoder", {})
+    up = bool(meta.get("decoder_upsampling", False))
+    # conv kernel ranks: 1D signals have WIO kernels, 2D ones HWIO
+    enc_rank = len(tuple(meta["in_dim"])) + 2
+    dec_rank = len(tuple(meta["out_dim"])) + 2
+    _expect(enc_p, {"ConvBlock_0", "Dense_0"}, "encoder")
+    dec_blocks = ([("deconv1", "ConvBlock_0"), ("deconv2", "ConvBlock_1"),
+                   ("conv", "ConvBlock_2")] if up
+                  else [("conv", "ConvBlock_0")])
+    _expect(dec_p, {f for _, f in dec_blocks} | {"Dense_0", "DilatedBlock_0",
+                                                 "Conv_0"}, "decoder")
+    state: Dict[str, torch.Tensor] = {}
+    _put(state, "encoder.conv", _conv_block(
+        enc_p["ConvBlock_0"], enc_s.get("ConvBlock_0", {}), False,
+        "encoder/ConvBlock_0", enc_rank))
+    _put(state, "encoder.fc", _dense(enc_p["Dense_0"], "encoder/Dense_0"))
+    _put(state, "decoder.fc", _dense(dec_p["Dense_0"], "decoder/Dense_0"))
+    for name, flax in dec_blocks:
+        _put(state, f"decoder.{name}", _conv_block(
+            dec_p[flax], dec_s.get(flax, {}), False, f"decoder/{flax}",
+            dec_rank))
+    dil = _conv_block(dec_p["DilatedBlock_0"], dec_s.get("DilatedBlock_0", {}),
+                      False, "decoder/DilatedBlock_0", dec_rank)
+    _put(state, "decoder.dilblock", {
+        "atrous_module" + k[len("block"):]: v for k, v in dil.items()})
+    _put(state, "decoder.out", _conv(dec_p["Conv_0"], "decoder/Conv_0",
+                                     dec_rank))
+    return state
+
+
+def ensemble_from_jax(ensemble: Mapping[Any, Any], meta: Mapping[str, Any]
+                      ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The port's members (``{i: state_dict}``) from a JAX
+    ``ensemble_state_dict``: members are ``{"params", "batch_stats"}``
+    (each with its own BatchNorm statistics), or bare params for nets
+    without BatchNorm. ``meta`` is the ensemble's metadict: ``model_type``
+    "seg" (a Unet) or "imspec" (a SignalED)."""
+    kind = meta.get("model_type")
+    if kind not in ("seg", "imspec"):
+        raise ValueError(f"no weight bridge for a '{kind}' ensemble")
+    out = {}
+    for k, member in ensemble.items():
+        if isinstance(member, Mapping) and "params" in member:
+            p, s = member["params"], member.get("batch_stats")
+        else:
+            p, s = member, None
+        out[int(k)] = (unet_from_jax(p, s, dropout=meta.get("dropout", False))
+                       if kind == "seg" else signal_ed_from_jax(p, s, meta))
+    return dict(sorted(out.items()))

@@ -1,15 +1,34 @@
 """Model loading from the port's own checkpoints.
 
-Counterpart of `atomai_tpu/models/loaders.py:30-118` for the model types
-the port has: ``seg`` (Segmentor) and ``vae`` (VAE, rVAE). The model is
-rebuilt from the constructor arguments in the file's metadict, then its
-weights are loaded. Other model types and the JAX package's ``.aoi`` files
-(msgpack payload) are ROADMAP Queue 1 #20.
+Counterpart of `atomai_tpu/models/loaders.py:30-118, 161-208` for the
+model types the port has: ``seg`` (Segmentor), ``imspec`` (ImSpec) and
+``vae`` (VAE, rVAE), and ensembles of Segmentor or ImSpec nets
+(:func:`load_ensemble`). The model is rebuilt from the constructor
+arguments in the file's metadict, then its weights are loaded. Other model
+types and the JAX package's ``.aoi`` files (msgpack payload) are ROADMAP
+Queue 1 #20.
 """
 
+from typing import Any, Dict, Mapping, Tuple
+
+import torch.nn as nn
+
 from ..core.checkpoint import load_checkpoint
+from ..core.device import resolve_device
 
 _NOT_PORTED = "ROADMAP Queue 1 #20"
+_SEG_KEYS = ("batch_norm", "dropout", "with_dilation", "nb_filters",
+             "layers", "upsampling")
+_IMSPEC_KEYS = ("nblayers_encoder", "nblayers_decoder", "nbfilters_encoder",
+                "nbfilters_decoder", "encoder_downsampling",
+                "decoder_upsampling")
+
+
+def _imspec_kwargs(meta: Mapping[str, Any]) -> Dict[str, Any]:
+    kwargs = {k: meta[k] for k in _IMSPEC_KEYS if k in meta}
+    if "batchnorm" in meta:
+        kwargs["batch_norm"] = meta["batchnorm"]
+    return kwargs
 
 
 def load_model(filepath: str, device: str = "cuda"):
@@ -23,13 +42,19 @@ def load_model(filepath: str, device: str = "cuda"):
     model_type = meta.get("model_type")
     if model_type == "seg":
         from .segmentor import Segmentor
-        net_kwargs = {k: meta[k] for k in
-                      ("batch_norm", "dropout", "with_dilation",
-                       "nb_filters", "layers", "upsampling")
+        net_kwargs = {k: meta[k] for k in _SEG_KEYS
                       if meta.get(k) is not None}
         model = Segmentor(meta.get("model", "Unet"),
                           meta.get("nb_classes", 1), device=device,
                           **net_kwargs)
+        model.net.load_state_dict(arrays["params"])
+        model.meta_state_dict = dict(meta)
+        return model
+    if model_type == "imspec":
+        from .imspec import ImSpec
+        model = ImSpec(tuple(meta["in_dim"]), tuple(meta["out_dim"]),
+                       meta.get("latent_dim", 2), device=device,
+                       **_imspec_kwargs(meta))
         model.net.load_state_dict(arrays["params"])
         model.meta_state_dict = dict(meta)
         return model
@@ -63,3 +88,39 @@ def load_model(filepath: str, device: str = "cuda"):
         return model
     raise NotImplementedError(
         f"loading a '{model_type}' model is not ported yet ({_NOT_PORTED})")
+
+
+def _skeleton(meta: Mapping[str, Any]) -> nn.Module:
+    """The net of an ensemble's metadict, built from its dims and widths."""
+    from ..nets import init_fcnn_model, init_imspec_model
+    model_type = meta.get("model_type")
+    if model_type == "seg":
+        net, _ = init_fcnn_model(meta.get("model", "Unet"),
+                                 meta.get("nb_classes", 1),
+                                 **{k: meta[k] for k in _SEG_KEYS
+                                    if meta.get(k) is not None})
+        return net
+    if model_type == "imspec":
+        net, _ = init_imspec_model(tuple(meta["in_dim"]),
+                                   tuple(meta["out_dim"]),
+                                   meta.get("latent_dim", 2),
+                                   **_imspec_kwargs(meta))
+        return net
+    raise ValueError(f"Unsupported ensemble model type: {model_type}")
+
+
+def load_ensemble(filepath: str, device: str = "cuda"
+                  ) -> Tuple[nn.Module, Dict[int, Dict[str, Any]]]:
+    """(the net with the ensemble's final weights, {member: state_dict})
+    from a ``<name>_ensemble_metadict.aoit`` file written by the ensemble
+    trainers, on ``device`` (the card by default; "cpu" when asked for).
+    Each member's ``state_dict`` holds its own BatchNorm statistics; the
+    net is rebuilt from the metadict's dims and widths."""
+    meta, arrays = load_checkpoint(filepath)
+    device = resolve_device(device)
+    net = _skeleton(meta)
+    net.load_state_dict(arrays["params"])
+    net.to(device).eval()
+    ensemble = {int(k): {n: t.to(device) for n, t in v.items()}
+                for k, v in arrays["ensemble"].items()}
+    return net, dict(sorted(ensemble.items()))

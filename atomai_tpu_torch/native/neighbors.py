@@ -1,0 +1,97 @@
+"""DBSCAN of atom coordinates, in C++ on the host.
+
+Counterpart of `atomai_tpu/native/neighbors.py:141-153` ``dbscan``, with
+sklearn's semantics: a point with at least ``min_samples`` points within
+``eps`` (itself included) is a core point; clusters are the connected
+components of core points, numbered in the order of their first core
+point; a border point takes the cluster that reaches it first; the rest is
+noise (-1).
+
+:func:`dbscan` runs ``neighbors.cpp`` (a grid hash with cells of edge
+``eps``), compiled by ``g++ -O3 -shared -fPIC -std=c++17`` into
+``atomai_tpu_torch/_build/`` at its first call, the way ``ops/_build.py``
+builds the CUDA sources. There is no fallback: a missing ``g++`` or a
+failed build raises. :func:`dbscan_reference` is the plain version (numpy
+and ``scipy.spatial.cKDTree``) that the tests hold it against.
+"""
+
+import ctypes
+import os
+import shutil
+
+import numpy as np
+
+from ..ops._build import compile_shared
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "neighbors.cpp")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_lib = None
+
+
+def build() -> ctypes.CDLL:
+    """Compiles (if needed) and loads ``neighbors.cpp``."""
+    global _lib
+    if _lib is None:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found on PATH: the native DBSCAN "
+                               "cannot be built")
+        lib = ctypes.CDLL(compile_shared(SOURCE, gxx, GXX_FLAGS))
+        lib.nn_dbscan.restype = None
+        lib.nn_dbscan.argtypes = [
+            ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            ctypes.c_double, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
+        _lib = lib
+    return _lib
+
+
+def _points(points) -> np.ndarray:
+    pts = np.ascontiguousarray(points, np.float64)
+    if pts.ndim == 1:
+        pts = pts[None]
+    if pts.ndim != 2 or pts.shape[1] not in (2, 3):
+        raise ValueError(f"points must be (n, 2) or (n, 3), got shape "
+                         f"{pts.shape}")
+    return pts
+
+
+def dbscan(points, eps: float, min_samples: int) -> np.ndarray:
+    """DBSCAN labels (int64, noise -1) of (n, 2) or (n, 3) points."""
+    pts = _points(points)
+    labels = np.empty(len(pts), np.int32)
+    if len(pts):
+        build().nn_dbscan(len(pts), pts.shape[1], pts, float(eps),
+                          int(min_samples), labels)
+    return labels.astype(np.int64)
+
+
+def dbscan_reference(points, eps: float, min_samples: int) -> np.ndarray:
+    """The plain version of :func:`dbscan`: eps-balls from a cKDTree, then
+    the same expansion from core points in index order."""
+    from scipy.spatial import cKDTree
+    pts = _points(points)
+    n = len(pts)
+    labels = np.full(n, -1, np.int64)
+    if n == 0:
+        return labels
+    balls = cKDTree(pts).query_ball_point(pts, r=float(eps))
+    core = np.array([len(b) >= min_samples for b in balls])
+    label = 0
+    for i in range(n):
+        if not core[i] or labels[i] != -1:
+            continue
+        labels[i] = label
+        stack = [i]
+        while stack:
+            u = stack.pop()
+            if not core[u]:
+                continue
+            for v in balls[u]:
+                if labels[v] == -1:
+                    labels[v] = label
+                    stack.append(v)
+        label += 1
+    return labels

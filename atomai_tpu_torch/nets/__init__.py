@@ -1,14 +1,16 @@
-"""Segmentation nets, the VAE family's encoders and decoders, and their
-blocks."""
+"""Segmentation nets, the im2spec nets, the VAE family's encoders and
+decoders, and their blocks."""
 
-from .blocks import (ConvBlock, Dropout, UpsampleBlock, init_weights_,
-                     max_pool)
-from .ed import (convEncoderNet, coord_latent, fcDecoderNet, fcEncoderNet,
+from .blocks import (ConvBlock, DilatedBlock, Dropout, UpsampleBlock,
+                     init_weights_, max_pool)
+from .ed import (SignalDecoder, SignalED, SignalEncoder, convEncoderNet,
+                 coord_latent, fcDecoderNet, fcEncoderNet, init_imspec_model,
                  init_VAE_nets, rDecoderNet)
 from .fcnn import DOWNSAMPLE_FACTORS, Unet, init_fcnn_model
 
-__all__ = ["ConvBlock", "Dropout", "UpsampleBlock", "init_weights_",
-           "max_pool",
+__all__ = ["ConvBlock", "DilatedBlock", "Dropout", "UpsampleBlock",
+           "init_weights_", "max_pool",
+           "SignalDecoder", "SignalED", "SignalEncoder", "init_imspec_model",
            "convEncoderNet", "coord_latent", "fcDecoderNet", "fcEncoderNet",
            "init_VAE_nets", "rDecoderNet", "DOWNSAMPLE_FACTORS", "Unet",
            "init_fcnn_model"]

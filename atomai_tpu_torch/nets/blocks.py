@@ -1,7 +1,10 @@
-"""Building blocks of the segmentation nets (NCHW).
+"""Building blocks of the segmentation and im2spec nets (NCHW / NCL).
 
-Counterpart of `atomai_tpu/nets/blocks.py:104-161, 323-327`:
-- ConvBlock: [conv -> (dropout) -> LeakyReLU(0.01) -> (BatchNorm)] x n,
+Counterpart of `atomai_tpu/nets/blocks.py:104-161, 219-264, 323-327`:
+- ConvBlock: [conv -> (dropout) -> LeakyReLU(0.01) -> (BatchNorm)] x n, 1D
+  or 2D,
+- DilatedBlock: a cascade of dilated convs whose forward returns the sum of
+  every sub-layer's output,
 - UpsampleBlock: 2x interpolation (bilinear / nearest) + 1x1 conv,
 - max_pool: 2x2 window, stride 2;
 - Dropout: ``nn.Dropout`` that draws its mask from an explicit generator.
@@ -37,35 +40,79 @@ class Dropout(nn.Dropout):
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
-class ConvBlock(nn.Module):
-    """Block of [conv -> (dropout) -> LeakyReLU -> (batchnorm)] x nb_layers.
+_CONV = {1: nn.Conv1d, 2: nn.Conv2d}
+_BATCH_NORM = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d}
 
-    Only 2D is ported; BatchNorm keeps flax's epsilon (1e-5), and torch's
-    momentum 0.1 is flax's 0.9.
-    """
+
+def _conv_layers(ndim: int, cin: int, cout: int, kernel_size: int,
+                 stride: int, padding: int, dilation: int, batch_norm: bool,
+                 lrelu_a: float, dropout_: float) -> list:
+    """[conv, (dropout), LeakyReLU, (BatchNorm)]: one layer of a block.
+    BatchNorm keeps flax's epsilon (1e-5), and torch's momentum 0.1 is
+    flax's 0.9."""
+    if ndim not in _CONV:
+        raise AssertionError("ndim must be 1 or 2")
+    layers = [_CONV[ndim](cin, cout, kernel_size, stride=stride,
+                          padding=padding, dilation=dilation)]
+    if dropout_ > 0:
+        layers.append(Dropout(dropout_))
+    layers.append(nn.LeakyReLU(negative_slope=lrelu_a))
+    if batch_norm:
+        layers.append(_BATCH_NORM[ndim](cout, eps=1e-5, momentum=0.1))
+    return layers
+
+
+class ConvBlock(nn.Module):
+    """Block of [conv -> (dropout) -> LeakyReLU -> (batchnorm)] x nb_layers,
+    1D (NCL) or 2D (NCHW)."""
 
     def __init__(self, ndim: int, nb_layers: int, input_channels: int,
                  output_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, batch_norm: bool = False,
                  lrelu_a: float = 0.01, dropout_: float = 0.0):
         super().__init__()
-        if ndim != 2:
-            raise NotImplementedError("only 2D ConvBlocks are ported")
         block = []
         for idx in range(nb_layers):
             cin = output_channels if idx > 0 else input_channels
-            block.append(nn.Conv2d(cin, output_channels, kernel_size,
-                                   stride=stride, padding=padding))
-            if dropout_ > 0:
-                block.append(Dropout(dropout_))
-            block.append(nn.LeakyReLU(negative_slope=lrelu_a))
-            if batch_norm:
-                block.append(nn.BatchNorm2d(output_channels, eps=1e-5,
-                                            momentum=0.1))
+            block += _conv_layers(ndim, cin, output_channels, kernel_size,
+                                  stride, padding, 1, batch_norm, lrelu_a,
+                                  dropout_)
         self.block = nn.Sequential(*block)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x)
+
+
+class DilatedBlock(nn.Module):
+    """Cascade of dilated (atrous) convolutions, 1D or 2D.
+
+    Parity quirk (`atomai_tpu/nets/blocks.py:219-264`, after original
+    atomai): the forward returns the *sum* of every sub-layer's output in
+    the cascade: each conv, each dropout, each activation and each
+    BatchNorm. Layer i has dilation and padding ``dilation_values[i]``,
+    ``padding_values[i]``.
+    """
+
+    def __init__(self, ndim: int, input_channels: int, output_channels: int,
+                 dilation_values, padding_values, kernel_size: int = 3,
+                 stride: int = 1, lrelu_a: float = 0.01,
+                 batch_norm: bool = False, dropout_: float = 0.0):
+        super().__init__()
+        block = []
+        for idx, (dil, pad) in enumerate(zip(dilation_values,
+                                             padding_values)):
+            cin = output_channels if idx > 0 else input_channels
+            block += _conv_layers(ndim, cin, output_channels, kernel_size,
+                                  stride, pad, dil, batch_norm, lrelu_a,
+                                  dropout_)
+        self.atrous_module = nn.ModuleList(block)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = None
+        for layer in self.atrous_module:
+            x = layer(x)
+            acc = x if acc is None else acc + x
+        return acc
 
 
 class UpsampleBlock(nn.Module):
@@ -100,21 +147,30 @@ def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2
     return F.max_pool2d(x, window, stride)
 
 
+def _uniform_(t: torch.Tensor, bound: float,
+              generator: torch.Generator) -> None:
+    """``t`` <- U(+-bound), drawn on the generator's device (so a module
+    on the card takes the same draws from a host generator)."""
+    t.copy_(torch.empty(t.shape, dtype=t.dtype, device=generator.device)
+            .uniform_(-bound, bound, generator=generator))
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Redraws every conv's and linear layer's weight and bias from
     U(+-1/sqrt(fan_in)) with ``generator`` (torch's default init, drawn
-    reproducibly) and resets BatchNorm to identity statistics. A linear
-    layer without bias (the rVAE's ``fc_latent``) draws its weight only."""
+    reproducibly, on any device) and resets BatchNorm to identity
+    statistics. A linear layer without bias (the rVAE's ``fc_latent``)
+    draws its weight only."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
-            else:
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            if isinstance(m, nn.Linear):
                 fan_in = m.in_features
+            else:
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
             bound = 1.0 / math.sqrt(fan_in)
-            m.weight.uniform_(-bound, bound, generator=generator)
+            _uniform_(m.weight, bound, generator)
             if m.bias is not None:
-                m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+                _uniform_(m.bias, bound, generator)
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             m.reset_parameters()

@@ -1,6 +1,8 @@
-"""Encoders and decoders of the VAE family.
+"""Encoders and decoders of the im2spec nets and of the VAE family.
 
-Counterpart of `atomai_tpu/nets/ed.py:139-186, 256-276, 303-409, 443-501`:
+Counterpart of `atomai_tpu/nets/ed.py:36-136, 139-186, 256-276, 303-501`:
+- SignalEncoder / SignalDecoder / SignalED, the image <-> spectrum
+  translator, and init_imspec_model, its factory with its metadict;
 - fcEncoderNet / convEncoderNet -> (z_mu, z_logstd);
 - fcDecoderNet (the plain VAE's) and rDecoderNet with its coord_latent
   (the rVAE's spatial decoder, after arXiv:1909.11663: a per-pixel MLP
@@ -23,9 +25,155 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from ..core.dtypes import head_f32
 from ..ops.spatial_mlp import mlp_shapes_supported, spatial_mlp
-from .blocks import ConvBlock
+from .blocks import ConvBlock, DilatedBlock
+
+
+def _signal_dim(signal_dim) -> Tuple[int, ...]:
+    sdim = (signal_dim,) if isinstance(signal_dim, int) else tuple(signal_dim)
+    if not 0 < len(sdim) < 3:
+        raise AssertionError("signal dimensionality must be 1D or 2D")
+    return sdim
+
+
+class SignalEncoder(nn.Module):
+    """Encodes a 1D or 2D signal into a latent vector (`ed.py:36-62`):
+    optional average pooling by ``downsampling``, a ConvBlock
+    (LeakyReLU 0.1), and a float32 Linear head.
+
+    Takes (N, *signal_dim) or channel-last (N, *signal_dim, C). The head
+    reads the conv map flattened channel-last, the JAX package's order, so
+    its weights carry over as they are.
+    """
+
+    def __init__(self, signal_dim, z_dim: int, nb_layers: int,
+                 nb_filters: int, batch_norm: bool = True,
+                 downsampling: int = 0, input_channels: int = 1):
+        super().__init__()
+        self.signal_dim = _signal_dim(signal_dim)
+        self.ndim = len(self.signal_dim)
+        self.downsampling = downsampling
+        self.conv = ConvBlock(self.ndim, nb_layers, input_channels,
+                              nb_filters, lrelu_a=0.1, batch_norm=batch_norm)
+        d = downsampling or 1
+        n_flat = nb_filters * int(np.prod([s // d for s in self.signal_dim]))
+        self.fc = nn.Linear(n_flat, z_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x[:, None] if x.ndim == self.ndim + 1 else x.movedim(-1, 1)
+        if self.downsampling:
+            pool = F.avg_pool1d if self.ndim == 1 else F.avg_pool2d
+            x = pool(x, self.downsampling)
+        x = self.conv(x).movedim(1, -1)
+        return head_f32(self.fc, x.reshape(x.shape[0], -1))
+
+
+class SignalDecoder(nn.Module):
+    """Decodes a latent vector into a 1D or 2D signal (`ed.py:65-103`): a
+    Linear layer to ``nb_filters`` channels on the signal grid (a quarter
+    of it with ``upsampling``, then two ConvBlock + nearest 2x upsampling
+    steps), a DilatedBlock of dilations 1..nb_layers, a ConvBlock to one
+    channel and a float32 1x1 conv head. Returns (N, *signal_dim).
+
+    The Linear layer's outputs are ordered channel-last (the JAX package's
+    reshape to (-1, *grid, nb_filters)), then moved to channel-first.
+    """
+
+    def __init__(self, signal_dim, z_dim: int, nb_layers: int,
+                 nb_filters: int, batch_norm: bool = True,
+                 upsampling: bool = False):
+        super().__init__()
+        self.signal_dim = _signal_dim(signal_dim)
+        ndim = len(self.signal_dim)
+        self.nb_filters = nb_filters
+        self.upsampling = upsampling
+        self.work_dim = tuple(s // 4 for s in self.signal_dim) \
+            if upsampling else self.signal_dim
+        self.fc = nn.Linear(z_dim, nb_filters * int(np.prod(self.work_dim)))
+        if upsampling:
+            self.deconv1 = ConvBlock(ndim, 1, nb_filters, nb_filters,
+                                     lrelu_a=0.1, batch_norm=batch_norm)
+            self.deconv2 = ConvBlock(ndim, 1, nb_filters, nb_filters,
+                                     lrelu_a=0.1, batch_norm=batch_norm)
+        dil = list(range(1, nb_layers + 1))
+        self.dilblock = DilatedBlock(ndim, nb_filters, nb_filters, dil, dil,
+                                     lrelu_a=0.1, batch_norm=batch_norm)
+        self.conv = ConvBlock(ndim, 1, nb_filters, 1, lrelu_a=0.1,
+                              batch_norm=batch_norm)
+        self.out = (nn.Conv1d if ndim == 1 else nn.Conv2d)(1, 1, 1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.fc(z).reshape((-1,) + self.work_dim + (self.nb_filters,))
+        x = x.movedim(-1, 1)
+        if self.upsampling:
+            for block in (self.deconv1, self.deconv2):
+                # jax.image.resize "nearest" at an exact factor of 2
+                x = F.interpolate(block(x), scale_factor=2, mode="nearest")
+        x = self.conv(self.dilblock(x))
+        return head_f32(self.out, x)[:, 0]
+
+
+
+class SignalED(nn.Module):
+    """Image <-> spectrum translator (`ed.py:106-136`): a SignalEncoder to
+    ``latent_dim`` latents, then a SignalDecoder."""
+
+    def __init__(self, feature_dim, target_dim, latent_dim: int,
+                 nblayers_encoder: int = 2, nblayers_decoder: int = 2,
+                 nbfilters_encoder: int = 64, nbfilters_decoder: int = 2,
+                 batch_norm: bool = True, encoder_downsampling: int = 0,
+                 decoder_upsampling: bool = False):
+        super().__init__()
+        self.encoder = SignalEncoder(feature_dim, latent_dim,
+                                     nblayers_encoder, nbfilters_encoder,
+                                     batch_norm, encoder_downsampling)
+        self.decoder = SignalDecoder(target_dim, latent_dim,
+                                     nblayers_decoder, nbfilters_decoder,
+                                     batch_norm, decoder_upsampling)
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.encoder(x)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
+def init_imspec_model(in_dim: Tuple[int, ...], out_dim: Tuple[int, ...],
+                      latent_dim: int, **kwargs: Any
+                      ) -> Tuple[nn.Module, Dict[str, Any]]:
+    """The ImSpec net and its metadict (`ed.py:412-440`: the same defaults
+    and keys)."""
+    nblayers_encoder = kwargs.get("nblayers_encoder", 3)
+    nblayers_decoder = kwargs.get("nblayers_decoder", 4)
+    nbfilters_encoder = kwargs.get("nbfilters_encoder", 64)
+    nbfilters_decoder = kwargs.get("nbfilters_decoder", 64)
+    batch_norm = kwargs.get("batch_norm", True)
+    encoder_downsampling = kwargs.get("encoder_downsampling", 0)
+    decoder_upsampling = kwargs.get("decoder_upsampling", False)
+    net = SignalED(tuple(in_dim), tuple(out_dim), latent_dim,
+                   nblayers_encoder, nblayers_decoder, nbfilters_encoder,
+                   nbfilters_decoder, batch_norm, encoder_downsampling,
+                   decoder_upsampling)
+    meta_state_dict = {
+        "model_type": "imspec",
+        "in_dim": tuple(in_dim),
+        "out_dim": tuple(out_dim),
+        "latent_dim": latent_dim,
+        "nblayers_encoder": nblayers_encoder,
+        "nblayers_decoder": nblayers_decoder,
+        "nbfilters_encoder": nbfilters_encoder,
+        "nbfilters_decoder": nbfilters_decoder,
+        "batchnorm": batch_norm,
+        "encoder_downsampling": encoder_downsampling,
+        "decoder_upsampling": decoder_upsampling,
+    }
+    return net, meta_state_dict
 
 
 def _tanh_stack(in_features: int, hidden_dim: int, num_layers: int

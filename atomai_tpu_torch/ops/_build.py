@@ -8,8 +8,10 @@ source and the flags, so an edited source is rebuilt. The build writes to
 a per-process temporary file and renames it into place, so concurrent
 processes never load a half-written library (as
 `atomai_tpu/native/__init__.py:24-44` does for its g++ builds).
+:func:`compile_shared` does the same for the host's C++ sources
+(``atomai_tpu_torch/native``) with ``g++``.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises, with
+There is no fallback: a missing compiler or a failed build raises, with
 the compiler's output. ``-Xptxas -v`` makes the assembler report each
 kernel's registers, shared memory and spills; a build in this process keeps
 that report in ``BUILD_LOG``.
@@ -43,36 +45,49 @@ def find_nvcc() -> str:
                        "/usr/local/cuda): the CUDA kernels cannot be built")
 
 
+def _library_path(src_path: str, flags) -> str:
+    with open(src_path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src_path))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
 def library_path(source: str) -> str:
     """Where the library built from ``csrc/<source>`` goes."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+    return _library_path(os.path.join(CSRC_DIR, source), NVCC_FLAGS)
+
+
+def compile_shared(src_path: str, compiler: str, flags) -> str:
+    """Compiles ``src_path`` with ``compiler`` and ``flags`` into a shared
+    library in ``BUILD_DIR`` unless an up-to-date one exists; returns the
+    library's path."""
+    lib_path = _library_path(src_path, flags)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [compiler, *flags, "-o", tmp_path, src_path]
+    name = os.path.basename(src_path)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(compiler)} failed on {name} (exit "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
+                f"{proc.stderr}")
+        os.replace(tmp_path, lib_path)
+        BUILD_LOG[name] = proc.stdout + proc.stderr
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+    return lib_path
 
 
 def build(source: str) -> str:
     """Compiles ``csrc/<source>`` unless an up-to-date library exists;
     returns the library's path."""
-    lib_path = library_path(source)
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp_path = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp_path,
-           os.path.join(CSRC_DIR, source)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp_path, lib_path)
-        BUILD_LOG[source] = proc.stdout + proc.stderr
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
-    return lib_path
+    return compile_shared(os.path.join(CSRC_DIR, source), find_nvcc(),
+                          NVCC_FLAGS)
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
-"""Predictors of the segmentation path."""
+"""Predictors: segmentation and its Locator, im2spec, and ensembles."""
 
-from .predictor import BasePredictor, Locator, SegPredictor
+from .epredictor import EnsemblePredictor, ensemble_locate
+from .predictor import BasePredictor, ImSpecPredictor, Locator, SegPredictor
 
-__all__ = ["BasePredictor", "Locator", "SegPredictor"]
+__all__ = ["BasePredictor", "EnsemblePredictor", "ImSpecPredictor",
+           "Locator", "SegPredictor", "ensemble_locate"]

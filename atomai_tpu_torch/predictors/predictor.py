@@ -1,12 +1,13 @@
 """Inference and post-processing to atomic coordinates.
 
-Counterpart of `atomai_tpu/predictors/predictor.py:57-352, 455-563`:
+Counterpart of `atomai_tpu/predictors/predictor.py:57-401, 455-563`:
 
 - :class:`BasePredictor`: eval-mode forward in chunks, under the device's
   precision policy;
 - :class:`SegPredictor`: preprocess (channel fix-ups, optional resize, pad
   bottom/right to the net's downsample factor, min-max normalise over the
   whole stack), forward, sigmoid/softmax; NHWC maps out;
+- :class:`ImSpecPredictor`: images to spectra or spectra to images;
 - :class:`Locator`: background channel for one-class output, threshold,
   connected-component labels and centres of mass for all frames at once,
   edge removal, and with ``refine`` a batched 2D-Gaussian fit of every
@@ -32,7 +33,7 @@ from ..ops.cc_label import blob_centers_tiled
 from ..ops.peakfit import refine_peaks
 from ..utils.coords import mean_nn_distance
 from ..utils.img import img_pad, img_resize
-from ..utils.preproc import format_image
+from ..utils.preproc import format_image, format_spectra
 
 
 class BasePredictor:
@@ -142,8 +143,14 @@ class SegPredictor(BasePredictor):
         y = y.permute(0, 2, 3, 1).contiguous()
         return (y, x) if return_image else y
 
-    def predict(self, image_data, **kwargs) -> np.ndarray:
-        """NHWC float32 probability maps as numpy."""
+    def predict(self, image_data, return_image: bool = False, **kwargs):
+        """NHWC float32 probability maps as numpy; with ``return_image``,
+        (the preprocessed NHWC images, the maps), images first, as the JAX
+        package returns them."""
+        if return_image:
+            y, x = self.predict_device(image_data, return_image=True,
+                                       **kwargs)
+            return x.cpu().numpy(), y.cpu().numpy()
         return self.predict_device(image_data, **kwargs).cpu().numpy()
 
     def run(self, image_data, compute_coords: bool = True, **kwargs):
@@ -163,6 +170,56 @@ class SegPredictor(BasePredictor):
                   str(np.around(time.time() - start_time, decimals=4)) +
                   " seconds")
         return decoded_imgs, coordinates
+
+
+class ImSpecPredictor(BasePredictor):
+    """im2spec / spec2im predictor (`atomai_tpu/predictors/predictor.py:
+    355-401`): ``output_dim`` is (length,) for spectra out, (h, w) for
+    images out. Inputs are min-max normalised over the whole set unless
+    ``norm=False``; the output comes back as numpy (n, *output_dim)."""
+
+    def __init__(self, model: nn.Module, output_dim, **kwargs):
+        super().__init__(model, **kwargs)
+        if isinstance(output_dim, int):
+            output_dim = (output_dim,)
+        if len(output_dim) not in (1, 2):
+            raise ValueError("output_dim must be a two-value tuple for "
+                             "images and a single-value tuple for spectra")
+        self.output_dim = tuple(output_dim)
+        self.verbose = kwargs.get("verbose", True)
+
+    def preprocess(self, signal, norm: bool = True) -> torch.Tensor:
+        signal = np.asarray(signal)
+        if len(self.output_dim) == 1:   # image -> spectrum
+            if signal.ndim == 2:
+                signal = signal[None]
+            signal = format_image(signal, norm)[..., 0]
+        else:                            # spectrum -> image
+            if signal.ndim == 1:
+                signal = signal[None]
+            signal = format_spectra(signal, norm)
+        return torch.from_numpy(signal).to(self.device)
+
+    def predict(self, signal, **kwargs) -> np.ndarray:
+        x = self.preprocess(signal, kwargs.get("norm", True))
+        y = self.batch_forward(x, kwargs.get("num_batches", 10))
+        return y.float().cpu().numpy().reshape((len(x),) + self.output_dim)
+
+    def run(self, signal, **kwargs) -> np.ndarray:
+        start_time = time.time()
+        prediction = self.predict(signal, **kwargs)
+        if self.verbose:
+            if len(self.output_dim) == 1:
+                str_ = " image was " if prediction.shape[0] == 1 \
+                    else " images were "
+            else:
+                str_ = " spectrum was " if prediction.shape[0] == 1 \
+                    else " spectra were "
+            print("\n" + str(prediction.shape[0]) + str_ +
+                  "decoded in approximately " +
+                  str(np.around(time.time() - start_time, decimals=4)) +
+                  " seconds")
+        return prediction
 
 
 class Locator:

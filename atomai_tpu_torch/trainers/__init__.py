@@ -1,6 +1,9 @@
-"""Training engines: the supervised trainers and the VAE family's."""
+"""Training engines: the supervised trainers, the ensemble trainers and the
+VAE family's."""
 
-from .trainer import BaseTrainer, SegTrainer
+from .etrainer import BaseEnsembleTrainer, EnsembleTrainer
+from .trainer import BaseTrainer, ImSpecTrainer, SegTrainer
 from .vitrainer import viBaseTrainer
 
-__all__ = ["BaseTrainer", "SegTrainer", "viBaseTrainer"]
+__all__ = ["BaseTrainer", "SegTrainer", "ImSpecTrainer",
+           "BaseEnsembleTrainer", "EnsembleTrainer", "viBaseTrainer"]

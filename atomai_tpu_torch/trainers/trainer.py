@@ -1,6 +1,6 @@
-"""Supervised training engine and the segmentation trainer.
+"""Supervised training engine, the segmentation and the im2spec trainers.
 
-Counterpart of `atomai_tpu/trainers/trainer.py:40-877` with one engine: a
+Counterpart of `atomai_tpu/trainers/trainer.py:40-909` with one engine: a
 Python loop of eager steps, in place of the JAX package's scan/loop pair
 (which exists because XLA:CPU runs scan bodies single-threaded). What it
 keeps:
@@ -45,7 +45,7 @@ from ..core.mlog import open_metrics_log
 from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
 from ..losses_metrics import iou_score, select_loss
-from ..nets import Dropout, init_fcnn_model, init_weights_
+from ..nets import Dropout, init_fcnn_model, init_imspec_model, init_weights_
 from ..utils import preproc
 
 
@@ -82,6 +82,7 @@ class BaseTrainer:
         self.net: Optional[nn.Module] = None
         self.criterion: Optional[Callable] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.optimizer_spec: Optional[Any] = None   # compile's ``optimizer``
         self.lrs: Optional[List[float]] = None
         self.num_steps = 0          # optimizer steps; indexes ``lrs``
         self.compute_accuracy = False
@@ -167,6 +168,7 @@ class BaseTrainer:
                 raise ValueError("Provide training data")
             self.set_data(*train_data, **kwargs)
 
+        self.optimizer_spec = optimizer
         self.perturb_weights = perturb_weights
         if self.perturb_weights:
             if self.meta_state_dict.get("batchnorm",
@@ -503,3 +505,43 @@ class SegTrainer(BaseTrainer):
                     ) -> torch.Tensor:
         """IoU of the batch."""
         return iou_score(y, y_prob)
+
+
+class ImSpecTrainer(BaseTrainer):
+    """Image <-> spectrum trainer (counterpart of
+    `atomai_tpu/trainers/trainer.py:880-909`).
+
+    The net is built, and its weights drawn from ``seed``, at
+    construction. Keyword args: ``seed`` (default 1), ``batch_seed``
+    (default ``seed``), ``device`` ("cuda", the default, raises without a
+    card; "cpu" when asked for), and ``init_imspec_model``'s.
+    """
+
+    def __init__(self, in_dim: Tuple[int, ...], out_dim: Tuple[int, ...],
+                 latent_dim: int = 2, **kwargs: Any):
+        seed = kwargs.get("seed", 1)
+        super().__init__(seed=seed, device=kwargs.get("device", "cuda"))
+        self.batch_seed = kwargs.get("batch_seed", seed)
+        self.in_dim, self.out_dim = tuple(in_dim), tuple(out_dim)
+        self.net, self.meta_state_dict = init_imspec_model(
+            in_dim, out_dim, latent_dim, **kwargs)
+        init_weights_(self.net, generator_from_seed(seed))
+        self.net.to(self.device).eval()
+
+    def set_data(self, X_train, y_train, X_test=None, y_test=None,
+                 **kwargs) -> None:
+        """(image, spectrum) pairs, either way round: a singleton channel
+        axis is squeezed, and the inputs must have the net's ``in_dim``."""
+        if X_test is None or y_test is None:
+            X_train, y_train, X_test, y_test = preproc.data_split(
+                X_train, y_train, kwargs.get("test_size", .15),
+                kwargs.get("seed", 1))
+        X_train, y_train, X_test, y_test = preproc.check_signal_dims(
+            X_train, y_train, X_test, y_test)
+        if X_train.shape[1:] != ((1,) + self.in_dim) and \
+                X_train.shape[1:] != self.in_dim:
+            raise AssertionError(
+                "The input/output dimensions of the model must match "
+                "the height, width and length (for spectra) of training")
+        self._stage_batches(*(np.asarray(a, np.float32) for a in
+                              (X_train, y_train, X_test, y_test)))

@@ -8,6 +8,8 @@ code and its multi-epoch dispatch. What it keeps:
   (`:83-101`);
 - ``compile_trainer`` with Adam(1e-4) (`:161-203`): torch's Adam with
   ``eps=1e-8`` is optax's ``adam(1e-4)``, m_hat / (sqrt(v_hat) + eps);
+  ``optimizer="sgd"`` is plain SGD at 1e-4, and a callable
+  ``params -> torch.optim.Optimizer`` is used as given;
 - the epoch semantics of the loop engine (`:286-327`): a fresh
   permutation per epoch, ``nb = N // bs`` batches (the remainder is
   dropped), the epoch ELBO as the mean of the batch ELBOs, and
@@ -105,8 +107,17 @@ class viBaseTrainer:
     def compile_trainer(self, train_data: Tuple,
                         test_data: Optional[Tuple] = None,
                         training_cycles: int = 100, batch_size: int = 32,
-                        **kwargs) -> None:
-        """Stages the data and initialises the weights and Adam(1e-4)."""
+                        optimizer: Any = None, **kwargs) -> None:
+        """Stages the data and initialises the weights and the optimizer:
+        ``optimizer`` "adam" (the default) or "sgd" at lr 1e-4, or a
+        callable ``params -> torch.optim.Optimizer``. Device meshes and
+        rematerialisation are not ported and raise."""
+        if kwargs.get("mesh"):
+            raise NotImplementedError(
+                "device meshes are not ported yet (ROADMAP Queue 1 #21)")
+        if kwargs.get("remat"):
+            raise NotImplementedError(
+                "remat is not ported yet (ROADMAP Queue 1 #22)")
         self.training_cycles = training_cycles
         self.batch_size = batch_size
         if test_data is not None and test_data[0] is not None:
@@ -115,9 +126,19 @@ class viBaseTrainer:
             self.set_data(*train_data)
         self._init_params()
         if self.optimizer is None:
-            self.optimizer = torch.optim.Adam(self.parameters(), lr=1e-4,
-                                              eps=1e-8)
+            self.optimizer = self._make_optimizer(optimizer)
         self.filename = kwargs.get("filename", "./model")
+
+    def _make_optimizer(self, optimizer: Any) -> torch.optim.Optimizer:
+        if optimizer is not None and not isinstance(optimizer, str):
+            return optimizer(self.parameters())
+        name = optimizer or "adam"
+        if name == "adam":
+            return torch.optim.Adam(self.parameters(), lr=1e-4, eps=1e-8)
+        if name == "sgd":
+            return torch.optim.SGD(self.parameters(), lr=1e-4)
+        raise ValueError(f"Unknown optimizer '{name}': use 'adam', 'sgd' or "
+                         "a callable params -> optimizer")
 
     # ---------------------------------------------------- reparameterize
     @staticmethod

@@ -1,6 +1,6 @@
 """Data augmentation on the device, vectorised over the batch.
 
-Counterpart of `atomai_tpu/transforms/imaug.py:34-345`, with the same ops,
+Counterpart of `atomai_tpu/transforms/imaug.py:34-364`, with the same ops,
 parameter ranges and op order (custom -> rotation -> zoom -> resize ->
 gauss -> jitter -> poisson -> salt & pepper -> blur -> contrast ->
 background, each enabled op once). Each random op is split in two halves,
@@ -356,5 +356,34 @@ def seg_augmentor(nb_classes: int, **kwargs: Any) -> Optional[Callable]:
         imgs, gts = dt.run(generator, imgs,
                            unsqueeze_channels(labels, nb_classes))
         return imgs[..., None], squeeze_channels(gts).to(labels.dtype)
+
+    return augmentor
+
+
+_AUG_KEYS_SPEC = ["custom_transform", "gauss_noise", "jitter",
+                  "poisson_noise", "contrast", "salt_and_pepper", "blur",
+                  "background"]
+
+
+def imspec_augmentor(in_dim: Tuple[int, ...], out_dim: Tuple[int, ...],
+                     **kwargs: Any) -> Optional[Callable]:
+    """``augment_fn(generator, images (N, H, W[, 1]), spectra)`` for
+    im2spec training: the intensity ops of :class:`DataTransform` on the
+    images (no geometric op: the targets are spectra), the spectra
+    untouched. None when no augmentation kwarg is given; spec2im models
+    raise, as in the JAX package."""
+    augdict = {k: kwargs[k] for k in _AUG_KEYS_SPEC if k in kwargs}
+    if not augdict:
+        return None
+    if len(in_dim) < len(out_dim):
+        raise NotImplementedError("The built-in data augmentor works only "
+                                  "for img->spec models (i.e. input is "
+                                  "image)")
+    dt = DataTransform(**augdict)
+
+    def augmentor(generator, features, targets):
+        feats = features[..., 0] if features.ndim == 4 else features
+        feats, _ = dt.run(generator, feats, targets)
+        return feats[..., None], targets
 
     return augmentor

@@ -1,13 +1,15 @@
-"""Pixel-coordinate grids of the rVAE and atom-position refinement
-(counterpart of `atomai_tpu/utils/coords.py:51-81, 123-146`)."""
+"""Pixel-coordinate grids of the rVAE, atom-position refinement and the
+clustering of an ensemble's coordinates (counterpart of
+`atomai_tpu/utils/coords.py:51-81, 123-146, 247-269`)."""
 
 import warnings
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..native import dbscan
 from ..ops.peakfit import refine_peaks
 
 
@@ -80,3 +82,27 @@ def peak_refinement(imgdata: Union[np.ndarray, torch.Tensor],
                          device=img.device)
     refined = refine_peaks(img, xy, int(d)).cpu().numpy()
     return np.concatenate([refined, coordinates[:, 2:3]], axis=-1)
+
+
+def cluster_coord(coord_class_dict: Dict[int, np.ndarray], eps: float,
+                  min_samples: int = 10) -> Tuple[np.ndarray, ...]:
+    """Collapses a stack's coordinates {i: (n, 3) [row, col, class]} onto
+    one plane and clusters them by DBSCAN (:func:`native.dbscan`): (the
+    clusters' rows as an object array, their mean [row, col], their
+    variance). Only the noise label -1 is left out (original atomai drops
+    the first label whether or not it is noise); with no coordinates at
+    all the result is empty."""
+    coordinates_all = np.concatenate(
+        [coord_class_dict[k] for k in range(len(coord_class_dict))])
+    if len(coordinates_all) == 0:
+        empty2 = np.empty((0, 2), dtype=float)
+        return np.array([], dtype=object), empty2, empty2
+    labels = dbscan(coordinates_all[:, :2], eps, min_samples)
+    clusters, clusters_var, clusters_mean = [], [], []
+    for lbl in np.unique(labels[labels >= 0]):
+        coord = coordinates_all[np.where(labels == lbl)]
+        clusters.append(coord)
+        clusters_mean.append(np.mean(coord[:, :2], axis=0))
+        clusters_var.append(np.var(coord[:, :2], axis=0))
+    return (np.array(clusters, dtype=object), np.array(clusters_mean),
+            np.array(clusters_var))

@@ -1,6 +1,6 @@
 """Data canonicalisation, splitting and batching, channel-last (numpy only).
 
-Counterpart of `atomai_tpu/utils/preproc.py:23-127, 151-220`. Everything
+Counterpart of `atomai_tpu/utils/preproc.py:23-148, 151-220`. Everything
 here runs on the host; the trainers move the stacked batches to the device
 once.
 """
@@ -74,6 +74,49 @@ def cast_image_arrays(X_train, y_train, X_test, y_test, num_classes: int
     ydtype = np.int64 if num_classes > 1 else np.float32
     return (np.asarray(X_train, np.float32), np.asarray(y_train, ydtype),
             np.asarray(X_test, np.float32), np.asarray(y_test, ydtype))
+
+
+def check_signal_dims(X_train, y_train, X_test, y_test
+                      ) -> Tuple[np.ndarray, ...]:
+    """(image, spectrum) pairs of ImSpec: a singleton channel axis, first
+    or last, is squeezed, so images are (n, h, w) and spectra (n, length);
+    train and test must agree."""
+    def squeeze1(a):
+        a = np.asarray(a)
+        if a.ndim >= 3 and a.shape[1] == 1:
+            return a[:, 0]
+        if a.ndim >= 3 and a.shape[-1] == 1:
+            return a[..., 0]
+        return a
+    X_train, y_train = squeeze1(X_train), squeeze1(y_train)
+    X_test, y_test = squeeze1(X_test), squeeze1(y_test)
+    if X_train.shape[1:] != X_test.shape[1:] or \
+            y_train.shape[1:] != y_test.shape[1:]:
+        raise ValueError("The image/spectra dimensions must be the same "
+                         "for training and test data")
+    return X_train, y_train, X_test, y_test
+
+
+def format_spectra(spectra: np.ndarray, norm: bool = False) -> np.ndarray:
+    """(n, length) float32 spectra (a singleton channel axis squeezed),
+    optionally min-max normalized over the whole set."""
+    spectra = np.asarray(spectra)
+    if spectra.ndim == 3:
+        if spectra.shape[1] == 1:
+            spectra = spectra[:, 0]
+        elif spectra.shape[-1] == 1:
+            spectra = spectra[..., 0]
+        else:
+            raise AssertionError(
+                "3D spectra tensor must have a singleton channel dim")
+    if spectra.ndim != 2:
+        raise AssertionError(
+            "Provide spectrum(s) as 2D (n, length) or 3D tensor")
+    spectra = spectra.astype(np.float32)
+    if norm:
+        ptp = np.ptp(spectra)
+        spectra = (spectra - spectra.min()) / max(ptp, 1e-12)
+    return spectra
 
 
 def format_image(image_data: np.ndarray, norm: bool = True) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Drives the PyTorch port's paths once on one CUDA card (segmentation
-serving, segmentation training with augmentation and peak refinement, and
-rVAE training) and checks every step of them.
+serving, segmentation training with augmentation and peak refinement, rVAE
+training, ImSpec training and serving, and deep-ensemble training, serving
+and atom finding) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -55,13 +56,35 @@ Phases, one JSON line each (all before the last line):
     frames, and each op's apply half on the card against the same op on
     the CPU with the same draws;
 13. refine_fixture: ``peak_refinement`` on the card against the JAX
-    package's golden fixture.
+    package's golden fixture;
+14. imspec_path: three ``ImSpec.fit`` cycles at config B's width in float32
+    (TF32 off) against the JAX run in ``tests/fixtures/``; bench config B
+    whole (``ImSpec((64, 64), (16,))``, 300 cycles of batch 32): finite
+    losses, the first fit's seconds, a warm run's cycles/s, ``predict`` and
+    its milliseconds; the port arm of the ImSpec quality protocol
+    (`scripts/measure_imspec_parity.py`), seeds 1, 2 and 5, beside the JAX
+    arm's;
+15. ensemble_path: ``train_ensemble_from_baseline`` (2 members, 3 cycles,
+    float32) against the JAX run in ``tests/fixtures/``; bench config D
+    whole (``train_ensemble_from_scratch``, 4 Unets, 30 cycles of batch 8
+    with SWA and the full augmentation on 32 x 512 x 512 frames): the first
+    and a warm call's seconds and images/s; two ensembles fine-tuned from
+    phase 10's trained net for 30 cycles, with config D's augmentation and
+    without, and the located atoms of each (and of the net alone) against
+    the true ones; ``EnsemblePredictor`` of the one tuned without
+    augmentation on the 32 frames, timed on the "map" and "vmap" member
+    layouts in turns; ``ensemble_locate`` on its 4 x 32 member maps: the
+    labeller's launches, coordinates equal to the plain route's, clusters
+    against the true atoms (the gate), the labeller's time at this shape
+    beside its plain version and its bound; the native DBSCAN against its
+    plain version.
 Then one JSON line on the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -140,6 +163,41 @@ AUG_DATA = dict(n_images=32, size=512, spacing=16, seed=0)
 AUG_CYCLES, AUG_BATCH = 30, 8
 TOL_AUG = 1e-5            # float32 on both; sums of a few terms
 TOL_REFINE_PX = 1e-3
+
+# imspec_path. The fixture: three Adam(1e-3) cycles of config B against
+# the JAX run, float32. Conv biases before a BatchNorm get gradients that
+# cancel to rounding noise, so Adam moves them by about lr a step either
+# way: 2 * lr * steps bounds the weights. flax's running variance takes the
+# biased batch variance, torch's the unbiased one (n = 32 x 16 in the
+# decoder), and eval mode divides by it: 1e-2 relative on the running
+# variances, 5e-3 absolute (1% of the largest output, 0.46) on predict.
+# On the CPU: losses within 7.8e-4 relative, predict within 1.7e-3.
+TOL_IMSPEC_LOSS_REL = 1e-3
+TOL_IMSPEC_ADAM = 2 * 1e-3 * 3
+TOL_RUNNING_VAR_REL = 1e-2
+TOL_IMSPEC_PREDICT = 5e-3
+# bench config B (`bench.py:340-355`) and the ImSpec quality protocol
+# (`scripts/measure_imspec_parity.py:10-20`; the JAX arm's medians from
+# `scripts/imspec_parity_ours.json`, its worst seed's MSE 0.01813)
+IMSPEC_CYCLES, IMSPEC_BATCH = 300, 32
+PAIRED_N, PAIRED_IN, PAIRED_OUT, PAIRED_TEST = 512, (16, 16), (32,), 64
+PAIRED_CYCLES, PAIRED_BATCH, PAIRED_SEEDS = 1000, 32, (1, 2, 5)
+JAX_IMSPEC_MSE, JAX_IMSPEC_CORR = 0.01127, 0.9898
+GATE_IMSPEC_MSE, GATE_IMSPEC_CORR = 0.03, 0.9
+# ensemble_path. The fixture: 2 members, 3 Adam(1e-3) cycles from one
+# baseline, float32, bounded as above (the Unet's bottleneck BatchNorm
+# sees n = 4 x 4 x 4: (1 - 0.9^3) / (n - 1) = 4.3e-3 relative).
+TOL_ENS_LOSS_REL = 1e-3
+TOL_ENS_ADAM = 2 * 1e-3 * 3
+# bench config D (`bench.py:357-394`); ensemble_locate's DBSCAN: an atom
+# is 3 of the 4 members' detections within 1 px (a sixteenth of the
+# lattice spacing)
+ENS_DATA = dict(n_images=32, size=512, spacing=16, seed=0)
+ENS_CYCLES, ENS_BATCH, ENS_MODELS = 30, 8, 4
+ENS_EPS, ENS_MIN_SAMPLES = 1.0, 3
+# "map" against "vmap" in float32 (TF32 off): the same function, grouped
+# convs and elementwise BatchNorm against plain convs and torch's BatchNorm
+ENS_LAYOUT_TOL = 1e-4
 
 
 def check(cond, msg):
@@ -907,6 +965,21 @@ def phase_rvae_path(device, mlp_errs):
              "stock_ms": stock_bwd_ms}]
 
 
+def timed(fn, device):
+    """(host seconds, CUDA-event milliseconds) of one call of ``fn``, from
+    an idle card to an idle card."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, start.elapsed_time(end)
+
+
 @contextlib.contextmanager
 def quiet():
     """Keeps the trainers' progress prints off the script's output."""
@@ -1007,16 +1080,7 @@ def phase_seg_path(device):
         test_hist = list(m.loss_acc["test_loss"])
         # the warm production loop: another 300 cycles of run()
         m._reset_training_history()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        start.record()
-        m.run()
-        end.record()
-        torch.cuda.synchronize(device)
-        run_s = time.perf_counter() - t0
-        run_ms = start.elapsed_time(end)
+        run_s, run_ms = timed(m.run, device)
     staged = [list(m.Xb_train.shape), list(m.Xb_test.shape)]
     check(staged == [[1, SEG_BATCH, 256, 256, 1], [1, 10, 256, 256, 1]],
           f"config A staged as {staged}")
@@ -1079,7 +1143,7 @@ def phase_seg_path(device):
             "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"],
             "share_of_bound": lab["share_of_bound"],
             "labels_only_ms": lab["labels_only_ms"],
-            "locate_ms": lab["locate_ms"], "blobs": lab["blobs"]}
+            "locate_ms": lab["locate_ms"], "blobs": lab["blobs"]}, m.net
 
 
 def phase_iou_protocol(device):
@@ -1176,6 +1240,398 @@ def phase_refine_fixture(device):
          tolerance_px=TOL_REFINE_PX)
 
 
+def fixture_script():
+    """``scripts/make_torch_port_fixtures.py`` as a module (numpy at import;
+    its JAX runs import JAX inside their functions)."""
+    import importlib.util
+    path = os.path.join(ROOT, "scripts", "make_torch_port_fixtures.py")
+    spec = importlib.util.spec_from_file_location("_torch_port_fixtures",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def state_errors(got, want, adam_tol, errs, tols):
+    """Max abs error of each tensor of ``want`` (relative for running
+    variances) into ``errs``, with its tolerance into ``tols``."""
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = float((got[k].detach().float().cpu() - w).abs().max())
+        if k.endswith("running_var"):
+            err /= float(w.abs().max())
+            tols[k] = TOL_RUNNING_VAR_REL
+        else:
+            tols[k] = adam_tol
+        errs[k] = err
+
+
+def failures(errs, tols):
+    return {k: [errs[k], tols[k]] for k in errs if not errs[k] <= tols[k]}
+
+
+def fixture_summary(errs, tols):
+    """The losses' errors and the quantity nearest its tolerance."""
+    worst = max((k for k in errs if tols[k]), key=lambda k: errs[k] / tols[k])
+    return {"checked": len(errs),
+            "loss_rel_err": {k: v for k, v in errs.items() if "loss" in k},
+            "nearest_tolerance": [worst, errs[worst], tols[worst]]}
+
+
+def imspec_fixture_run(device, tmp):
+    """Config B's ImSpec trained as the fixture's JAX run was (the same
+    numpy-drawn variables, data and schedule; float32, TF32 off) on
+    ``device``: (model, {name: error}, {name: tolerance})."""
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import ImSpec, conversion
+    fx = fixture_script()
+    stored = dict(np.load(fx.IMSPEC_FIXTURE))
+    variables = fx.seeded_variables({k[len("shape/"):]: v for k, v in
+                                     stored.items() if k.startswith("shape/")})
+    m = ImSpec((64, 64), (16,), latent_dim=2, device=device)
+    m.load_jax_variables(unflatten(variables, "params"),
+                         unflatten(variables, "batch_stats"))
+    m.precision = Precision.full()
+    Xb, yb = fx.config_b_data()
+    with quiet():
+        m.fit(Xb, yb, Xb[:64], yb[:64], training_cycles=fx.IMSPEC_CYCLES,
+              batch_size=fx.IMSPEC_BATCH, print_loss=fx.IMSPEC_CYCLES,
+              filename=os.path.join(tmp, "imspec"))
+    errs = {"schedule": int(np.abs(m.batch_idx_train - stored["schedule"])
+                            .max())}
+    tols = {"schedule": 0}
+    for k in ("train_loss", "test_loss"):
+        errs[k] = float(np.max(np.abs(np.asarray(m.loss_acc[k]) / stored[k]
+                                      - 1)))
+        tols[k] = TOL_IMSPEC_LOSS_REL
+    final = unflatten(stored, "final")
+    port_name = {"encoder": "encoder.conv", "Dense_0": "decoder.fc",
+                 "ConvBlock_0": "decoder.conv", "Conv_0": "decoder.out"}
+    want = {}
+    for part, name in fx.IMSPEC_FINAL:
+        p = final["params"][part][name]
+        rank = 4 if part == "encoder" else 3     # 2D images, 1D spectra
+        if name.startswith("ConvBlock"):
+            s = final["batch_stats"][part][name]
+            tensors = conversion._conv_block(p, s, False, name, rank)
+        elif name.startswith("Dense"):
+            tensors = conversion._dense(p, name)
+        else:
+            tensors = conversion._conv(p, name, rank)
+        prefix = port_name["encoder" if part == "encoder" else name]
+        want.update({f"{prefix}.{k}": v for k, v in tensors.items()})
+    state_errors(m.net.state_dict(), want, TOL_IMSPEC_ADAM, errs, tols)
+    pred = m.predict(Xb[:fx.IMSPEC_PREDICT], verbose=False)
+    errs["predict"] = float(np.abs(pred - stored["predict"]).max())
+    tols["predict"] = TOL_IMSPEC_PREDICT
+    return m, errs, tols
+
+
+def identity_stats(params):
+    """BatchNorm statistics (mean 0, variance 1) for a JAX params tree:
+    what a fresh net holds."""
+    out = {}
+    for k, v in params.items():
+        if k.startswith("BatchNorm"):
+            out[k] = {"mean": np.zeros_like(v["scale"]),
+                      "var": np.ones_like(v["scale"])}
+        elif isinstance(v, dict):
+            sub = identity_stats(v)
+            if sub:
+                out[k] = sub
+    return out
+
+
+def ensemble_fixture_run(device, tmp):
+    """The fixture's ensemble (2 members fine-tuned for 3 cycles from one
+    baseline; float32, TF32 off) trained by the port on ``device``:
+    ({name: error}, {name: tolerance}) of the schedules, the losses and
+    every member's state."""
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import ensemble_from_jax, unet_from_jax
+    from atomai_tpu_torch.trainers import EnsembleTrainer
+    fx = fixture_script()
+    stored = dict(np.load(fx.ENSEMBLE_FIXTURE))
+    E = fx.ENSEMBLE
+    et = EnsembleTrainer("Unet", 1, nb_filters=E["nb_filters"],
+                         layers=E["layers"], device=device)
+    et.precision = Precision.full()
+    base = unflatten(stored, "base")
+    et.compile_ensemble_trainer(batch_size=E["batch"],
+                                filename=os.path.join(tmp, "ens"))
+    with quiet():
+        _, ens = et.train_ensemble_from_baseline(
+            stored["x_train"], stored["y_train"], stored["x_test"],
+            stored["y_test"], basemodel=unet_from_jax(base,
+                                                      identity_stats(base)),
+            n_models=E["n_models"], training_cycles_ensemble=E["cycles"])
+    errs = {"schedules": int(np.abs(et.member_schedules -
+                                    stored["schedules"]).max()),
+            "train_loss": float(np.max(np.abs(np.asarray(
+                et.loss_acc["train_loss"]) / stored["train_loss"] - 1)))}
+    tols = {"schedules": 0, "train_loss": TOL_ENS_LOSS_REL}
+    want = ensemble_from_jax(unflatten(stored, "member"), et.meta_state_dict)
+    for i, w in want.items():
+        e, t = {}, {}
+        state_errors(ens[i], w, TOL_ENS_ADAM, e, t)
+        errs.update({f"{i}.{k}": v for k, v in e.items()})
+        tols.update({f"{i}.{k}": v for k, v in t.items()})
+    return errs, tols
+
+
+def make_paired_data(n=PAIRED_N, seed=0):
+    """The ImSpec protocol's (image, spectrum) pairs: a copy of
+    `scripts/measure_imspec_parity.py` ``make_paired_data`` (a CPU test
+    holds the two equal)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:PAIRED_IN[0], :PAIRED_IN[1]]
+    e = np.linspace(0, 1, PAIRED_OUT[0])
+    pos = rng.uniform(4, 12, size=(n, 2))
+    width = rng.uniform(1.2, 3.0, size=n)
+    imgs = np.exp(-((yy - pos[:, 0, None, None]) ** 2 +
+                    (xx - pos[:, 1, None, None]) ** 2) /
+                  (2 * width[:, None, None] ** 2))
+    imgs += 0.05 * rng.randn(*imgs.shape)
+    centers = pos[:, 1] / PAIRED_IN[1]
+    widths = width / 20.0
+    spectra = np.exp(-0.5 * ((e[None] - centers[:, None]) /
+                             widths[:, None]) ** 2)
+    spectra += 0.02 * rng.randn(*spectra.shape)
+    return imgs.astype(np.float32), spectra.astype(np.float32)
+
+
+def imspec_score(pred, true):
+    """The protocol's held-out MSE and peak-position correlation (a copy
+    of the script's ``score``)."""
+    mse = float(np.mean((np.asarray(pred) - true) ** 2))
+    corr = float(np.corrcoef(np.asarray(pred).argmax(-1),
+                             true.argmax(-1))[0, 1])
+    return mse, corr
+
+
+def phase_imspec_path(device):
+    import torch
+    from atomai_tpu_torch.models import ImSpec
+    with tempfile.TemporaryDirectory() as tmp:
+        _, fx_errs, fx_tols = imspec_fixture_run(device, tmp)
+    bad = failures(fx_errs, fx_tols)
+    check(not bad, f"ImSpec fixture: {bad}")
+
+    # bench config B whole
+    rng = np.random.RandomState(0)
+    Xb = rng.rand(512, 64, 64).astype(np.float32)
+    yb = rng.rand(512, 16).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m = ImSpec((64, 64), (16,), latent_dim=2, device=device)
+        fit_s, _ = timed(lambda: m.fit(
+            Xb, yb, Xb[:64], yb[:64], training_cycles=IMSPEC_CYCLES,
+            batch_size=IMSPEC_BATCH, print_loss=IMSPEC_CYCLES,
+            filename=os.path.join(tmp, "imspec")), device)
+        hist = list(m.loss_acc["train_loss"]) + list(m.loss_acc["test_loss"])
+        m._reset_training_history()
+        run_s, run_ms = timed(m.run, device)
+    check(len(hist) == 2 * IMSPEC_CYCLES and bool(np.isfinite(hist).all()),
+          "non-finite or missing config B losses")
+    pred = m.predict(Xb, verbose=False)
+    check(pred.shape == (512, 16) and bool(np.isfinite(pred).all()),
+          f"bad config B predict output {pred.shape}")
+    with quiet():
+        predict_ms = cuda_ms(lambda: m.predict(Xb, verbose=False), 5, device)
+
+    # the ImSpec quality protocol's port arm
+    X, y = make_paired_data()
+    split = len(X) - PAIRED_TEST
+    mses, corrs = [], []
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        for seed in PAIRED_SEEDS:
+            q = ImSpec(PAIRED_IN, PAIRED_OUT, latent_dim=10, seed=seed,
+                       device=device)
+            q.fit(X[:split], y[:split], X[split:], y[split:],
+                  training_cycles=PAIRED_CYCLES, batch_size=PAIRED_BATCH,
+                  print_loss=PAIRED_CYCLES, filename=os.path.join(tmp, "q"))
+            mse, corr = imspec_score(q.predict(X[split:], verbose=False),
+                                     y[split:])
+            mses.append(mse)
+            corrs.append(corr)
+    mse_median, corr_median = float(np.median(mses)), float(np.median(corrs))
+    check(mse_median < GATE_IMSPEC_MSE and corr_median > GATE_IMSPEC_CORR,
+          f"ImSpec protocol: median MSE {mse_median}, correlation "
+          f"{corr_median}")
+    emit("imspec_path", fixture=fixture_summary(fx_errs, fx_tols),
+         data=[list(Xb.shape), list(yb.shape)], cycles=IMSPEC_CYCLES,
+         batch=IMSPEC_BATCH, loss_first=hist[0],
+         loss_last=hist[IMSPEC_CYCLES - 1], test_loss_last=hist[-1],
+         fit_s=fit_s, run_s_host=run_s, run_ms_cuda_events=run_ms,
+         cycles_per_s=IMSPEC_CYCLES / (run_ms / 1e3), predict_ms=predict_ms,
+         protocol={"seeds": list(PAIRED_SEEDS), "mse": mses, "corr": corrs,
+                   "mse_median": mse_median, "corr_median": corr_median,
+                   "jax_arm_mse_median": JAX_IMSPEC_MSE,
+                   "jax_arm_corr_median": JAX_IMSPEC_CORR,
+                   "gate": {"mse": GATE_IMSPEC_MSE,
+                            "corr": GATE_IMSPEC_CORR}},
+         precision=str(m.precision.compute_dtype))
+
+
+def phase_ensemble_path(device, basenet):
+    """``basenet``: phase 10's trained Unet, the serving ensemble's
+    baseline."""
+    import torch
+    from scipy.spatial import cKDTree
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.native import dbscan, dbscan_reference
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import (EnsemblePredictor, Locator,
+                                             SegPredictor, ensemble_locate)
+    from atomai_tpu_torch.trainers import EnsembleTrainer
+    from atomai_tpu_torch.transforms import seg_augmentor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    with tempfile.TemporaryDirectory() as tmp:
+        fx_errs, fx_tols = ensemble_fixture_run(device, tmp)
+    bad = failures(fx_errs, fx_tols)
+    check(not bad, f"ensemble fixture: {bad}")
+
+    # bench config D whole: the first call, then a warm one
+    imgs, masks, true_xy = make_lattice_stack(**ENS_DATA)
+    n, size = ENS_DATA["n_images"], ENS_DATA["size"]
+    aug = seg_augmentor(1, **AUG)
+    train_s, fine_s, served, hist = [], {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        et = EnsembleTrainer("Unet", 1, device=device)
+        et.compile_ensemble_trainer(training_cycles=ENS_CYCLES,
+                                    batch_size=ENS_BATCH, swa=True,
+                                    filename=os.path.join(tmp, "ens"))
+        for _ in range(2):
+            train_s.append(timed(lambda: et.train_ensemble_from_scratch(
+                imgs, masks, n_models=ENS_MODELS, augment_fn=aug),
+                device)[0])
+        hist["scratch"] = et.loss_acc["train_loss"][-ENS_CYCLES:]
+        # ensembles to serve, fine-tuned from phase 10's trained net as
+        # config D trains (with its augmentation) and without augmentation
+        for name, fn in (("augmented", aug), ("plain", None)):
+            fine_s[name] = timed(lambda: et.train_ensemble_from_baseline(
+                imgs, masks, basemodel=basenet, n_models=ENS_MODELS,
+                training_cycles_ensemble=ENS_CYCLES, augment_fn=fn),
+                device)[0]
+            served[name] = (copy.deepcopy(et.net), et.ensemble_state_dict)
+            hist[name] = et.loss_acc["train_loss"][-ENS_CYCLES:]
+
+    def quality(coord_means):
+        """Median distance of the cluster means (or atoms) to the true
+        atoms, and their count against the true atoms that the Locator's
+        5 px edge margin keeps."""
+        errs, found, interior = [], 0, 0
+        for i in range(n):
+            true = true_xy[i] + MASK_OFFSET
+            interior += int(((true >= 5) & (true < size - 5)).all(1).sum())
+            found += len(coord_means[i])
+            if len(coord_means[i]):
+                errs.append(cKDTree(true).query(coord_means[i][:, :2])[0])
+        errs = np.concatenate(errs) if errs else np.zeros(0)
+        return {"median_err_px": float(np.median(errs)) if len(errs)
+                else float("inf"), "found": found, "interior_atoms": interior,
+                "ratio": found / max(interior, 1)}
+
+    def member_maps(predictor):
+        """(members, frames, H, W, 1) maps on the card."""
+        return torch.from_numpy(predictor.ensemble_forward(
+            predictor.preprocess(imgs), num_batches=n)).to(device)
+
+    qualities = {"baseline_net": quality(Locator(0.5).run(SegPredictor(
+        basenet, nb_classes=1, verbose=False).predict_device(imgs)))}
+    aug_pred = EnsemblePredictor(*served["augmented"], nb_classes=1,
+                                 verbose=0)
+    qualities["augmented"] = quality(ensemble_locate(
+        member_maps(aug_pred), eps=ENS_EPS, min_samples=ENS_MIN_SAMPLES)[0])
+
+    # EnsemblePredictor of the plain-tuned ensemble on the 32 frames, each
+    # layout
+    net, ens = served["plain"]
+    preds = {layout: EnsemblePredictor(net, ens, nb_classes=1,
+                                       member_layout=layout, verbose=0)
+             for layout in ("map", "vmap")}
+    out = {layout: p.predict(imgs) for layout, p in preds.items()}
+    mean, var = out["map"]
+    # under the bf16 policy the layouts round differently (reported); in
+    # float32 they must agree (the gate), on 4 frames
+    bf16_diff = max(float(np.abs(a - b).max()) for a, b in
+                    zip(out["map"], out["vmap"]))
+    f32 = {}
+    for layout, p in preds.items():
+        policy, p.precision = p.precision, Precision.full()
+        f32[layout] = p.predict(imgs[:4])
+        p.precision = policy
+    layout_diff = max(float(np.abs(a - b).max()) for a, b in
+                      zip(f32["map"], f32["vmap"]))
+    x = preds["map"].preprocess(imgs)
+    ms = {"predict": {"map": [], "vmap": []},
+          "device_batches": {"map": [], "vmap": []}}
+    for layout in ("map", "vmap", "vmap", "map"):
+        p = preds[layout]
+        ms["predict"][layout].append(cuda_ms(lambda: p.predict(imgs), 3,
+                                             device))
+        ms["device_batches"][layout].append(cuda_ms(
+            lambda: p.ensemble_batch_predict(x), 3, device))
+
+    # ensemble_locate on every member's maps: one Locator run of 4 x 32
+    maps = member_maps(preds["map"])
+    cc_kernel.LAUNCHES = 0
+    c_mean, _ = ensemble_locate(maps, eps=ENS_EPS,
+                                min_samples=ENS_MIN_SAMPLES)
+    torch.cuda.synchronize(device)
+    launches = cc_kernel.LAUNCHES
+    qualities["plain"] = quality(c_mean)
+    flat = maps.reshape((-1,) + tuple(maps.shape[2:]))
+    lab = labeller_on(flat, device)     # kernel == plain route, and times
+    locate_ms = cuda_ms(lambda: ensemble_locate(
+        maps, eps=ENS_EPS, min_samples=ENS_MIN_SAMPLES), 3, device)
+    # DBSCAN native against plain on each frame's member coordinates
+    coords = Locator(0.5).run(flat)
+    dbscan_equal = all(np.array_equal(
+        dbscan(pts, ENS_EPS, ENS_MIN_SAMPLES),
+        dbscan_reference(pts, ENS_EPS, ENS_MIN_SAMPLES)) for pts in (
+            np.concatenate([coords[m * n + i][:, :2]
+                            for m in range(ENS_MODELS)]) for i in range(n)))
+    emit("ensemble_path", fixture=fixture_summary(fx_errs, fx_tols),
+         frames=list(imgs.shape), members=ENS_MODELS, cycles=ENS_CYCLES,
+         batch=ENS_BATCH, train_s=train_s,
+         images_per_s=[ENS_CYCLES * ENS_BATCH * ENS_MODELS / t
+                       for t in train_s],
+         fine_tune_s=fine_s,
+         loss_first_last={k: [v[0], v[-1]] for k, v in hist.items()},
+         predictor_ms=ms, layouts_max_diff_f32=layout_diff,
+         layouts_max_diff_bf16=bf16_diff,
+         member_maps=list(maps.shape), launches=launches,
+         locate_ms=locate_ms, labeller=lab, eps=ENS_EPS,
+         min_samples=ENS_MIN_SAMPLES, quality=qualities,
+         dbscan_equal=dbscan_equal,
+         precision=str(et.precision.compute_dtype))
+    check(bool(np.isfinite(sum(hist.values(), [])).all()),
+          "non-finite ensemble losses")
+    check(len(ens) == ENS_MODELS, f"{len(ens)} members")
+    check(mean.shape == var.shape == (n, size, size, 1),
+          f"predictor shapes {mean.shape}, {var.shape}")
+    check(bool(np.isfinite(mean).all() and np.isfinite(var).all()),
+          "non-finite predictor output")
+    check(0 <= mean.min() and mean.max() <= 1 and 0 <= var.min() and
+          var.max() <= 1, "predictor mean or variance out of [0, 1]")
+    check(layout_diff <= ENS_LAYOUT_TOL, f"'map' and 'vmap' differ by "
+          f"{layout_diff}")
+    check(launches > 0, "ensemble_locate never launched the labeller")
+    check(dbscan_equal, "native DBSCAN differs from its plain version")
+    q = qualities["plain"]
+    check(q["median_err_px"] < TOL_MEDIAN_PX,
+          f"ensemble_locate median error {q['median_err_px']}")
+    check(0.9 <= q["ratio"] <= 1.1, f"ensemble_locate found {q['found']} "
+          f"clusters for {q['interior_atoms']} atoms")
+    return {"launches": launches, "ms": lab["kernel_ms"],
+            "plain_ms": lab["kernel_plain_ms"], "bound_ms": lab["bound_ms"],
+            "bound_by": lab["bound_by"],
+            "share_of_bound": lab["share_of_bound"],
+            "max_abs_err": lab["max_abs_err"], "blobs": lab["blobs"],
+            "tiled_mask": lab["tiled_mask"], "locate_ms": locate_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1195,10 +1651,12 @@ def main():
     phase_rvae_fixture(device)
     kernels += phase_rvae_path(device, mlp_errs)
     phase_seg_train_fixture(device)
-    kernels[0]["trained_masks"] = phase_seg_path(device)
+    kernels[0]["trained_masks"], trained_net = phase_seg_path(device)
     phase_iou_protocol(device)
     phase_augment(device)
     phase_refine_fixture(device)
+    phase_imspec_path(device)
+    kernels[0]["ensemble_locate"] = phase_ensemble_path(device, trained_net)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

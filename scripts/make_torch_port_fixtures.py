@@ -35,10 +35,42 @@ the JAX ``Segmentor`` at bench config A's width (nb_filters 16, layers
 - ``final/...``: the trained ``ConvBlock_0`` (c1) and ``Conv_0`` (px)
   variables, params and BatchNorm statistics, flattened as above.
 
+``tests/fixtures/torch_port_imspec.npz`` holds a short training run of the
+JAX ``ImSpec`` at bench config B's width (`bench.py:340-355`):
+``ImSpec((64, 64), (16,), latent_dim=2)`` with default widths, on config
+B's data (``RandomState(0)``: 512 images of 64x64, then 512 spectra of 16;
+:func:`config_b_data`, not stored), the first 64 pairs as the test set:
+- ``shape/...``: the shape of every variable; the variables themselves are
+  drawn from numpy seed 0 by :func:`seeded_variables` (not stored: the
+  encoder's Dense kernel alone is 2 MB);
+- ``schedule``: the batch order of the 3 cycles (batch 32, seed 1);
+- ``train_loss``, ``test_loss``: the per-cycle losses of ``fit(...,
+  training_cycles=3, batch_size=32)`` with Adam(1e-3), float32 at the
+  highest matmul precision;
+- ``predict``: the trained model's ``predict`` of the first 8 images;
+- ``final/...``: the trained encoder ``ConvBlock_0`` and the decoder's
+  ``Dense_0``, ``ConvBlock_0`` and ``Conv_0``, params and BatchNorm
+  statistics.
+
+``tests/fixtures/torch_port_ensemble.npz`` holds a JAX
+``EnsembleTrainer("Unet", 1).train_ensemble_from_baseline`` run (the JAX
+package's "vmap" member layout, float32) of 2 members for 3 cycles of
+batch 4, nb_filters 4 and layers (1, 1, 1, 1), on 12 frames of 32x32
+(frames 0-9 to train, 10-11 to test):
+- ``x_train``, ``y_train`` (uint8), ``x_test``, ``y_test``;
+- ``base/...``: the baseline's params (the JAX net initialised with
+  ``jax.random.key(3)``), from which every member starts;
+- ``schedules``: each member's batch order; ``train_loss``: the members'
+  mean loss of each cycle;
+- ``member/<i>/params/...``, ``member/<i>/batch_stats/...``: each trained
+  member.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
-``tests/test_torch_nets.py``, ``tests/test_torch_vae.py`` and
-``tests/test_torch_seg_train_fixture.py`` regenerate the contents and
-compare them with the files, so the fixtures cannot go stale.
+``tests/test_torch_nets.py``, ``tests/test_torch_vae.py``,
+``tests/test_torch_seg_train_fixture.py``,
+``tests/test_torch_imspec_fixture.py`` and ``tests/test_torch_ensemble.py``
+regenerate the contents and compare them with the files, so the fixtures
+cannot go stale.
 """
 
 import os
@@ -57,6 +89,17 @@ SEG_TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                  "torch_port_seg_train.npz")
 SEG_CYCLES = 5
 SEG_BATCH = 4
+IMSPEC_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                              "torch_port_imspec.npz")
+IMSPEC_CYCLES = 3
+IMSPEC_BATCH = 32
+IMSPEC_PREDICT = 8
+IMSPEC_FINAL = (("encoder", "ConvBlock_0"), ("decoder", "Dense_0"),
+                ("decoder", "ConvBlock_0"), ("decoder", "Conv_0"))
+ENSEMBLE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                                "torch_port_ensemble.npz")
+ENSEMBLE = dict(n_models=2, cycles=3, batch=4, nb_filters=4,
+                layers=(1, 1, 1, 1))
 
 
 def flatten(tree, prefix):
@@ -82,6 +125,42 @@ def unflatten(arrays, prefix):
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(v)
     return tree
+
+
+def seeded_variables(shapes, seed=0):
+    """Flat variables ``{"params/...": array, "batch_stats/...": array}``
+    of the given shapes, drawn from ``RandomState(seed)`` in sorted key
+    order: kernels U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scales
+    1 + 0.1 N(0, 1), running means 0.1 N(0, 1), running variances
+    0.5 + U(0, 1). numpy only, so that the card's machine draws the same."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key in sorted(shapes):
+        shape = tuple(int(v) for v in shapes[key])
+        leaf = key.split("/")[-1]
+        if leaf == "kernel":
+            bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            v = rng.uniform(-bound, bound, shape)
+        elif leaf == "bias":
+            v = rng.uniform(-0.1, 0.1, shape)
+        elif leaf == "scale":
+            v = 1 + 0.1 * rng.randn(*shape)
+        elif leaf == "mean":
+            v = 0.1 * rng.randn(*shape)
+        elif leaf == "var":
+            v = 0.5 + rng.rand(*shape)
+        else:
+            raise ValueError(f"no draw rule for {key}")
+        out[key] = v.astype(np.float32)
+    return out
+
+
+def config_b_data():
+    """Bench config B's data (`bench.py:341-343`)."""
+    rng = np.random.RandomState(0)
+    Xb = rng.rand(512, 64, 64).astype(np.float32)
+    yb = rng.rand(512, 16).astype(np.float32)
+    return Xb, yb
 
 
 def make_fixture():
@@ -207,10 +286,119 @@ def make_seg_train_fixture():
     return out
 
 
+def make_imspec_fixture():
+    """Three cycles of the JAX ImSpec at config B's width from seeded
+    variables, on the CPU in float32."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.models import ImSpec
+
+    Xb, yb = config_b_data()
+    m = ImSpec((64, 64), (16,), latent_dim=2)
+    # shapes only: no initialiser runs
+    init = jax.eval_shape(lambda x0: dict(m.net.init(
+        {"params": jax.random.key(0)}, x0, False)), jnp.asarray(Xb[:1]))
+    init = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), init)
+    shapes = {k: np.asarray(v.shape, np.int64) for k, v in
+              {**flatten(dict(init["params"]), "params"),
+               **flatten(dict(init["batch_stats"]), "batch_stats")}.items()}
+    variables = seeded_variables(shapes)
+    m.params = unflatten(variables, "params")
+    m.batch_stats = unflatten(variables, "batch_stats")
+    with tempfile.TemporaryDirectory() as tmp, \
+            jax.default_matmul_precision("highest"):
+        m.fit(Xb, yb, Xb[:64], yb[:64], training_cycles=IMSPEC_CYCLES,
+              batch_size=IMSPEC_BATCH, print_loss=IMSPEC_CYCLES,
+              filename=os.path.join(tmp, "imspec"), mesh=False)
+        pred = m.predict(Xb[:IMSPEC_PREDICT], verbose=False)
+    out = {f"shape/{k}": v for k, v in shapes.items()}
+    out.update({
+        "schedule": np.asarray(m.batch_idx_train, np.int64),
+        "train_loss": np.asarray(m.loss_acc["train_loss"], np.float32),
+        "test_loss": np.asarray(m.loss_acc["test_loss"], np.float32),
+        "predict": np.asarray(pred, np.float32)})
+    params = jax.tree.map(np.asarray, jax.device_get(m.params))
+    stats = jax.tree.map(np.asarray, jax.device_get(m.batch_stats))
+    for part, name in IMSPEC_FINAL:
+        out.update(flatten({part: {name: params[part][name]}},
+                           "final/params"))
+        if name in stats[part]:
+            out.update(flatten({part: {name: stats[part][name]}},
+                               "final/batch_stats"))
+    return out
+
+
+def ensemble_data():
+    """12 frames of 32x32 and their masks, the first 10 to train."""
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(n_images=12, size=32, spacing=8,
+                                        seed=2)
+    return (imgs[:10].astype(np.float32), masks[:10].astype(np.uint8),
+            imgs[10:].astype(np.float32), masks[10:].astype(np.uint8))
+
+
+LAYOUT = "vmap"
+
+
+def run_jax_ensemble_from_baseline(swa=False):
+    """(base params, trainer) of the JAX ensemble run of the fixture."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.trainers import EnsembleTrainer
+
+    x, y, xt, yt = ensemble_data()
+    et = EnsembleTrainer("Unet", 1, nb_filters=ENSEMBLE["nb_filters"],
+                         layers=ENSEMBLE["layers"])
+    # one jitted init (an eager flax init compiles every initialiser
+    # separately); preset, so that the trainer does not draw its own
+    v = jax.device_get(jax.jit(lambda k, x0: dict(et.net.init(
+        {"params": k, "dropout": k}, x0, False)))(
+            jax.random.key(3), jnp.asarray(x[:1, ..., None])))
+    base = jax.tree.map(np.asarray, dict(v["params"]))
+    et.params, et.batch_stats = base, dict(v["batch_stats"])
+    with tempfile.TemporaryDirectory() as tmp, \
+            jax.default_matmul_precision("highest"):
+        et.compile_ensemble_trainer(
+            batch_size=ENSEMBLE["batch"], swa=swa, mesh=False,
+            member_layout=LAYOUT, filename=os.path.join(tmp, "ens"))
+        et.train_ensemble_from_baseline(
+            x, y, xt, yt, basemodel=base, n_models=ENSEMBLE["n_models"],
+            training_cycles_ensemble=ENSEMBLE["cycles"])
+    return base, et
+
+
+def make_ensemble_fixture():
+    """Two members fine-tuned for three cycles from one baseline by the
+    JAX EnsembleTrainer, on the CPU in float32."""
+    import jax
+    from atomai_tpu.trainers.trainer import _shuffled_batch_schedule
+    x, y, xt, yt = ensemble_data()
+    base, et = run_jax_ensemble_from_baseline()
+    nb = len(x) // ENSEMBLE["batch"]
+    out = {"x_train": x, "y_train": y, "x_test": xt, "y_test": yt,
+           "schedules": np.stack([
+               _shuffled_batch_schedule(nb, ENSEMBLE["cycles"], i + 2)
+               for i in range(ENSEMBLE["n_models"])]).astype(np.int64),
+           "train_loss": np.asarray(et.loss_acc["train_loss"], np.float32)}
+    out.update(flatten(base, "base"))
+    for i, member in et.ensemble_state_dict.items():
+        out.update(flatten(jax.tree.map(np.asarray, member),
+                           f"member/{i}"))
+    return out
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
                        (RVAE_FIXTURE, make_rvae_fixture),
-                       (SEG_TRAIN_FIXTURE, make_seg_train_fixture)):
+                       (SEG_TRAIN_FIXTURE, make_seg_train_fixture),
+                       (IMSPEC_FIXTURE, make_imspec_fixture),
+                       (ENSEMBLE_FIXTURE, make_ensemble_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -59,6 +59,25 @@ def test_seg_predictor_maps_match_jax(nets, size):
     np.testing.assert_allclose(got, ref, atol=ATOL_MAPS)
 
 
+@pytest.mark.parametrize("size", [64, 60])
+def test_predict_return_image_matches_jax(nets, size):
+    """``return_image=True``: (preprocessed NHWC images, maps) as numpy,
+    images first, in the JAX package's order and shapes."""
+    jnet, params, stats, net = nets
+    imgs = np.random.RandomState(size + 1).rand(3, size, size).astype(
+        np.float32) * 3
+    ref_x, ref_y = JaxSegPredictor(jnet, params, stats, nb_classes=1,
+                                   verbose=False).predict(imgs,
+                                                          return_image=True)
+    got_x, got_y = SegPredictor(net, nb_classes=1, verbose=False).predict(
+        imgs, return_image=True)
+    assert isinstance(got_x, np.ndarray) and isinstance(got_y, np.ndarray)
+    assert got_x.shape == ref_x.shape == (3, 64, 64, 1)
+    assert got_y.shape == ref_y.shape == (3, 64, 64, 1)
+    np.testing.assert_allclose(got_x, ref_x, atol=ATOL_MAPS)
+    np.testing.assert_allclose(got_y, ref_y, atol=ATOL_MAPS)
+
+
 def test_preprocess_normalises_whole_stack(nets):
     jnet, params, stats, net = nets
     imgs = np.stack([np.full((16, 16), 2.0), np.full((16, 16), 4.0)])

@@ -351,8 +351,8 @@ def test_load_model_vae_and_unported(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 #20"):
         load_model(str(tmp_path / "model.aoi"))
     from atomai_tpu_torch.core import save_checkpoint
-    other = save_checkpoint(str(tmp_path / "imspec"),
-                            {"model_type": "imspec"}, {})
+    other = save_checkpoint(str(tmp_path / "reg"),
+                            {"model_type": "reg"}, {})
     with pytest.raises(NotImplementedError, match="Queue 1 #20"):
         load_model(other)
 

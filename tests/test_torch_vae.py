@@ -155,6 +155,58 @@ def test_one_adam_step_matches_optax(name):
                                        atol=1e-7, err_msg=k)
 
 
+def test_sgd_epoch_matches_optax():
+    """``optimizer="sgd"``: an epoch of plain SGD(1e-4) steps over the same
+    batches, in order, from the same weights, gives the JAX trainer's
+    ``optax.sgd(1e-4)`` parameters."""
+    jm, tm, params, labels = _models("rvae_skip")    # rVAE((8, 8))
+    batches = [_batch(jm, labels, seed=s) for s in range(4)]
+    tx = optax.sgd(LR)
+    opt_state = tx.init(params)
+    for x, eps, y in batches:
+        _, grads_j = _jax_elbo_and_grads(jm, params, x, eps, y, 0)
+        neg = jax.tree.map(lambda g: -g, grads_j)
+        updates, opt_state = tx.update(neg, opt_state, params)
+        params = jax.tree.map(np.asarray, optax.apply_updates(params, updates))
+    X = np.concatenate([b[0] for b in batches])
+    tm.compile_trainer((X, None), training_cycles=1, batch_size=len(X) // 4,
+                       optimizer="sgd")
+    assert type(tm.optimizer) is torch.optim.SGD
+    for x, eps, y in batches:
+        tm.optimizer.zero_grad()
+        (-_port_elbo(tm, x, eps, y, 0)).backward()
+        tm.optimizer.step()
+    enc, dec = vae_from_jax(params, tm.metadict)
+    for net, want in ((tm.encoder_net, enc), (tm.decoder_net, dec)):
+        for k, v in net.state_dict().items():
+            np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=0,
+                                       atol=1e-7, err_msg=k)
+
+
+def test_trainer_options_optimizer_mesh_remat(tmp_path):
+    X = np.random.RandomState(0).rand(16, 8, 8).astype(np.float32)
+    m = aoi.models.rVAE((8, 8), numhidden_encoder=8, numhidden_decoder=8,
+                        device="cpu")
+    m.fit(X, training_cycles=1, batch_size=8, optimizer="sgd",
+          filename=str(tmp_path / "sgd"), verbose=False)
+    assert type(m.optimizer) is torch.optim.SGD
+    assert m.optimizer.defaults["lr"] == LR
+    assert m.optimizer.defaults["momentum"] == 0
+    made = []
+    m = aoi.models.VAE((8, 8), numhidden_encoder=8, numhidden_decoder=8,
+                       device="cpu")
+    m.compile_trainer((X, None), optimizer=lambda p: made.append(
+        torch.optim.SGD(p, lr=0.5)) or made[-1])
+    assert m.optimizer is made[0]
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        aoi.models.VAE((8, 8), device="cpu").compile_trainer(
+            (X, None), optimizer="lbfgs")
+    for kw, item in (({"mesh": object()}, "#21"), ({"remat": True}, "#22")):
+        with pytest.raises(NotImplementedError, match=item):
+            aoi.models.VAE((8, 8), device="cpu").compile_trainer((X, None),
+                                                                 **kw)
+
+
 @pytest.mark.parametrize("im_dim", [(32, 32), (28, 28), (12, 20)])
 def test_imcoordgrid_matches_jax(im_dim):
     """Same layout (x over rows from -1 to 1, y over columns from 1 to -1,
