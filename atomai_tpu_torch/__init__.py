@@ -1,7 +1,7 @@
 """
 atomai_tpu_torch — the PyTorch/CUDA port of ``atomai_tpu``.
 
-Two workloads are ported:
+Ported so far:
 - segmentation: ``Segmentor("Unet").fit`` (the SegTrainer with its losses,
   IoU, SWA, weight perturbation and on-device augmentation) ->
   ``predict`` through ``SegPredictor`` (min-max normalise, forward,
@@ -9,7 +9,12 @@ Two workloads are ported:
   of mass, optional 2D-Gaussian refinement); ``load_model`` reads the
   port's ``.aoit`` checkpoints;
 - rVAE (and VAE) training and inference: ``rVAE(...).fit`` -> encode,
-  decode, reconstruct, manifold2d.
+  decode, reconstruct, manifold2d;
+- ImSpec and the deep ensembles (training, mean and variance prediction,
+  ``ensemble_locate``);
+- the Gaussian-process family: ``dklGPR`` (deep kernel learning,
+  ``fit`` -> ``predict``/``thompson``), ``GPTrainer`` and the sparse-image
+  ``Reconstructor``, on cuSOLVER/cuBLAS linear algebra.
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``atomai_tpu_torch/csrc``: the labeller (``cc_label.cu``) and the rVAE's
 fused spatial-decoder MLP, forward and backward (``spatial_mlp.cu``);

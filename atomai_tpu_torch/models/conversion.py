@@ -7,8 +7,8 @@ the other way. The JAX ``params`` and
 ``jax.device_get``). Conv kernels go HWIO -> OIHW (1D: WIO -> OIW); Dense
 kernels (in, out) -> (out, in); BatchNorm ``scale/bias/mean/var`` become
 ``weight/bias/running_mean/running_var``. The nets covered: the Unet, the
-VAE family, SignalED (ImSpec) and ensembles of the Unet or SignalED.
-numpy and torch only.
+VAE family, SignalED (ImSpec), ensembles of the Unet or SignalED, and the
+DKL models' feature extractors and GP parameters. numpy and torch only.
 """
 
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -291,3 +291,48 @@ def ensemble_from_jax(ensemble: Mapping[Any, Any], meta: Mapping[str, Any]
         out[int(k)] = (unet_from_jax(p, s, dropout=meta.get("dropout", False))
                        if kind == "seg" else signal_ed_from_jax(p, s, meta))
     return dict(sorted(out.items()))
+
+
+_GP_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean_const")
+
+
+def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
+                 meta: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(extractor ``state_dict``, GP params) of the port's DKL models from a
+    JAX ``dklGPTrainer``'s ``fe_params`` and ``gp_params`` and its
+    ``dimdict`` (``input_dim``, ``embedim``).
+
+    An fc extractor's ``Dense_i`` kernel (in, out) becomes ``layers.i``'s
+    weight (out, in); a tree with a leading member axis (kernels
+    (b, in, out), independent outputs and ensembles) becomes a
+    ``StackedFeatureExtractor``'s ``kernels.i`` and ``biases.i`` as they
+    are. The raw GP parameters are copied as they are. Raises
+    ``ValueError`` on a tree that does not fit the dimdict.
+    """
+    n = len(fe_params)
+    _expect(fe_params, {f"Dense_{i}" for i in range(n)}, "feature extractor")
+    kernels = [np.asarray(fe_params[f"Dense_{i}"]["kernel"], np.float32)
+               for i in range(n)]
+    stacked = kernels[0].ndim == 3
+    if (kernels[0].shape[-2] != meta["input_dim"]
+            or kernels[-1].shape[-1] != meta["embedim"]):
+        raise ValueError(f"extractor kernels {[k.shape for k in kernels]} "
+                         f"do not map {meta['input_dim']} inputs to "
+                         f"{meta['embedim']} embedding dims")
+    fe: Dict[str, torch.Tensor] = {}
+    for i, k in enumerate(kernels):
+        where = f"feature extractor/Dense_{i}"
+        if stacked:
+            b = np.asarray(fe_params[f"Dense_{i}"]["bias"], np.float32)
+            if k.ndim != 3 or b.shape != (k.shape[0], k.shape[2]):
+                raise ValueError(f"{where}: kernel {k.shape} and bias "
+                                 f"{b.shape} are not member-stacked")
+            fe[f"kernels.{i}"] = torch.from_numpy(np.array(k))
+            fe[f"biases.{i}"] = torch.from_numpy(np.array(b))
+        else:
+            _put(fe, f"layers.{i}", _dense(fe_params[f"Dense_{i}"], where))
+    _expect(gp_params, _GP_NAMES, "GP")
+    gp = {k: torch.from_numpy(np.array(gp_params[k], np.float32))
+          for k in _GP_NAMES}
+    return fe, gp

@@ -3,7 +3,7 @@ clustering of an ensemble's coordinates (counterpart of
 `atomai_tpu/utils/coords.py:51-81, 123-146, 247-269`)."""
 
 import warnings
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -106,3 +106,11 @@ def cluster_coord(coord_class_dict: Dict[int, np.ndarray], eps: float,
         clusters_var.append(np.var(coord[:, :2], axis=0))
     return (np.array(clusters, dtype=object), np.array(clusters_mean),
             np.array(clusters_var))
+
+
+def get_lengthscale_constraints(grid: np.ndarray) -> List[List[float]]:
+    """GP lengthscale interval constraints [lower, upper] from a grid of
+    pixel indices (`atomai_tpu/utils/coords.py:370-374`)."""
+    cmax = np.amax(grid, axis=0) // 2 + 1
+    cmin = np.ones(grid.shape[-1])
+    return [cmin.tolist(), cmax.tolist()]

@@ -189,3 +189,16 @@ def stack_batches(x: np.ndarray, batch_size: int) -> np.ndarray:
         return x[None]
     nb = n // batch_size
     return x[:nb * batch_size].reshape((nb, batch_size) + x.shape[1:])
+
+
+def prepare_gp_input(sparse_image: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sparse image -> (indices of its nonzero pixels, their values, the
+    indices of every pixel) (`atomai_tpu/utils/preproc.py:223-231`)."""
+    non_zero_indices = np.nonzero(sparse_image)
+    gp_input = np.column_stack(non_zero_indices)
+    targets = sparse_image[non_zero_indices]
+    full_indices = np.array(np.meshgrid(
+        *[np.arange(dim) for dim in sparse_image.shape])).T.reshape(
+        -1, sparse_image.ndim)
+    return gp_input, targets, full_indices

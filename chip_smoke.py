@@ -1,7 +1,8 @@
 """Drives the PyTorch port's paths once on one CUDA card (segmentation
 serving, segmentation training with augmentation and peak refinement, rVAE
-training, ImSpec training and serving, and deep-ensemble training, serving
-and atom finding) and checks every step of them.
+training, ImSpec training and serving, deep-ensemble training, serving
+and atom finding, and the GP family: deep kernel learning and sparse-image
+reconstruction) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,26 @@ Phases, one JSON line each (all before the last line):
     labeller's launches, coordinates equal to the plain route's, clusters
     against the true atoms (the gate), the labeller's time at this shape
     beside its plain version and its bound; the native DBSCAN against its
-    plain version.
+    plain version;
+16. gp_fixture: the three GP runs of ``tests/fixtures/torch_port_dklgp.npz``
+    in float32 (TF32 off) against the JAX package's: ``dklGPR(64,
+    embedim=2)`` with the full-width extractor from numpy-drawn weights (5
+    Adam steps: losses, raw GP parameters, ``predict``, ``embed``),
+    ``GPTrainer`` 'exact' and 'kissgp', and ``Reconstructor.reconstruct``
+    of a 32 x 32 image;
+17. dkl_path: bench config E whole (`bench.py:409-429`): ``dklGPR(64,
+    embedim=2).fit`` on 10,000 x 64 inputs, 5 cycles (the first fit
+    timed), then 20 warm ones by CUDA events: ms a cycle, falling finite
+    losses, the card's busy share and largest kernels of a cycle, the
+    float32 loss and gradient against float64 after those 25 cycles;
+    ``predict`` on the 10,000 training inputs and on 10,000 fresh ones (the
+    fresh mean's correlation with their first input), ``thompson`` on
+    4,096 candidates; independent outputs (4 x 2,048) and a 5-model
+    ``fit_ensemble`` (2,048), ms a cycle each;
+18. reconstruct: ``Reconstructor.reconstruct`` of a 256 x 256 sin-cos image
+    at 10% measured pixels (the exact path) and at 30% (the inducing grid),
+    100 cycles each: seconds, and the mean absolute error against the
+    truth within the JAX tests' bars (0.15, 0.2).
 Then one JSON line on the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
@@ -198,6 +218,38 @@ ENS_EPS, ENS_MIN_SAMPLES = 1.0, 3
 # "map" against "vmap" in float32 (TF32 off): the same function, grouped
 # convs and elementwise BatchNorm against plain convs and torch's BatchNorm
 ENS_LAYOUT_TOL = 1e-4
+# gp_fixture: the JAX runs of `tests/fixtures/torch_port_dklgp.npz`,
+# float32 (TF32 off). The DKL run's 590 K extractor weights get gradients
+# of rounding size where ReLUs are dead or nearly so, which Adam moves by
+# up to lr a step either way: 2 * lr * steps bounds the GP parameters.
+# Every other bound is at least 8x what the same run measured on the CPU,
+# since cuBLAS and cuSOLVER round differently again: DKL loss 1.2e-5
+# relative, mean 6.3e-3, variance 1.2e-4, embedding 3.3e-3; GP losses
+# 6.4e-6 relative, predictions 4.2e-6; reconstruction 1.9e-5.
+TOL_DKL_LOSS_REL = 1e-3
+TOL_DKL_ADAM = 2 * 0.01 * 5
+TOL_DKL_MEAN = 5e-2
+TOL_DKL_VAR = 1e-3
+TOL_DKL_EMBED = 3e-2
+TOL_GP_LOSS_REL = 1e-4
+TOL_GP_PREDICT = 1e-4
+TOL_RECONSTRUCT = 2e-4
+# dkl_path: bench config E (`bench.py:409-429`), 10,000 x 64 inputs, the
+# default extractor and the exact Cholesky GP; 5 cycles that pay the
+# first call, then 20 warm ones. The float64 check holds the float32 loss
+# and gradient (extractor in float32 too) to the same computation in
+# float64 after those 25 cycles: K's condition number is at most
+# 1 + N * outputscale / noise (reported), ~1e4 here, so float32 solves
+# keep ~1e-3 of their digits at worst; the loss is a sum of N such terms.
+GP_N, GP_DIM, GP_FIRST, GP_WARM = 10000, 64, 5, 20
+GP_N_SMALL, GP_OUTPUTS, GP_MODELS, GP_CAND = 2048, 4, 5, 4096
+TOL_F64_LOSS_REL = 1e-3
+TOL_F64_GRAD_REL = 1e-2
+# reconstruct: `Reconstructor.reconstruct` of a 256 x 256 sin-cos image
+# (the JAX tests' 20 x 20 one, `tests/trainers/test_gptrainer.py:97-106`,
+# stretched to this size), 100 cycles, at the JAX tests' error bars
+REC_SIZE, REC_CYCLES = 256, 100
+REC_CASES = ((0.1, 0.15), (0.3, 0.2))     # (measured share, MAE gate)
 
 
 def check(cond, msg):
@@ -1632,6 +1684,239 @@ def phase_ensemble_path(device, basenet):
             "tiled_mask": lab["tiled_mask"], "locate_ms": locate_ms}
 
 
+def dklgp_fixture_run(device):
+    """The fixture's three GP runs (`scripts/make_torch_port_fixtures.py`
+    ``make_dklgp_fixture``) by the port on ``device`` from the same
+    numpy-drawn weights and data, float32 with TF32 off: ({name: error},
+    {name: tolerance})."""
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import Reconstructor, dklGPR
+    from atomai_tpu_torch.trainers import GPTrainer
+    fx = fixture_script()
+    stored = dict(np.load(fx.DKLGP_FIXTURE))
+    errs, tols = {}, {}
+
+    def err(name, got, tol, rel=False):
+        d = np.asarray(got, np.float64) - stored[name]
+        errs[name] = float(np.max(np.abs(d / stored[name] if rel else d)))
+        tols[name] = tol
+
+    D = fx.DKL
+    X, y, Xp = fx.dkl_fixture_data()
+    with quiet():
+        m = dklGPR(D["indim"], embedim=D["embedim"], device=device)
+        m.precision = Precision.full()
+        m.compile_trainer(X, y, training_cycles=D["cycles"], lr=D["lr"])
+        m.load_jax_params(fx.dkl_fe_params(), fx.dkl_gp_init())
+        m.fit(X, y, D["cycles"], print_loss=D["cycles"])
+        mean, var = m.predict(Xp)
+        err("dkl_loss", m.train_loss, TOL_DKL_LOSS_REL, rel=True)
+        for k, v in m.gp_params.items():
+            err(f"dkl_gp/{k}", v.detach().cpu().numpy(), TOL_DKL_ADAM)
+        err("dkl_mean", mean, TOL_DKL_MEAN)
+        err("dkl_var", var, TOL_DKL_VAR)
+        err("dkl_embed", m.embed(Xp), TOL_DKL_EMBED)
+        X2, y2, Xp2 = fx.gp2d_data()
+        for kind, kw in (("exact", {}), ("kissgp", {
+                "grid_points_ratio": fx.GP2D["grid_points_ratio"]})):
+            t = GPTrainer(device=device)
+            t.run(X2, y2, fx.GP2D["cycles"], print_loss=fx.GP2D["cycles"],
+                  kernel_type=kind, **kw)
+            mean, var = t.predict(Xp2)
+            err(f"gp_{kind}_loss", t.train_loss, TOL_GP_LOSS_REL, rel=True)
+            err(f"gp_{kind}_mean", mean, TOL_GP_PREDICT)
+            err(f"gp_{kind}_var", var, TOL_GP_PREDICT)
+        err("reconstruct", Reconstructor(device=device).reconstruct(
+            fx.reconstruct_image(), training_cycles=fx.RECONSTRUCT["cycles"],
+            print_loss=fx.RECONSTRUCT["cycles"]), TOL_RECONSTRUCT)
+    return errs, tols
+
+
+def phase_gp_fixture(device):
+    errs, tols = dklgp_fixture_run(device)
+    bad = failures(errs, tols)
+    check(not bad, f"GP fixture: {bad}")
+    emit("gp_fixture", errors=errs, tolerances=tols)
+
+
+def dkl_loss_grad(model, dtype):
+    """(loss, flat gradient over the GP parameters and the extractor's) of
+    a DKL model's training loss, computed by the trainer's own two-stage
+    backward on copies of its parameters and data in ``dtype``, float32
+    policy (TF32 off)."""
+    import torch
+    from atomai_tpu_torch.core import Precision
+    c = copy.copy(model)
+    c.fe = copy.deepcopy(model.fe).to(dtype)
+    for p in c.fe.parameters():
+        p.grad = None
+    c.gp_params = {k: v.detach().to(dtype).requires_grad_()
+                   for k, v in model.gp_params.items()}
+    c.X, c.y = model.X.to(dtype), model.y.to(dtype)
+    c.precision = Precision.full()
+    loss = c._loss_backward()
+    params = [*c.gp_params.values(), *c.fe.parameters()]
+    return (loss.item(), torch.cat([p.grad.reshape(-1) for p in params])
+            .double(), sum(p.numel() for p in c.gp_params.values()))
+
+
+def float64_check(model):
+    """The float32 loss and gradient against float64, with K's condition
+    number bound, 1 + N * outputscale / noise."""
+    import torch
+    from atomai_tpu_torch.trainers.gptrainer import _hyp
+    l32, g32, n_gp = dkl_loss_grad(model, torch.float32)
+    l64, g64, _ = dkl_loss_grad(model, torch.float64)
+    _, os_, noise, _ = _hyp({k: v.detach() for k, v in
+                             model.gp_params.items()})
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    out = {"loss_32": l32, "loss_64": l64,
+           "loss_rel_err": abs(l32 - l64) / abs(l64),
+           "grad_rel_err": rel(g32, g64),
+           "gp_grad_rel_err": rel(g32[:n_gp], g64[:n_gp]),
+           "fe_grad_rel_err": rel(g32[n_gp:], g64[n_gp:]),
+           "cond_bound": float(torch.max(
+               1 + model.X.shape[0] * os_ / noise)),
+           "gate": {"loss_rel": TOL_F64_LOSS_REL,
+                    "grad_rel": TOL_F64_GRAD_REL}}
+    check(out["loss_rel_err"] <= TOL_F64_LOSS_REL
+          and out["grad_rel_err"] <= TOL_F64_GRAD_REL,
+          f"float32 against float64: {out}")
+    return out
+
+
+def losses_ok(model, n):
+    losses = np.asarray(model.train_loss)
+    return (len(losses) == n and bool(np.isfinite(losses).all())
+            and losses[-1] < losses[0])
+
+
+def phase_dkl_path(device, n=GP_N, n_small=GP_N_SMALL, n_cand=GP_CAND):
+    """Bench config E whole, then the independent-output and ensemble
+    modes at ``n_small`` points."""
+    import warnings
+    from atomai_tpu_torch.models import dklGPR
+    rng = np.random.RandomState(0)
+    Xg = rng.randn(n, GP_DIM).astype(np.float32)
+    yg = (Xg[:, 0] + 0.1 * rng.randn(n)).astype(np.float32)
+    gp = dklGPR(GP_DIM, embedim=2, device=device)
+    with quiet():
+        fit_s, _ = timed(lambda: gp.fit(Xg, yg, training_cycles=GP_FIRST,
+                                        print_loss=GP_FIRST), device)
+        gp.training_cycles = GP_WARM
+        warm_s, warm_ms = timed(lambda: gp.run(print_loss=GP_FIRST), device)
+    check(losses_ok(gp, GP_FIRST + GP_WARM),
+          f"config E losses: {gp.train_loss}")
+    loss_first, loss_last = gp.train_loss[0], gp.train_loss[-1]
+    f64 = float64_check(gp)
+    ms_cycle = warm_ms / GP_WARM
+    with quiet():
+        gp.training_cycles = 1
+        split = device_split(lambda: gp.run(print_loss=1), device, reps=3)
+    busy = sum(split.values()) / 1e3 / ms_cycle
+
+    first_predict_s, _ = timed(lambda: gp.predict(Xg), device)
+    predict_train_ms = cuda_ms(lambda: gp.predict(Xg), 3, device)
+    Xf = rng.randn(n, GP_DIM).astype(np.float32)
+    predict_fresh_ms = cuda_ms(lambda: gp.predict(Xf), 3, device)
+    mean, var = gp.predict(Xf)
+    check(mean.shape == (n,) and var.shape == (n,)
+          and bool(np.isfinite(mean).all()) and bool((var > 0).all()),
+          "bad config E predict output")
+    corr = float(np.corrcoef(mean, Xf[:, 0])[0, 1])
+    Xc = Xf[:n_cand]
+    thompson_ms = cuda_ms(lambda: gp.thompson(Xc), 3, device)
+    sample, idx = gp.thompson(Xc)
+    check(sample.shape == (1, n_cand) and 0 <= int(idx[0]) < n_cand,
+          f"bad thompson output {sample.shape} {idx}")
+
+    # independent outputs and an ensemble, at n_small points
+    Xs, ys = Xg[:n_small], yg[:n_small]
+    Ys = np.stack([ys, -ys, Xs[:, 1], Xs[:, 0] + Xs[:, 1]])[:GP_OUTPUTS]
+    modes = {}
+    for name, shared in (("independent", False), ("ensemble", True)):
+        mm = dklGPR(GP_DIM, embedim=2, shared_embedding_space=shared,
+                    device=device)
+        with quiet(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            if name == "independent":
+                first_s, _ = timed(lambda: mm.fit(
+                    Xs, Ys, training_cycles=GP_FIRST, print_loss=GP_FIRST),
+                    device)
+            else:
+                first_s, _ = timed(lambda: mm.fit_ensemble(
+                    Xs, ys, training_cycles=GP_FIRST, n_models=GP_MODELS,
+                    print_loss=GP_FIRST), device)
+            _, ms = timed(lambda: mm.run(print_loss=GP_FIRST), device)
+            check(losses_ok(mm, 2 * GP_FIRST),
+                  f"{name} DKL losses: {mm.train_loss}")
+            losses = mm.train_loss[0], mm.train_loss[-1]
+            mm.training_cycles = 1
+            busy_us = sum(device_split(lambda: mm.run(print_loss=1), device,
+                                       reps=3).values())
+        b = GP_OUTPUTS if name == "independent" else GP_MODELS
+        m_, v_ = mm.predict(Xs[:256])
+        check(m_.shape == (b, 256) and bool(np.isfinite(m_).all()),
+              f"{name} DKL predict: {m_.shape}")
+        modes[name] = {"n": n_small, "members": b, "first_fit_s": first_s,
+                       "ms_per_cycle": ms / GP_FIRST,
+                       "device_busy_share": busy_us / 1e3 / (ms / GP_FIRST),
+                       "loss_first": losses[0], "loss_last": losses[1]}
+    emit("dkl_path", data=[list(Xg.shape), list(yg.shape)],
+         first_fit_s=fit_s, first_cycles=GP_FIRST, warm_cycles=GP_WARM,
+         warm_s_host=warm_s, ms_per_cycle=ms_cycle,
+         cycles_per_s=1e3 / ms_cycle, loss_first=loss_first,
+         loss_last=loss_last, float64_check=f64,
+         device_busy_share=busy,
+         top_kernels_us=dict(list(split.items())[:8]),
+         first_predict_s=first_predict_s,
+         predict_train_ms=predict_train_ms,
+         predict_fresh_ms=predict_fresh_ms,
+         fresh_mean_corr_x0=corr, thompson_ms=thompson_ms,
+         thompson_candidates=n_cand, thompson_idx=int(idx[0]),
+         thompson_finite=bool(np.isfinite(sample).all()), modes=modes)
+
+
+def sparse_test_image(size, share, seed=0):
+    """(sparse image, truth): ``share`` of the pixels of a sin-cos image
+    measured, the others 0."""
+    yy, xx = np.mgrid[:size, :size]
+    s = 3.0 * size / 20
+    true = (np.sin(yy / s) * np.cos(xx / s)).astype(np.float32)
+    idx = np.random.RandomState(seed).choice(
+        size * size, int(round(share * size * size)), replace=False)
+    img = np.zeros(size * size, np.float32)
+    img[idx] = true.ravel()[idx]
+    return img.reshape(size, size), true
+
+
+def phase_reconstruct(device, size=REC_SIZE, cycles=REC_CYCLES):
+    from atomai_tpu_torch.models import Reconstructor
+    cases = []
+    for share, gate in REC_CASES:
+        img, true = sparse_test_image(size, share)
+        rec = Reconstructor(device=device)
+        run = {}
+        with quiet():
+            secs, _ = timed(lambda: run.update(out=rec.reconstruct(
+                img, training_cycles=cycles, print_loss=cycles)), device)
+        out = run["out"]
+        mae = float(np.abs(out - true).mean())
+        check(out.shape == true.shape and bool(np.isfinite(out).all())
+              and mae < gate, f"reconstruct at {share}: MAE {mae}")
+        cases.append({"measured_share": share,
+                      "points": int(np.count_nonzero(img)),
+                      "kernel_type": rec.kernel_type,
+                      "inducing_points": (0 if rec.inducing_points is None
+                                          else len(rec.inducing_points)),
+                      "seconds": secs, "mae": mae, "gate": gate,
+                      "loss_first": rec.train_loss[0],
+                      "loss_last": rec.train_loss[-1]})
+    emit("reconstruct", size=size, cycles=cycles, cases=cases)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1657,6 +1942,9 @@ def main():
     phase_refine_fixture(device)
     phase_imspec_path(device)
     kernels[0]["ensemble_locate"] = phase_ensemble_path(device, trained_net)
+    phase_gp_fixture(device)
+    phase_dkl_path(device)
+    phase_reconstruct(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,12 +65,32 @@ batch 4, nb_filters 4 and layers (1, 1, 1, 1), on 12 frames of 32x32
 - ``member/<i>/params/...``, ``member/<i>/batch_stats/...``: each trained
   member.
 
+``tests/fixtures/torch_port_dklgp.npz`` holds three GP runs of the JAX
+package, float32 at the highest matmul precision, from data that
+:func:`dkl_fixture_data`, :func:`gp2d_data` and :func:`reconstruct_image`
+draw with numpy (not stored):
+- ``dkl_loss``, ``dkl_gp/...``, ``dkl_mean``, ``dkl_var``, ``dkl_embed``:
+  ``dklGPR(64, embedim=2)`` on 512 x 64 inputs with the full-width
+  extractor (64-1000-500-50-2) from numpy-drawn weights
+  (:func:`dkl_fe_params`, set after ``compile_trainer`` with Adam
+  restarted), 5 Adam(0.01) steps: the losses, the final raw GP
+  parameters, and ``predict`` and ``embed`` of 256 fresh points;
+- ``gp_<kernel_type>_loss``, ``_mean``, ``_var`` for 'exact' and
+  'kissgp' (``grid_points_ratio`` 0.25): ``GPTrainer`` on 400 points in
+  2D, 10 Adam(0.1) steps, and ``predict`` of 50 fresh points;
+- ``reconstruct``: ``Reconstructor.reconstruct`` of a 32 x 32 image with
+  half its pixels measured, 50 cycles (the exact path).
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
 ``tests/test_torch_nets.py``, ``tests/test_torch_vae.py``,
 ``tests/test_torch_seg_train_fixture.py``,
 ``tests/test_torch_imspec_fixture.py`` and ``tests/test_torch_ensemble.py``
 regenerate the contents and compare them with the files, so the fixtures
-cannot go stale.
+cannot go stale. ``tests/test_torch_dklgp_fixture.py`` holds the port to
+``torch_port_dklgp.npz`` without regenerating it (the JAX runs take about
+half a minute); ``tests/test_torch_gptrainer.py`` and
+``tests/test_torch_dklgpr.py`` hold the same code paths against the JAX
+package directly.
 """
 
 import os
@@ -100,6 +120,12 @@ ENSEMBLE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
                                 "torch_port_ensemble.npz")
 ENSEMBLE = dict(n_models=2, cycles=3, batch=4, nb_filters=4,
                 layers=(1, 1, 1, 1))
+DKLGP_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_port_dklgp.npz")
+DKL = dict(n=512, indim=64, embedim=2, hidden=(1000, 500, 50), cycles=5,
+           lr=0.01, n_predict=256)
+GP2D = dict(n=400, cycles=10, n_predict=50, grid_points_ratio=0.25)
+RECONSTRUCT = dict(size=32, cycles=50)
 
 
 def flatten(tree, prefix):
@@ -393,12 +419,106 @@ def make_ensemble_fixture():
     return out
 
 
+def dkl_fixture_data():
+    """(X (512, 64), y (512,), X_predict (256, 64)): config E's kind of
+    data (`bench.py:410-411`), numpy seed 1."""
+    rng = np.random.RandomState(1)
+    X = rng.randn(DKL["n"], DKL["indim"]).astype(np.float32)
+    y = (X[:, 0] + 0.1 * rng.randn(DKL["n"])).astype(np.float32)
+    Xp = rng.randn(DKL["n_predict"], DKL["indim"]).astype(np.float32)
+    return X, y, Xp
+
+
+def dkl_fe_params(seed=0):
+    """The full-width extractor's flax params (``Dense_i`` kernels
+    (in, out) and biases), drawn by :func:`seeded_variables`."""
+    dims = [DKL["indim"], *DKL["hidden"], DKL["embedim"]]
+    shapes = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        shapes[f"params/Dense_{i}/kernel"] = (a, b)
+        shapes[f"params/Dense_{i}/bias"] = (b,)
+    return unflatten(seeded_variables(shapes, seed), "params")
+
+
+def dkl_gp_init():
+    """The JAX ``dklGPTrainer``'s initial raw GP parameters for one
+    output (``init_gp_params(2, (1,))``): zeros."""
+    e = DKL["embedim"]
+    return {"raw_lengthscale": np.zeros((1, e), np.float32),
+            "raw_outputscale": np.zeros(1, np.float32),
+            "raw_noise": np.zeros(1, np.float32),
+            "mean_const": np.zeros(1, np.float32)}
+
+
+def gp2d_data():
+    """(X (400, 2), y, X_predict (50, 2)) of a smooth 2D function, numpy
+    seed 2."""
+    rng = np.random.RandomState(2)
+    X = rng.uniform(-2, 2, (GP2D["n"], 2)).astype(np.float32)
+    y = (np.sin(2 * X[:, 0]) * np.cos(X[:, 1])
+         + 0.05 * rng.randn(GP2D["n"])).astype(np.float32)
+    Xp = rng.uniform(-2, 2, (GP2D["n_predict"], 2)).astype(np.float32)
+    return X, y, Xp
+
+
+def reconstruct_image():
+    """A 32 x 32 sin-cos image with about half its pixels measured (the
+    others 0), numpy seed 3."""
+    n = RECONSTRUCT["size"]
+    yy, xx = np.mgrid[:n, :n]
+    true = np.sin(yy / 5.0) * np.cos(xx / 5.0)
+    mask = np.random.RandomState(3).rand(n, n) > 0.5
+    return np.where(mask, true, 0.0).astype(np.float32)
+
+
+def make_dklgp_fixture():
+    """The three GP runs of the JAX package on the CPU in float32."""
+    import contextlib
+    import io
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.models import Reconstructor, dklGPR
+    from atomai_tpu.trainers import GPTrainer
+
+    X, y, Xp = dkl_fixture_data()
+    out = {}
+    with jax.default_matmul_precision("highest"), \
+            contextlib.redirect_stdout(io.StringIO()):
+        m = dklGPR(DKL["indim"], embedim=DKL["embedim"])
+        m.compile_trainer(X, y, training_cycles=DKL["cycles"], lr=DKL["lr"])
+        m.fe_params = dkl_fe_params()
+        m.gp_params = dkl_gp_init()
+        m._train_params = {"gp": m.gp_params, "fe": m.fe_params}
+        m.opt_state = m.tx.init(m._train_params)
+        m.fit(X, y, DKL["cycles"], print_loss=DKL["cycles"])
+        mean, var = m.predict(Xp)
+        out.update({"dkl_loss": np.asarray(m.train_loss, np.float32),
+                    "dkl_mean": mean, "dkl_var": var,
+                    "dkl_embed": m.embed(Xp)})
+        out.update(flatten(jax.device_get(dict(m.gp_params)), "dkl_gp"))
+        X2, y2, Xp2 = gp2d_data()
+        for kind, kw in (("exact", {}), ("kissgp", {
+                "grid_points_ratio": GP2D["grid_points_ratio"]})):
+            t = GPTrainer()
+            t.run(X2, y2, GP2D["cycles"], print_loss=GP2D["cycles"],
+                  kernel_type=kind, **kw)
+            mean, var = t.predict(Xp2)
+            out.update({f"gp_{kind}_loss": np.asarray(t.train_loss),
+                        f"gp_{kind}_mean": mean, f"gp_{kind}_var": var})
+        out["reconstruct"] = Reconstructor().reconstruct(
+            reconstruct_image(), training_cycles=RECONSTRUCT["cycles"],
+            print_loss=RECONSTRUCT["cycles"])
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
                        (RVAE_FIXTURE, make_rvae_fixture),
                        (SEG_TRAIN_FIXTURE, make_seg_train_fixture),
                        (IMSPEC_FIXTURE, make_imspec_fixture),
-                       (ENSEMBLE_FIXTURE, make_ensemble_fixture)):
+                       (ENSEMBLE_FIXTURE, make_ensemble_fixture),
+                       (DKLGP_FIXTURE, make_dklgp_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -10,14 +10,21 @@ the card holds it.
 - config D's predictor: ``EnsemblePredictor`` of 4 Unets on 32 frames of
   512^2, each member layout ("map", "vmap");
 - ``ensemble_locate`` on those 4 x 32 maps: the one Locator run against
-  the per-frame DBSCAN clustering (host clock).
+  the per-frame DBSCAN clustering (host clock);
+- config E (`bench.py:409-429`): one training cycle of ``dklGPR(64,
+  embedim=2)`` on 10,000 x 64 inputs (the exact Cholesky GP), and
+  ``predict`` of the 10,000 training inputs; their device time split by
+  the op that launched it (the Cholesky factorisation, its backward, the
+  triangular solves and theirs, the rest).
 
 For each step: the host clock and CUDA-event milliseconds a call (after a
 warm-up), and from a ``torch.profiler`` trace the kernel time and the
 kernel launches a call and the largest kernels. Prints the card's name and
 power limit, then one JSON line a step. Needs a card:
 
-    python3 scripts/profile_port_paths.py
+    python3 scripts/profile_port_paths.py [B] [D] [E]
+
+(all three configurations when none is named).
 """
 
 import contextlib
@@ -59,9 +66,46 @@ def device_us(event) -> float:
     return 0.0
 
 
-def measure(name, step, timed, traced):
+# config E's device time by the op that launched it: the profiler's CPU
+# events of these names, with the device time of every kernel under them
+E_OPS = {
+    "cholesky": "aten::linalg_cholesky_ex",
+    "cholesky_backward": "LinalgCholeskyExBackward0",
+    "triangular_solve": "aten::linalg_solve_triangular",
+    "triangular_solve_backward": "LinalgSolveTriangularBackward0",
+}
+
+
+def device_us_total(event) -> float:
+    """Device time of a profiler entry with its children's."""
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, name):
+            return getattr(event, name)
+    return 0.0
+
+
+def op_split(prof, traced, ops):
+    """Device ms a call under each of ``ops``' CPU events, outermost calls
+    only (a solve inside a backward counts for the backward)."""
+    def label(e):
+        return next((k for k, n in ops.items() if e.name.endswith(n)), None)
+
+    out = dict.fromkeys(ops, 0.0)
+    for e in prof.events():
+        if label(e) is None:
+            continue
+        p = e.cpu_parent
+        while p is not None and label(p) is None:
+            p = p.cpu_parent
+        if p is None:
+            out[label(e)] += device_us_total(e) / 1e3 / traced
+    return out
+
+
+def measure(name, step, timed, traced, ops=None):
     """Times ``step(i)`` on the host clock and by CUDA events, traces it,
-    and prints one JSON line."""
+    and prints one JSON line; with ``ops``, the device time under each of
+    those ops too."""
     for i in range(3):
         step(i)
     torch.cuda.synchronize()
@@ -88,12 +132,17 @@ def measure(name, step, timed, traced):
                    for e in kernels), reverse=True)
     kernel_ms = sum(r[0] for r in rows)
     events_ms = start.elapsed_time(end) / timed
-    print(json.dumps({
+    line = {
         "step": name, "ms_host": host_ms, "ms_events": events_ms,
         "kernel_ms": kernel_ms, "launches": sum(r[1] for r in rows),
         "device_busy_share": kernel_ms / events_ms,
         "top": [[round(ms, 4), round(n, 1), key[:70]]
-                for ms, n, key in rows[:TOP]]}), flush=True)
+                for ms, n, key in rows[:TOP]]}
+    if ops:
+        line["by_op_ms"] = op_split(prof, traced, ops)
+        line["by_op_ms"]["rest"] = kernel_ms - sum(
+            line["by_op_ms"].values())
+    print(json.dumps(line), flush=True)
 
 
 def config_b():
@@ -161,6 +210,20 @@ def config_d():
                 lambda e, p=p: p.ensemble_batch_predict(x), 5, 3)
 
 
+def config_e():
+    from atomai_tpu_torch.models import dklGPR
+    rng = np.random.RandomState(0)
+    Xg = rng.randn(10000, 64).astype(np.float32)
+    yg = (Xg[:, 0] + 0.1 * rng.randn(10000)).astype(np.float32)
+    gp = dklGPR(64, embedim=2, device="cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        gp.fit(Xg, yg, training_cycles=5, print_loss=5)
+    measure("E_cycle", lambda e: gp._step(), 10, 3, E_OPS)
+    gp._compute_scale_stats()
+    gp._post_cache = None
+    measure("E_predict_10k", lambda e: gp.predict(Xg), 5, 2, E_OPS)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("profile_port_paths: torch sees no CUDA device")
@@ -168,8 +231,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    config_b()
-    config_d()
+    configs = {"B": config_b, "D": config_d, "E": config_e}
+    for name in sys.argv[1:] or list(configs):
+        configs[name]()
 
 
 if __name__ == "__main__":

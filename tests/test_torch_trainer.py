@@ -390,11 +390,29 @@ def _default_device_peak_refinement(tmp_path):
                            np.array([[8.0, 8.0, 0.0]]), d=3)
 
 
+def _default_device_dklgpr(tmp_path):
+    from atomai_tpu_torch.models import dklGPR
+    return dklGPR(4, embedim=2)
+
+
+def _default_device_gptrainer(tmp_path):
+    from atomai_tpu_torch.trainers import GPTrainer
+    return GPTrainer()
+
+
+def _default_device_reconstructor(tmp_path):
+    from atomai_tpu_torch.models import Reconstructor
+    return Reconstructor()
+
+
 @pytest.mark.parametrize("make", [_default_device_segmentor,
                                   _default_device_rvae,
                                   _default_device_load_model,
                                   _default_device_locator,
-                                  _default_device_peak_refinement])
+                                  _default_device_peak_refinement,
+                                  _default_device_dklgpr,
+                                  _default_device_gptrainer,
+                                  _default_device_reconstructor])
 def test_entry_points_default_to_the_card(make, tmp_path):
     """Without ``device``, an entry point runs on the card: with no card it
     raises instead of returning a model, or coordinates of numpy input,
