@@ -1,14 +1,26 @@
 """User-facing models, their loaders and the JAX weight bridge."""
 
-from .conversion import (dkl_from_jax, ensemble_from_jax,
-                         signal_ed_from_jax, unet_from_jax, vae_from_jax)
+from .classifier import Classifier
+from .conversion import (denoiser_from_jax, dkl_from_jax, ensemble_from_jax,
+                         fcnn_from_jax, reg_cls_from_jax, signal_ed_from_jax,
+                         unet_from_jax, vae_from_jax)
+from .denoiser import (DenoisingAutoencoder, denoise_images,
+                       init_denoising_autoencoder)
 from .dgm import VAE, rVAE
 from .dklgp import Reconstructor, dklGPR
 from .imspec import ImSpec
-from .loaders import load_ensemble, load_model
+from .loaders import (load_cls_model, load_denoising_autoencoder,
+                      load_ensemble, load_imspec_model, load_model,
+                      load_reg_model, load_seg_model, load_vae_model)
+from .regressor import Regressor
 from .segmentor import Segmentor
 
-__all__ = ["Segmentor", "ImSpec", "VAE", "rVAE", "load_model",
-           "load_ensemble", "unet_from_jax", "vae_from_jax",
-           "signal_ed_from_jax", "ensemble_from_jax", "dklGPR",
+__all__ = ["Segmentor", "ImSpec", "Regressor", "Classifier",
+           "DenoisingAutoencoder", "denoise_images",
+           "init_denoising_autoencoder", "VAE", "rVAE", "load_model",
+           "load_ensemble", "load_seg_model", "load_imspec_model",
+           "load_reg_model", "load_cls_model", "load_vae_model",
+           "load_denoising_autoencoder", "fcnn_from_jax", "unet_from_jax",
+           "vae_from_jax", "signal_ed_from_jax", "ensemble_from_jax",
+           "reg_cls_from_jax", "denoiser_from_jax", "dklGPR",
            "Reconstructor", "dkl_from_jax"]

@@ -6,28 +6,19 @@ the other way. The JAX ``params`` and
 ``batch_stats`` trees arrive as nested dicts of numpy arrays (e.g. from
 ``jax.device_get``). Conv kernels go HWIO -> OIHW (1D: WIO -> OIW); Dense
 kernels (in, out) -> (out, in); BatchNorm ``scale/bias/mean/var`` become
-``weight/bias/running_mean/running_var``. The nets covered: the Unet, the
-VAE family, SignalED (ImSpec), ensembles of the Unet or SignalED, and the
-DKL models' feature extractors and GP parameters. numpy and torch only.
+``weight/bias/running_mean/running_var``. The nets covered: the
+segmentation nets (Unet, dilated Unet, dilnet, SegResNet, ResHedNet), the
+VAE family, SignalED (ImSpec), ensembles of a segmentation net or SignalED,
+the denoiser, the regression and classification nets with every backbone
+(the torchvision name maps are the port's own copy of
+`atomai_tpu/models/conversion.py:546-612`), and the DKL models' feature
+extractors and GP parameters. numpy and torch only.
 """
 
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-
-# (port module, flax module) of the Unet without dilation
-_UNET_BLOCKS = [("c1", "ConvBlock_0"), ("c2", "ConvBlock_1"),
-                ("c3", "ConvBlock_2"), ("bn", "ConvBlock_3"),
-                ("upsample_block1", "UpsampleBlock_0"),
-                ("c4", "ConvBlock_4"),
-                ("upsample_block2", "UpsampleBlock_1"),
-                ("c5", "ConvBlock_5"),
-                ("upsample_block3", "UpsampleBlock_2"),
-                ("c6", "ConvBlock_6"), ("px", "Conv_0")]
-# the blocks that hold a Dropout layer when the Unet has dropout on
-_DROPOUT_BLOCKS = ("c3", "bn", "c4")
-
 
 _LAYOUT = {4: ((3, 2, 0, 1), "4D HWIO"), 3: ((2, 1, 0), "3D WIO")}
 
@@ -89,36 +80,135 @@ def _conv_block(p: Mapping[str, Any], s: Mapping[str, Any], dropout: bool,
     return out
 
 
+def _fcnn_layout(meta: Mapping[str, Any]):
+    """(description, [(port module, flax module, kind)], the port modules
+    that hold Dropout layers) of a segmentation net's metadict. Flax names
+    each module type in call order, so a dilated bottleneck shifts the
+    numbers of the Unet's later ConvBlocks."""
+    model = meta.get("model", "Unet")
+    dropout = bool(meta.get("dropout"))
+    if model == "Unet":
+        dil = bool(meta.get("with_dilation", False))
+        cb = [f"ConvBlock_{i}" for i in range(7)]
+        dec = cb[3:6] if dil else cb[4:7]
+        blocks = [("c1", cb[0], "block"), ("c2", cb[1], "block"),
+                  ("c3", cb[2], "block"),
+                  ("bn", "DilatedBlock_0", "dilated") if dil
+                  else ("bn", cb[3], "block"),
+                  ("upsample_block1", "UpsampleBlock_0", "upsample"),
+                  ("c4", dec[0], "block"),
+                  ("upsample_block2", "UpsampleBlock_1", "upsample"),
+                  ("c5", dec[1], "block"),
+                  ("upsample_block3", "UpsampleBlock_2", "upsample"),
+                  ("c6", dec[2], "block"), ("px", "Conv_0", "conv")]
+        return (("dilated" if dil else "plain") + " JAX Unet", blocks,
+                ("c3", "bn", "c4") if dropout else ())
+    if model == "dilnet":
+        return "JAX dilnet", [
+            ("c1", "ConvBlock_0", "block"), ("at1", "DilatedBlock_0",
+                                             "dilated"),
+            ("at2", "DilatedBlock_1", "dilated"),
+            ("up1", "UpsampleBlock_0", "upsample"),
+            ("c2", "ConvBlock_1", "block"), ("px", "Conv_0", "conv")], \
+            ("at1", "at2") if dropout else ()
+    if model == "SegResNet":
+        return "JAX SegResNet", [
+            ("c1", "ConvBlock_0", "block"), ("c2", "ResModule_0", "res"),
+            ("bn", "ResModule_1", "res"),
+            ("upsample_block1", "UpsampleBlock_0", "upsample"),
+            ("c3", "ResModule_2", "res"),
+            ("upsample_block2", "UpsampleBlock_1", "upsample"),
+            ("c4", "ConvBlock_1", "block"), ("px", "Conv_0", "conv")], ()
+    if model == "ResHedNet":
+        return "JAX ResHedNet", [
+            ("net1", "ResModule_0", "res"), ("net2", "ResModule_1", "res"),
+            ("net3", "ResModule_2", "res"), ("score1.0", "Conv_0", "conv"),
+            ("score1.1", "BatchNorm_0", "bn"), ("score2.0", "Conv_1", "conv"),
+            ("score2.1", "BatchNorm_1", "bn"), ("score3.0", "Conv_2", "conv"),
+            ("score3.1", "BatchNorm_2", "bn"), ("fuse", "Conv_3", "conv")], ()
+    raise ValueError(f"no weight bridge for a '{model}' segmentation net")
+
+
+def _res_module(p: Mapping[str, Any], s: Mapping[str, Any],
+                where: str) -> Dict[str, torch.Tensor]:
+    """A ResModule: ``ResBlock_i`` -> ``c0.i``; in each block ``Conv_0``
+    (the 1x1 projection), ``Conv_1``, ``BatchNorm_0``, ``Conv_2``,
+    ``BatchNorm_1`` -> ``c0``, ``c1``, ``bn1``, ``c2``, ``bn2``."""
+    out: Dict[str, torch.Tensor] = {}
+    n = sum(1 for k in p if k.startswith("ResBlock_"))
+    _expect(p, {f"ResBlock_{i}" for i in range(n)}, where)
+    for i in range(n):
+        bp, bs = p[f"ResBlock_{i}"], s.get(f"ResBlock_{i}", {})
+        w = f"{where}/ResBlock_{i}"
+        has_bn = "BatchNorm_0" in bp
+        _expect(bp, {"Conv_0", "Conv_1", "Conv_2"} | (
+            {"BatchNorm_0", "BatchNorm_1"} if has_bn else set()), w)
+        for name, flax in (("c0", "Conv_0"), ("c1", "Conv_1"),
+                           ("c2", "Conv_2")):
+            _put(out, f"c0.{i}.{name}", _conv(bp[flax], f"{w}/{flax}"))
+        if has_bn:
+            c = out[f"c0.{i}.c0.weight"].shape[0]
+            for name, flax in (("bn1", "BatchNorm_0"), ("bn2", "BatchNorm_1")):
+                _put(out, f"c0.{i}.{name}", _batch_norm(
+                    bp[flax], bs.get(flax, {}), c, f"{w}/{flax}"))
+    return out
+
+
+def _module(kind: str, p: Mapping[str, Any], s: Mapping[str, Any],
+            dropout: bool, where: str) -> Dict[str, torch.Tensor]:
+    """One module of a segmentation or denoising net, by ``kind``."""
+    if kind == "block":
+        return _conv_block(p, s, dropout, where)
+    if kind == "dilated":
+        return {"atrous_module" + k[len("block"):]: v for k, v in
+                _conv_block(p, s, dropout, where).items()}
+    if kind == "upsample":
+        return {f"conv.{k}": v for k, v in
+                _conv(p["Conv_0"], f"{where}/Conv_0").items()}
+    if kind == "res":
+        return _res_module(p, s, where)
+    if kind == "conv":
+        return _conv(p, where)
+    # a BatchNorm of its own (ResHedNet's score heads)
+    return _batch_norm(p, s, np.asarray(p["scale"]).shape[0], where)
+
+
+def fcnn_from_jax(params: Mapping[str, Any],
+                  batch_stats: Optional[Mapping[str, Any]],
+                  meta: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of a segmentation net (Unet with or
+    without a dilated bottleneck, dilnet, SegResNet, ResHedNet) from the
+    JAX net's ``params`` and ``batch_stats`` (nested dicts of arrays) and
+    its metadict (``model``, ``dropout``, ``with_dilation``; the keys of
+    ``init_fcnn_model``). ``dropout`` shifts the index of each layer in
+    the port's ``nn.Sequential`` blocks and leaves no trace in the
+    variables. Raises ``ValueError`` on a tree that does not fit the
+    metadict or whose shapes do not fit together."""
+    batch_stats = batch_stats or {}
+    desc, blocks, dropout_blocks = _fcnn_layout(meta)
+    expected = {flax for _, flax, _ in blocks}
+    if set(params) != expected:
+        raise ValueError(
+            f"not the params of a {desc}: unexpected "
+            f"{sorted(set(params) - expected)}, missing "
+            f"{sorted(expected - set(params))}")
+    state: Dict[str, torch.Tensor] = {}
+    for name, flax, kind in blocks:
+        _put(state, name, _module(kind, params[flax],
+                                  batch_stats.get(flax, {}),
+                                  name in dropout_blocks, flax))
+    return state
+
+
 def unet_from_jax(params: Mapping[str, Any],
                   batch_stats: Mapping[str, Any] = None,
                   dropout: bool = False) -> Dict[str, torch.Tensor]:
-    """The port's Unet ``state_dict`` from a JAX Unet's ``params`` and
-    ``batch_stats`` (nested dicts of arrays).
-
-    ``dropout`` says whether the Unet was built with dropout on: it shifts
-    the index of each layer in the port's ``nn.Sequential`` blocks and
-    leaves no trace in the variables. Raises ``ValueError`` on a tree that
-    is not a plain (undilated) Unet or whose shapes do not fit together.
-    """
-    batch_stats = batch_stats or {}
-    expected = {flax for _, flax in _UNET_BLOCKS}
-    if set(params) != expected:
-        raise ValueError(
-            "not the params of a plain JAX Unet: unexpected "
-            f"{sorted(set(params) - expected)}, missing "
-            f"{sorted(expected - set(params))}")
-    state = {}
-    for name, flax in _UNET_BLOCKS:
-        if flax.startswith("ConvBlock"):
-            sub = _conv_block(params[flax], batch_stats.get(flax, {}),
-                              dropout and name in _DROPOUT_BLOCKS, flax)
-        elif flax.startswith("UpsampleBlock"):
-            conv = _conv(params[flax]["Conv_0"], f"{flax}/Conv_0")
-            sub = {f"conv.{k}": v for k, v in conv.items()}
-        else:  # the 1x1 pixel head
-            sub = _conv(params[flax], flax)
-        state.update({f"{name}.{k}": v for k, v in sub.items()})
-    return state
+    """The port's Unet ``state_dict`` from a plain (undilated) JAX Unet's
+    ``params`` and ``batch_stats``: :func:`fcnn_from_jax` for that Unet.
+    Raises ``ValueError`` on a tree that is not a plain Unet or whose
+    shapes do not fit together."""
+    return fcnn_from_jax(params, batch_stats,
+                         {"model": "Unet", "dropout": dropout})
 
 
 def _dense(sub: Mapping[str, Any], where: str,
@@ -278,7 +368,7 @@ def ensemble_from_jax(ensemble: Mapping[Any, Any], meta: Mapping[str, Any]
     ``ensemble_state_dict``: members are ``{"params", "batch_stats"}``
     (each with its own BatchNorm statistics), or bare params for nets
     without BatchNorm. ``meta`` is the ensemble's metadict: ``model_type``
-    "seg" (a Unet) or "imspec" (a SignalED)."""
+    "seg" (a segmentation net) or "imspec" (a SignalED)."""
     kind = meta.get("model_type")
     if kind not in ("seg", "imspec"):
         raise ValueError(f"no weight bridge for a '{kind}' ensemble")
@@ -288,8 +378,8 @@ def ensemble_from_jax(ensemble: Mapping[Any, Any], meta: Mapping[str, Any]
             p, s = member["params"], member.get("batch_stats")
         else:
             p, s = member, None
-        out[int(k)] = (unet_from_jax(p, s, dropout=meta.get("dropout", False))
-                       if kind == "seg" else signal_ed_from_jax(p, s, meta))
+        out[int(k)] = (fcnn_from_jax(p, s, meta) if kind == "seg"
+                       else signal_ed_from_jax(p, s, meta))
     return dict(sorted(out.items()))
 
 
@@ -336,3 +426,137 @@ def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
     gp = {k: torch.from_numpy(np.array(gp_params[k], np.float32))
           for k in _GP_NAMES}
     return fe, gp
+
+
+def denoiser_from_jax(params: Mapping[str, Any],
+                      batch_stats: Optional[Mapping[str, Any]],
+                      meta: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``DenoiserNet`` ``state_dict`` from the JAX net's
+    ``params`` and ``batch_stats`` and the model's metadict
+    (``encoder_filters``, ``decoder_filters``). Flax numbers the
+    ConvBlocks in call order: the encoder's first, then the decoder's,
+    with ``UpsampleBlock_{i-1}`` before decoder block i > 0; ``Conv_0`` is
+    the head."""
+    batch_stats = batch_stats or {}
+    n_enc, n_dec = len(meta["encoder_filters"]), len(meta["decoder_filters"])
+    blocks = [(f"encoder.{i}", f"ConvBlock_{i}", "block")
+              for i in range(n_enc)]
+    for i in range(n_dec):
+        if i > 0:
+            blocks.append((f"upsample.{i - 1}", f"UpsampleBlock_{i - 1}",
+                           "upsample"))
+        blocks.append((f"decoder.{i}", f"ConvBlock_{n_enc + i}", "block"))
+    blocks.append(("out", "Conv_0", "conv"))
+    _expect(params, {flax for _, flax, _ in blocks}, "denoiser")
+    state: Dict[str, torch.Tensor] = {}
+    for name, flax, kind in blocks:
+        _put(state, name, _module(kind, params[flax],
+                                  batch_stats.get(flax, {}), False, flax))
+    return state
+
+
+def _resnet50_names():
+    """(torchvision key, flax path, kind) of ResNet50's layers."""
+    specs = [("conv1", ("conv1",), "conv"), ("bn1", ("bn1",), "bn")]
+    for li, nblocks in [(1, 3), (2, 4), (3, 6), (4, 3)]:
+        for b in range(nblocks):
+            base, blk = f"layer{li}.{b}", f"layer{li}_{b}"
+            for j in (1, 2, 3):
+                specs += [(f"{base}.conv{j}", (blk, f"conv{j}"), "conv"),
+                          (f"{base}.bn{j}", (blk, f"bn{j}"), "bn")]
+            if b == 0:
+                specs += [(f"{base}.downsample.0", (blk, "downsample_conv"),
+                           "conv"),
+                          (f"{base}.downsample.1", (blk, "downsample_bn"),
+                           "bn")]
+    return specs
+
+
+def _vgg16_names():
+    """vgg16.features' convs by Sequential index."""
+    return [(str(i), (f"conv{i}",), "conv")
+            for i in (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)]
+
+
+def _mobilenet_v2_names():
+    """mobilenet_v2.features: 0 the stem, 1-17 the inverted residuals
+    (no expansion in the first), 18 the 1x1 head."""
+    specs = [("0.0", ("stem_conv",), "conv"), ("0.1", ("stem_bn",), "bn")]
+    bi = 1
+    for t, n in [(1, 1), (6, 2), (6, 3), (6, 4), (6, 3), (6, 3), (6, 1)]:
+        for _ in range(n):
+            blk = f"block{bi}"
+            parts = [] if t == 1 else [("conv.0.0", "pw"),
+                                       ("conv.0.1", "pw_bn")]
+            d = 0 if t == 1 else 1
+            parts += [(f"conv.{d}.0", "dw"), (f"conv.{d}.1", "dw_bn"),
+                      (f"conv.{d + 1}", "project"),
+                      (f"conv.{d + 2}", "project_bn")]
+            specs += [(f"{bi}.{k}", (blk, f), "bn" if f.endswith("_bn")
+                       else "conv") for k, f in parts]
+            bi += 1
+    return specs + [("18.0", ("head_conv",), "conv"),
+                    ("18.1", ("head_bn",), "bn")]
+
+
+BACKBONE_NAMES = {"resnet": _resnet50_names, "vgg": _vgg16_names,
+                  "mobilenet": _mobilenet_v2_names}
+
+
+def _backbone(p: Mapping[str, Any], s: Mapping[str, Any],
+              backbone: str) -> Dict[str, torch.Tensor]:
+    """A ``ConvBackbone``'s ``state_dict`` from its JAX variables."""
+    out: Dict[str, torch.Tensor] = {}
+    if backbone in BACKBONE_NAMES:
+        _expect(p, {"features"}, "ConvBackbone_0")
+        p, s = p["features"], s.get("features", {})
+        for key, path, kind in BACKBONE_NAMES[backbone]():
+            sub_p, sub_s = p, s
+            for part in path:
+                sub_p, sub_s = sub_p[part], sub_s.get(part, {})
+            where = "features/" + "/".join(path)
+            _put(out, f"features.{key}", _conv(sub_p, where)
+                 if kind == "conv" else _batch_norm(
+                     sub_p, sub_s, np.asarray(sub_p["scale"]).shape[0],
+                     where))
+        return out
+    n = sum(1 for k in p if k.startswith("Conv_"))
+    _expect(p, {f"{k}_{i}" for i in range(n)
+                for k in ("Conv", "BatchNorm")}, "ConvBackbone_0")
+    for i in range(n):
+        conv = _conv(p[f"Conv_{i}"], f"ConvBackbone_0/Conv_{i}")
+        _put(out, f"convs.{i}", conv)
+        _put(out, f"bns.{i}", _batch_norm(
+            p[f"BatchNorm_{i}"], s.get(f"BatchNorm_{i}", {}),
+            conv["weight"].shape[0], f"ConvBackbone_0/BatchNorm_{i}"))
+    return out
+
+
+def reg_cls_from_jax(params: Mapping[str, Any],
+                     batch_stats: Optional[Mapping[str, Any]],
+                     meta: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``RegressorNet``, ``ClassifierNet`` or
+    ``MultiTaskClassifierNet`` ``state_dict`` from the JAX net's ``params``
+    and ``batch_stats`` and the model's metadict (``model_type`` "reg" or
+    "cls", ``backbone``; ``nb_classes`` a list for multitask). The
+    torchvision backbones' variables go through :data:`BACKBONE_NAMES`,
+    the slim presets' ``Conv_i``/``BatchNorm_i`` to ``convs.i``/``bns.i``;
+    ``Dense_t`` is head t."""
+    batch_stats = batch_stats or {}
+    kind = meta.get("model_type")
+    if kind == "reg":
+        heads = ["output_layer"]
+    elif kind == "cls":
+        nb = meta["nb_classes"]
+        heads = ([f"output_layers.{t}.0" for t in range(len(nb))]
+                 if isinstance(nb, (list, tuple)) else ["output_layer.0"])
+    else:
+        raise ValueError(f"no weight bridge for a '{kind}' model")
+    _expect(params, {"ConvBackbone_0"} | {f"Dense_{t}" for t in
+                                          range(len(heads))}, "reg/cls")
+    state = {f"backbone.{k}": v for k, v in _backbone(
+        params["ConvBackbone_0"], batch_stats.get("ConvBackbone_0", {}),
+        meta.get("backbone", "mobilenet")).items()}
+    for t, name in enumerate(heads):
+        _put(state, name, _dense(params[f"Dense_{t}"], f"Dense_{t}"))
+    return state

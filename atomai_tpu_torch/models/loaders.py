@@ -1,12 +1,15 @@
 """Model loading from the port's own checkpoints.
 
-Counterpart of `atomai_tpu/models/loaders.py:30-118, 161-208` for the
-model types the port has: ``seg`` (Segmentor), ``imspec`` (ImSpec) and
-``vae`` (VAE, rVAE), and ensembles of Segmentor or ImSpec nets
-(:func:`load_ensemble`). The model is rebuilt from the constructor
-arguments in the file's metadict, then its weights are loaded. Other model
-types and the JAX package's ``.aoi`` files (msgpack payload) are ROADMAP
-Queue 1 #20.
+Counterpart of `atomai_tpu/models/loaders.py:30-208` for the model types
+the port has: ``seg`` (Segmentor, any of its nets), ``imspec`` (ImSpec),
+``reg`` (Regressor), ``cls`` (Classifier), ``denoising_autoencoder``
+(DenoisingAutoencoder) and ``vae`` (VAE, rVAE), and ensembles of
+segmentation or ImSpec nets (:func:`load_ensemble`). The model is rebuilt
+from the constructor arguments in the file's metadict, then its weights
+are loaded. A Segmentor of a user's module ("custom") cannot be rebuilt
+from a metadict: load its weights into the module with ``load_weights``.
+The JAX package's ``.aoi`` files (msgpack payload) are ROADMAP Queue 1
+#20.
 """
 
 from typing import Any, Dict, Mapping, Tuple
@@ -19,6 +22,8 @@ from ..core.device import resolve_device
 _NOT_PORTED = "ROADMAP Queue 1 #20"
 _SEG_KEYS = ("batch_norm", "dropout", "with_dilation", "nb_filters",
              "layers", "upsampling")
+_DENOISER_KEYS = ("encoder_filters", "decoder_filters", "encoder_layers",
+                  "decoder_layers", "use_batch_norm", "upsampling_mode")
 _IMSPEC_KEYS = ("nblayers_encoder", "nblayers_decoder", "nbfilters_encoder",
                 "nbfilters_decoder", "encoder_downsampling",
                 "decoder_upsampling")
@@ -40,6 +45,10 @@ def load_model(filepath: str, device: str = "cuda"):
             f"package's .aoi files is {_NOT_PORTED}")
     meta, arrays = load_checkpoint(filepath)
     model_type = meta.get("model_type")
+    if model_type == "seg" and meta.get("model") == "custom":
+        raise NotImplementedError(
+            "a Segmentor of a custom module cannot be rebuilt from its "
+            "metadict: build Segmentor(module) and call load_weights")
     if model_type == "seg":
         from .segmentor import Segmentor
         net_kwargs = {k: meta[k] for k in _SEG_KEYS
@@ -55,6 +64,24 @@ def load_model(filepath: str, device: str = "cuda"):
         model = ImSpec(tuple(meta["in_dim"]), tuple(meta["out_dim"]),
                        meta.get("latent_dim", 2), device=device,
                        **_imspec_kwargs(meta))
+        model.net.load_state_dict(arrays["params"])
+        model.meta_state_dict = dict(meta)
+        return model
+    if model_type in ("reg", "cls"):
+        from .classifier import Classifier
+        from .regressor import Regressor
+        model = (Regressor if model_type == "reg" else Classifier)(
+            meta.get("backbone", "mobilenet"),
+            meta["out_dim" if model_type == "reg" else "nb_classes"],
+            input_channels=meta.get("in_channels", 1), device=device)
+        model.net.load_state_dict(arrays["params"])
+        model.meta_state_dict = dict(meta)
+        return model
+    if model_type == "denoising_autoencoder":
+        from .denoiser import DenoisingAutoencoder
+        model = DenoisingAutoencoder(
+            **{k: meta[k] for k in _DENOISER_KEYS if k in meta},
+            device=device)
         model.net.load_state_dict(arrays["params"])
         model.meta_state_dict = dict(meta)
         return model
@@ -86,8 +113,47 @@ def load_model(filepath: str, device: str = "cuda"):
             model.current_epoch = int(meta["num_epochs"])
         model.update_metadict()
         return model
-    raise NotImplementedError(
-        f"loading a '{model_type}' model is not ported yet ({_NOT_PORTED})")
+    raise ValueError(f"Unknown model type in checkpoint: {model_type}")
+
+
+def _load_typed(filepath: str, expected: str, kind: str, device: str):
+    model = load_model(filepath, device)
+    if model.meta_state_dict.get("model_type") != expected:
+        raise ValueError(f"Checkpoint holds a "
+                         f"'{model.meta_state_dict.get('model_type')}' "
+                         f"model, not a {kind} model")
+    return model
+
+
+def load_seg_model(filepath: str, device: str = "cuda"):
+    """A Segmentor from its ``.aoit`` file; other model types raise."""
+    return _load_typed(filepath, "seg", "segmentation", device)
+
+
+def load_imspec_model(filepath: str, device: str = "cuda"):
+    """An ImSpec model from its ``.aoit`` file."""
+    return _load_typed(filepath, "imspec", "imspec", device)
+
+
+def load_reg_model(filepath: str, device: str = "cuda"):
+    """A Regressor from its ``.aoit`` file."""
+    return _load_typed(filepath, "reg", "regression", device)
+
+
+def load_cls_model(filepath: str, device: str = "cuda"):
+    """A Classifier from its ``.aoit`` file."""
+    return _load_typed(filepath, "cls", "classification", device)
+
+
+def load_vae_model(filepath: str, device: str = "cuda"):
+    """A VAE or rVAE from its ``.aoit`` file."""
+    return _load_typed(filepath, "vae", "VAE", device)
+
+
+def load_denoising_autoencoder(filepath: str, device: str = "cuda"):
+    """A DenoisingAutoencoder from its ``.aoit`` file."""
+    return _load_typed(filepath, "denoising_autoencoder", "denoiser",
+                       device)
 
 
 def _skeleton(meta: Mapping[str, Any]) -> nn.Module:

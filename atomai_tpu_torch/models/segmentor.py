@@ -14,7 +14,7 @@ from ..core.checkpoint import load_checkpoint
 from ..predictors import SegPredictor
 from ..trainers import SegTrainer
 from ..transforms import seg_augmentor
-from .conversion import unet_from_jax
+from .conversion import fcnn_from_jax
 
 
 class Segmentor(SegTrainer):
@@ -25,10 +25,14 @@ class Segmentor(SegTrainer):
         >>> m.fit(imgs, masks, training_cycles=300, batch_size=32)
         >>> nn_output, coordinates = m.predict(imgs, refine=True, d=4)
 
-    Keyword args: ``seed`` (weights, batch order and every random draw of
-    ``fit``; default 1), ``batch_seed``, ``device`` ("cuda", the default,
-    needs a card and raises without one; "cpu" when asked for), and the net's ``nb_filters``,
-    ``layers``, ``batch_norm``, ``dropout``, ``upsampling``.
+    ``model`` is "Unet" (``with_dilation`` for a dilated bottleneck),
+    "dilnet", "SegResNet", "ResHedNet", or a user's ``nn.Module`` from
+    NCHW images to NCHW logits (it keeps its weights). Keyword args:
+    ``seed`` (weights, batch order and every random draw of ``fit``;
+    default 1), ``batch_seed``, ``device`` ("cuda", the default, needs a
+    card and raises without one; "cpu" when asked for), and the net's
+    ``nb_filters``, ``layers``, ``batch_norm``, ``dropout``,
+    ``upsampling``, ``with_dilation``.
     """
 
     def fit(self, X_train, y_train, X_test=None, y_test=None,
@@ -67,9 +71,7 @@ class Segmentor(SegTrainer):
     def load_jax_variables(self, params: Mapping[str, Any],
                            batch_stats: Optional[Mapping[str, Any]] = None
                            ) -> None:
-        """Loads a JAX Unet's variables (nested dicts of numpy arrays);
+        """Loads the JAX net's variables (nested dicts of numpy arrays);
         afterwards both packages compute the same function."""
-        state = unet_from_jax(params, batch_stats,
-                              dropout=self.meta_state_dict.get("dropout",
-                                                               False))
-        self.net.load_state_dict(state, strict=True)
+        self.net.load_state_dict(fcnn_from_jax(
+            params, batch_stats, self.meta_state_dict), strict=True)

@@ -1,11 +1,17 @@
-"""Building blocks of the segmentation and im2spec nets (NCHW / NCL).
+"""Building blocks of the segmentation, im2spec, denoising and
+regression/classification nets (NCHW / NCL).
 
-Counterpart of `atomai_tpu/nets/blocks.py:104-161, 219-264, 323-327`:
+Counterpart of `atomai_tpu/nets/blocks.py:104-327`:
 - ConvBlock: [conv -> (dropout) -> LeakyReLU(0.01) -> (BatchNorm)] x n, 1D
   or 2D,
+- UpsampleBlock: 2x interpolation (bilinear / nearest) + 1x1 conv,
+- ResBlock / ResModule: 1x1 in-projection (the residual), two 3x3 convs
+  each with BatchNorm, the skip add, LeakyReLU; a stack of them,
 - DilatedBlock: a cascade of dilated convs whose forward returns the sum of
   every sub-layer's output,
-- UpsampleBlock: 2x interpolation (bilinear / nearest) + 1x1 conv,
+- ConvBackbone: a feature extractor + global average pool -> (batch,
+  features): the torchvision topologies of ``backbones.py`` or the
+  ``*-slim`` strided conv stacks,
 - max_pool: 2x2 window, stride 2;
 - Dropout: ``nn.Dropout`` that draws its mask from an explicit generator.
 
@@ -15,7 +21,8 @@ default init of ``nn.Conv2d`` and ``nn.Linear`` is the distribution the JAX
 package imitates (`atomai_tpu/nets/blocks.py:72-101` ``init_kwargs``):
 ``kaiming_uniform(a=sqrt(5))`` weights, i.e. U(+-sqrt(1/fan_in)), and
 U(+-1/sqrt(fan_in)) biases. :func:`init_weights_` redraws both from an
-explicit generator.
+explicit generator; a module with an ``init_weights_`` method of its own
+(the torchvision backbones) draws itself.
 """
 
 import math
@@ -23,6 +30,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .backbones import BACKBONE_FEATURES
 
 
 class Dropout(nn.Dropout):
@@ -141,6 +150,97 @@ class UpsampleBlock(nn.Module):
         return self.conv(x)
 
 
+class ResBlock(nn.Module):
+    """1x1 in-projection (also the residual), then [3x3 conv -> (BatchNorm)
+    -> LeakyReLU] and [3x3 conv -> (BatchNorm)], the skip add, LeakyReLU
+    (`atomai_tpu/nets/blocks.py:164-199`); 1D or 2D."""
+
+    def __init__(self, ndim: int, input_channels: int, output_channels: int,
+                 batch_norm: bool = True, lrelu_a: float = 0.01):
+        super().__init__()
+        if ndim not in _CONV:
+            raise AssertionError("ndim must be 1 or 2")
+        conv, c = _CONV[ndim], output_channels
+        self.lrelu_a = lrelu_a
+        self.c0 = conv(input_channels, c, 1)
+        self.c1 = conv(c, c, 3, padding=1)
+        self.bn1 = _BATCH_NORM[ndim](c) if batch_norm else nn.Identity()
+        self.c2 = conv(c, c, 3, padding=1)
+        self.bn2 = _BATCH_NORM[ndim](c) if batch_norm else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.c0(x)
+        out = F.leaky_relu(self.bn1(self.c1(x)), self.lrelu_a)
+        out = self.bn2(self.c2(out))
+        return F.leaky_relu(out + x, self.lrelu_a)
+
+
+class ResModule(nn.Module):
+    """A stack of ``res_depth`` residual blocks
+    (`atomai_tpu/nets/blocks.py:202-216`)."""
+
+    def __init__(self, ndim: int, res_depth: int, input_channels: int,
+                 output_channels: int, batch_norm: bool = True,
+                 lrelu_a: float = 0.01):
+        super().__init__()
+        self.c0 = nn.Sequential(*[
+            ResBlock(ndim, input_channels if i == 0 else output_channels,
+                     output_channels, batch_norm, lrelu_a)
+            for i in range(res_depth)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c0(x)
+
+
+class ConvBackbone(nn.Module):
+    """A backbone + global average pool -> (batch, ``in_features``)
+    (`atomai_tpu/nets/blocks.py:267-322`).
+
+    "resnet", "vgg" and "mobilenet" are the torchvision topologies of
+    ``backbones.py`` (``self.features``), in float32 outside autocast, as
+    the JAX modules carry no compute dtype. The ``*-slim`` presets are a
+    3x3/2 stem conv (BatchNorm, LeakyReLU) then one 3x3/2 conv, BatchNorm
+    and LeakyReLU per width (``convs``, ``bns``). Precision as in the JAX
+    package: the convs and the stem's BatchNorm in the compute dtype, the
+    loop's BatchNorms (no ``dtype`` there) in float32.
+    """
+
+    PRESETS = {
+        "mobilenet-slim": (32, (64, 128, 256, 1280)),
+        "resnet-slim": (64, (256, 512, 1024, 2048)),
+        "vgg-slim": (64, (128, 256, 512, 512)),
+    }
+
+    def __init__(self, backbone_type: str = "mobilenet",
+                 input_channels: int = 1):
+        super().__init__()
+        self.backbone_type = backbone_type
+        self.features = None
+        if backbone_type in BACKBONE_FEATURES:
+            self.features = BACKBONE_FEATURES[backbone_type](input_channels)
+            self.in_features = self.features.in_features
+            return
+        if backbone_type not in self.PRESETS:
+            raise ValueError(
+                "Unsupported backbone_type. Choose 'resnet', 'vgg', "
+                "'mobilenet' or a '*-slim' variant.")
+        stem, widths = self.PRESETS[backbone_type]
+        chans = [input_channels, stem, *widths]
+        self.convs = nn.ModuleList(nn.Conv2d(a, b, 3, 2, 1)
+                                   for a, b in zip(chans, chans[1:]))
+        self.bns = nn.ModuleList(nn.BatchNorm2d(c) for c in chans[1:])
+        self.in_features = widths[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.features is not None:
+            with torch.autocast(x.device.type, enabled=False):
+                return self.features(x.float()).mean((2, 3))
+        x = F.leaky_relu(self.bns[0](self.convs[0](x)), 0.01)
+        for conv, bn in zip(self.convs[1:], self.bns[1:]):
+            x = F.leaky_relu(bn(conv(x).float()), 0.01)
+        return x.mean((2, 3))
+
+
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2
              ) -> torch.Tensor:
     """Max pooling over the spatial dims (VALID, as flax's ``max_pool``)."""
@@ -161,16 +261,22 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     U(+-1/sqrt(fan_in)) with ``generator`` (torch's default init, drawn
     reproducibly, on any device) and resets BatchNorm to identity
     statistics. A linear layer without bias (the rVAE's ``fc_latent``)
-    draws its weight only."""
-    for m in module.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
-            if isinstance(m, nn.Linear):
-                fan_in = m.in_features
-            else:
-                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
-            bound = 1.0 / math.sqrt(fan_in)
-            _uniform_(m.weight, bound, generator)
-            if m.bias is not None:
-                _uniform_(m.bias, bound, generator)
-        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
-            m.reset_parameters()
+    draws its weight only. A module with its own ``init_weights_`` method
+    (the torchvision backbones) draws itself, in the same order."""
+    m = module
+    if callable(getattr(m, "init_weights_", None)):
+        m.init_weights_(generator)
+        return
+    if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        if isinstance(m, nn.Linear):
+            fan_in = m.in_features
+        else:
+            fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+        bound = 1.0 / math.sqrt(fan_in)
+        _uniform_(m.weight, bound, generator)
+        if m.bias is not None:
+            _uniform_(m.bias, bound, generator)
+    elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+        m.reset_parameters()
+    for child in m.children():
+        init_weights_(child, generator)

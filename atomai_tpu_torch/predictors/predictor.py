@@ -1,6 +1,6 @@
 """Inference and post-processing to atomic coordinates.
 
-Counterpart of `atomai_tpu/predictors/predictor.py:57-401, 455-563`:
+Counterpart of `atomai_tpu/predictors/predictor.py:57-452, 455-563`:
 
 - :class:`BasePredictor`: eval-mode forward in chunks, under the device's
   precision policy;
@@ -8,6 +8,8 @@ Counterpart of `atomai_tpu/predictors/predictor.py:57-401, 455-563`:
   bottom/right to the net's downsample factor, min-max normalise over the
   whole stack), forward, sigmoid/softmax; NHWC maps out;
 - :class:`ImSpecPredictor`: images to spectra or spectra to images;
+- :class:`RegPredictor`, :class:`clsPredictor`: images to values, and to
+  class labels (the argmax);
 - :class:`Locator`: background channel for one-class output, threshold,
   connected-component labels and centres of mass for all frames at once,
   edge removal, and with ``refine`` a batched 2D-Gaussian fit of every
@@ -220,6 +222,58 @@ class ImSpecPredictor(BasePredictor):
                   str(np.around(time.time() - start_time, decimals=4)) +
                   " seconds")
         return prediction
+
+
+class RegPredictor(BasePredictor):
+    """Regression predictor (counterpart of
+    `atomai_tpu/predictors/predictor.py:404-437`): images (N?, H, W[, 1])
+    min-max normalised over the whole set unless ``norm=False``, then
+    (n, ``output_dim``) values as numpy, squeezed."""
+
+    def __init__(self, model: nn.Module, output_dim: int, **kwargs):
+        super().__init__(model, **kwargs)
+        self.output_dim = output_dim
+        self.verbose = kwargs.get("verbose", True)
+
+    def preprocess(self, image_data, norm: bool = True) -> torch.Tensor:
+        """NCHW float32 tensor on the device."""
+        image_data = np.asarray(image_data)
+        if image_data.ndim == 2:
+            image_data = image_data[None, ...]
+        x = torch.from_numpy(format_image(image_data, norm))
+        return x.permute(0, 3, 1, 2).to(self.device)
+
+    def forward_all(self, image_data, **kwargs) -> np.ndarray:
+        x = self.preprocess(image_data, kwargs.get("norm", True))
+        y = self.batch_forward(x, kwargs.get("num_batches", 10))
+        return y.float().cpu().numpy().reshape(len(x), self.output_dim)
+
+    def predict(self, image_data, **kwargs) -> np.ndarray:
+        return self.forward_all(image_data, **kwargs).squeeze()
+
+    def run(self, image_data, **kwargs) -> np.ndarray:
+        start_time = time.time()
+        prediction = self.predict(image_data, **kwargs)
+        if self.verbose:
+            n_images = 1 if prediction.ndim == 0 else prediction.shape[0]
+            print("\n" + str(n_images) + (" image was " if n_images == 1
+                                          else " images were ") +
+                  "decoded in approximately " +
+                  str(np.around(time.time() - start_time, decimals=4)) +
+                  " seconds")
+        return prediction
+
+
+class clsPredictor(RegPredictor):
+    """Classification predictor (counterpart of
+    `atomai_tpu/predictors/predictor.py:440-452`): the argmax class of each
+    image."""
+
+    def __init__(self, model: nn.Module, nb_classes: int, **kwargs):
+        super().__init__(model, nb_classes, **kwargs)
+
+    def predict(self, image_data, **kwargs) -> np.ndarray:
+        return np.argmax(self.forward_all(image_data, **kwargs), 1).squeeze()
 
 
 class Locator:

@@ -283,7 +283,8 @@ class BaseEnsembleTrainer(BaseTrainer):
 
 
 class EnsembleTrainer(BaseEnsembleTrainer):
-    """Deep-ensemble trainer of Segmentor nets ("Unet"), ImSpec nets
+    """Deep-ensemble trainer of segmentation nets ("Unet", "dilnet",
+    "SegResNet", "ResHedNet", with ``init_fcnn_model``'s kwargs), ImSpec nets
     ("imspec", with ``in_dim``, ``out_dim`` and ``latent_dim``) or a custom
     ``nn.Module`` that takes the staged batches as they are.
 
@@ -331,7 +332,7 @@ class EnsembleTrainer(BaseEnsembleTrainer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         """Segmentation: NHWC batch -> channel-last float32 logits (the
-        Unet is NCHW); other tasks: the net's output of the batch."""
+        nets are NCHW); other tasks: the net's output of the batch."""
         if self._task != "seg":
             return super().forward(X)
         with self.precision.scope(self.device):

@@ -1,6 +1,7 @@
-"""Supervised training engine, the segmentation and the im2spec trainers.
+"""Supervised training engine, the segmentation, im2spec, regression and
+classification trainers.
 
-Counterpart of `atomai_tpu/trainers/trainer.py:40-909` with one engine: a
+Counterpart of `atomai_tpu/trainers/trainer.py:40-974` with one engine: a
 Python loop of eager steps, in place of the JAX package's scan/loop pair
 (which exists because XLA:CPU runs scan bodies single-threaded). What it
 keeps:
@@ -45,7 +46,8 @@ from ..core.mlog import open_metrics_log
 from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
 from ..losses_metrics import iou_score, select_loss
-from ..nets import Dropout, init_fcnn_model, init_imspec_model, init_weights_
+from ..nets import (Dropout, init_cls_model, init_fcnn_model,
+                    init_imspec_model, init_reg_model, init_weights_)
 from ..utils import preproc
 
 
@@ -460,22 +462,25 @@ class SegTrainer(BaseTrainer):
     """Semantic segmentation trainer (counterpart of
     `atomai_tpu/trainers/trainer.py:837-877`).
 
-    The net is built, and its weights drawn from ``seed``, at
+    The net ("Unet", "dilnet", "SegResNet", "ResHedNet", or a user's
+    ``nn.Module`` from NCHW images to NCHW logits, which keeps its own
+    weights) is built, and its weights drawn from ``seed``, at
     construction (the JAX package draws them when it compiles). Keyword
     args: ``seed`` (default 1), ``batch_seed`` (default ``seed``),
     ``device`` ("cuda", the default, raises without a card; "cpu" when
     asked for), and the net's.
     """
 
-    def __init__(self, model: str = "Unet", nb_classes: int = 1,
-                 **kwargs: Any):
+    def __init__(self, model: Union[str, nn.Module] = "Unet",
+                 nb_classes: int = 1, **kwargs: Any):
         seed = kwargs.get("seed", 1)
         super().__init__(seed=seed, device=kwargs.get("device", "cuda"))
         self.batch_seed = kwargs.get("batch_seed", seed)
         self.nb_classes = nb_classes
         self.net, self.meta_state_dict = init_fcnn_model(
             model, nb_classes, **kwargs)
-        init_weights_(self.net, generator_from_seed(seed))
+        if isinstance(model, str):   # a user's module keeps its weights
+            init_weights_(self.net, generator_from_seed(seed))
         self.net.to(self.device).eval()
 
     def set_data(self, X_train, y_train, X_test=None, y_test=None,
@@ -545,3 +550,82 @@ class ImSpecTrainer(BaseTrainer):
                 "the height, width and length (for spectra) of training")
         self._stage_batches(*(np.asarray(a, np.float32) for a in
                               (X_train, y_train, X_test, y_test)))
+
+
+class _ImageTrainer(BaseTrainer):
+    """Shared by the regression and classification trainers: an image net
+    built at construction with its weights drawn from ``seed``, NHWC
+    batches fed to it as NCHW, the given or the default split (test_size
+    0.15)."""
+
+    def __init__(self, init_model: Callable, out: Any, backbone: str,
+                 **kwargs: Any):
+        seed = kwargs.get("seed", 1)
+        super().__init__(seed=seed, device=kwargs.get("device", "cuda"))
+        self.batch_seed = kwargs.get("batch_seed", seed)
+        self.net, self.meta_state_dict = init_model(
+            out, backbone, kwargs.get("input_channels", 1))
+        init_weights_(self.net, generator_from_seed(seed))
+        self.net.to(self.device).eval()
+
+    def _images(self, *arrays) -> List[np.ndarray]:
+        return [preproc.as_channel_last_images(np.asarray(a, np.float32))
+                for a in arrays]
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        """NHWC batch -> the net's float32 output."""
+        with self.precision.scope(self.device):
+            out = self.net(X.permute(0, 3, 1, 2))
+        return out.float()
+
+
+class RegTrainer(_ImageTrainer):
+    """Image -> vector regression trainer (counterpart of
+    `atomai_tpu/trainers/trainer.py:911-941`): 1-D targets become (n, 1).
+    Keyword args: ``seed``, ``batch_seed``, ``device`` (as
+    :class:`SegTrainer`'s) and ``input_channels`` (default 1)."""
+
+    def __init__(self, out_dim: int = 1, backbone: str = "mobilenet",
+                 **kwargs: Any):
+        super().__init__(init_reg_model, out_dim, backbone, **kwargs)
+        self.out_dim = out_dim
+
+    def set_data(self, X_train, y_train, X_test=None, y_test=None,
+                 **kwargs) -> None:
+        if X_test is None or y_test is None:
+            X_train, y_train, X_test, y_test = preproc.data_split(
+                X_train, y_train, kwargs.get("test_size", .15),
+                kwargs.get("seed", 1))
+        X_train, X_test = self._images(X_train, X_test)
+        y_train, y_test = (np.asarray(y, np.float32) for y in
+                           (y_train, y_test))
+        y_train, y_test = (y[:, None] if y.ndim == 1 else y for y in
+                           (y_train, y_test))
+        self._stage_batches(X_train, y_train, X_test, y_test)
+
+
+class clsTrainer(_ImageTrainer):
+    """Image classification trainer (counterpart of
+    `atomai_tpu/trainers/trainer.py:943-974`): integer labels, log-softmax
+    outputs, accuracy the share of argmax matches. Keyword args as
+    :class:`RegTrainer`'s."""
+
+    def __init__(self, nb_classes: int = 1, backbone: str = "mobilenet",
+                 **kwargs: Any):
+        super().__init__(init_cls_model, nb_classes, backbone, **kwargs)
+        self.nb_classes = nb_classes
+
+    def set_data(self, X_train, y_train, X_test=None, y_test=None,
+                 **kwargs) -> None:
+        if X_test is None or y_test is None:
+            X_train, y_train, X_test, y_test = preproc.data_split(
+                X_train, y_train, kwargs.get("test_size", .15),
+                kwargs.get("seed", 1))
+        X_train, X_test = self._images(X_train, X_test)
+        self._stage_batches(X_train, np.asarray(y_train, np.int64).reshape(-1),
+                            X_test, np.asarray(y_test, np.int64).reshape(-1))
+
+    def accuracy_fn(self, y: torch.Tensor, y_prob: torch.Tensor
+                    ) -> torch.Tensor:
+        """The share of argmax predictions that equal the labels."""
+        return (y_prob.argmax(-1) == y.long()).float().mean()

@@ -1,6 +1,6 @@
 """Data augmentation on the device, vectorised over the batch.
 
-Counterpart of `atomai_tpu/transforms/imaug.py:34-364`, with the same ops,
+Counterpart of `atomai_tpu/transforms/imaug.py:34-380`, with the same ops,
 parameter ranges and op order (custom -> rotation -> zoom -> resize ->
 gauss -> jitter -> poisson -> salt & pepper -> blur -> contrast ->
 background, each enabled op once). Each random op is split in two halves,
@@ -372,13 +372,24 @@ def imspec_augmentor(in_dim: Tuple[int, ...], out_dim: Tuple[int, ...],
     images (no geometric op: the targets are spectra), the spectra
     untouched. None when no augmentation kwarg is given; spec2im models
     raise, as in the JAX package."""
-    augdict = {k: kwargs[k] for k in _AUG_KEYS_SPEC if k in kwargs}
-    if not augdict:
+    if not any(k in kwargs for k in _AUG_KEYS_SPEC):
         return None
     if len(in_dim) < len(out_dim):
         raise NotImplementedError("The built-in data augmentor works only "
                                   "for img->spec models (i.e. input is "
                                   "image)")
+    return reg_augmentor(**kwargs)
+
+
+def reg_augmentor(**kwargs: Any) -> Optional[Callable]:
+    """``augment_fn(generator, images (N, H, W[, 1]), targets)`` for
+    regression and classification training (counterpart of
+    `atomai_tpu/transforms/imaug.py:367-380`): the intensity ops of
+    :class:`DataTransform` on the images, the values or labels untouched;
+    None when no augmentation kwarg is given."""
+    augdict = {k: kwargs[k] for k in _AUG_KEYS_SPEC if k in kwargs}
+    if not augdict:
+        return None
     dt = DataTransform(**augdict)
 
     def augmentor(generator, features, targets):

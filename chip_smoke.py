@@ -1,8 +1,10 @@
 """Drives the PyTorch port's paths once on one CUDA card (segmentation
 serving, segmentation training with augmentation and peak refinement, rVAE
 training, ImSpec training and serving, deep-ensemble training, serving
-and atom finding, and the GP family: deep kernel learning and sparse-image
-reconstruction) and checks every step of them.
+and atom finding, the GP family: deep kernel learning and sparse-image
+reconstruction, and the rest of the supervised zoo: the other
+segmentation nets, the denoiser, regression and classification) and
+checks every step of them.
 
     python3 chip_smoke.py
 
@@ -97,7 +99,30 @@ Phases, one JSON line each (all before the last line):
 18. reconstruct: ``Reconstructor.reconstruct`` of a 256 x 256 sin-cos image
     at 10% measured pixels (the exact path) and at 30% (the inducing grid),
     100 cycles each: seconds, and the mean absolute error against the
-    truth within the JAX tests' bars (0.15, 0.2).
+    truth within the JAX tests' bars (0.15, 0.2);
+19. zoo_fixture: every net of ``tests/fixtures/torch_port_zoo.npz`` at its
+    default width (the dilated Unet, dilnet, SegResNet, ResHedNet, the
+    denoiser, the regressor on ResNet50, VGG16, MobileNetV2 and the slim
+    presets, a MobileNetV2 classifier) from numpy-drawn weights against
+    the JAX package's eval outputs, in float32 (TF32 off) and under the
+    mixed policy; three SGD cycles of ``Regressor("mobilenet")`` against
+    the JAX run;
+20. zoo_seg_path: ``Segmentor`` with dilnet, SegResNet, ResHedNet and the
+    dilated Unet at their default widths on bench config A's data (300
+    cycles of batch 32, the first fit timed, a warm run's cycles/s), then
+    ``predict`` on the 64 frames: the labeller's launches (one a
+    predict), its labels, fused sums and coordinates equal to the plain
+    route's, ``predict`` ms, held-out IoU and atom error gated like
+    config A;
+21. denoiser_path: the JAX bench's pin, ``DenoisingAutoencoder()`` on 256
+    noisy/clean pairs of 64² for 200 cycles of batch 32: warm cycles/s,
+    ``predict`` ms, the held-out denoised MSE below the noisy input's;
+22. reg_cls_path: ``Regressor("mobilenet")`` (the lattice spacing, 10-20
+    px) and ``Classifier("mobilenet", 3)`` (three spacings) on 1,024
+    lattice frames of 64², 100 cycles of batch 32: warm cycles/s,
+    ``predict`` ms, held-out MSE below the constant predictor's and
+    accuracy above 1/3 + 0.2; 20 cycles of the ResNet50 and VGG16
+    classifiers.
 Then one JSON line on the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
@@ -234,6 +259,59 @@ TOL_DKL_EMBED = 3e-2
 TOL_GP_LOSS_REL = 1e-4
 TOL_GP_PREDICT = 1e-4
 TOL_RECONSTRUCT = 2e-4
+# zoo_fixture: the nets of `tests/fixtures/torch_port_zoo.npz` at their
+# default widths, each error over the JAX output's largest |value|. In
+# float32 (TF32 off) the two packages sum in other orders, and the seeded
+# eval-mode nets (random running statistics, He-scaled kernels) amplify
+# it through up to 53 layers: 1e-3 (measured on the CPU: at most 8.3e-5,
+# MobileNetV2; on the H100 4.9e-5). Under the mixed policy the nets' convs
+# run in bf16 (8-bit mantissa; the backbones in float32 with TF32's 10-bit
+# one) through up to 53 layers of these amplifying eval-mode nets: 1e-1,
+# the scale of the Unet's bf16 bound (2e-2 on outputs of at most 0.11);
+# measured on the H100 at most 5.3e-2 (ResHedNet, MobileNet-slim 5.2e-2).
+# Three SGD(1e-5) cycles of Regressor("mobilenet"), batch 8 on 64 x 64
+# (SGD and its small lr: the fixture script says why). The first train
+# loss (the same weights): 1e-3 relative (measured on the CPU 9.3e-5).
+# After it, the two runs step with gradients that differ by the JAX
+# package's own float32 error: at the fixture's weights its gradient lies
+# 2-7% from the float64 one (the port's 0.2-1%), and these gradients are
+# large (|g| up to 15), so each step moves the loss by ~0.02 and the later
+# losses by a few percent of that. Bounds, with measured CPU values (1 and
+# 4 threads) beside them: the later losses 1e-1 relative (train 0.4%,
+# test 5.0%); each trained tensor's update (final - initial) against the
+# JAX update, over its largest |value|, 3e-1 (15%: the gradient's error,
+# and 1e-5-sized updates of BatchNorm scales near 1 that float32 resolves
+# to ~9 ulps); running statistics 5e-2 relative (2.0%; includes torch's
+# unbiased variance against flax's biased one over n = 8 x 2 x 2 = 32).
+TOL_ZOO_F32 = 1e-3
+TOL_ZOO_MIXED = 1e-1
+TOL_ZOO_FIRST_LOSS_REL = 1e-3
+TOL_ZOO_LOSS_REL = 1e-1
+TOL_ZOO_STEP_REL = 3e-1
+TOL_ZOO_STATS_REL = 5e-2
+# zoo_seg_path: each new segmentation net at its default width on bench
+# config A (MAIN, SEG_CYCLES of SEG_BATCH), gated as config A (TOL_IOU,
+# TOL_MEDIAN_PX on HELD_OUT); a warm run of ZOO_WARM_CYCLES for cycles/s
+ZOO_SEG_NETS = (("dilnet", {}), ("SegResNet", {}), ("ResHedNet", {}),
+                ("Unet", {"with_dilation": True}))
+ZOO_WARM_CYCLES = 50
+# the card's busy share of a warm run() of this many cycles (phases 20-22)
+BUSY_CYCLES = 10
+# denoiser_path: the JAX bench's pin (`bench.py:450-463`): 256 pairs of
+# 64 x 64 uniform images and their copies with N(0, 0.3^2) noise, 200
+# cycles of batch 32; 32 more pairs held out for the gate
+DEN_N, DEN_SIZE, DEN_NOISE, DEN_HELD = 256, 64, 0.3, 32
+DEN_CYCLES, DEN_BATCH = 200, 32
+# reg_cls_path: MobileNetV2 at full topology on 64 x 64 lattice frames;
+# the regressor's target is the spacing (32 values evenly over 10-20 px,
+# 32 frames each), the classifier's one of three spacings; 100 cycles of
+# batch 32; held-out frames from other seeds; short runs of the ResNet50
+# and VGG16 classifiers
+RC_SIZE, RC_CYCLES, RC_BATCH, RC_SHORT = 64, 100, 32, 20
+RC_SPACINGS = np.linspace(10, 20, 32)
+RC_CLASSES = (10, 15, 20)
+RC_TRAIN, RC_HELD = 1024, 128
+GATE_CLS_ACC = 1 / 3 + 0.2
 # dkl_path: bench config E (`bench.py:409-429`), 10,000 x 64 inputs, the
 # default extractor and the exact Cholesky GP; 5 cycles that pay the
 # first call, then 20 warm ones. The float64 check holds the float32 loss
@@ -371,6 +449,25 @@ def device_split(fn, device, reps=5):
                           r".*$", r"\1", evt.key)[:60]
             split[name] = split.get(name, 0) + us / reps
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def busy_share(fn, device):
+    """The card's busy share during one call of ``fn``: the device time of
+    its kernels, copies and fills (a ``torch.profiler`` trace) over its
+    wall time (which the profiler lengthens a little)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        busy_us += evt.cuda_time_total if us is None else us
+    return busy_us / wall_us
 
 
 def phase_device(device):
@@ -621,11 +718,12 @@ def phase_main_path(device):
             "locate_ms": lab["locate_ms"]}
 
 
-def labeller_on(maps, device):
+def labeller_on(maps, device, timed=True):
     """The Locator's labelling of the (N, H, W, 1) device ``maps`` at 0.5,
     by the kernel and by the plain version: labels, fused sums and the
-    Locator's coordinates must agree exactly. Times (CUDA events after a
-    warm-up; the kernel by queued device time): the fused kernel
+    Locator's coordinates must agree exactly. With ``timed``, times (CUDA
+    events after a warm-up; the kernel by queued device time): the fused
+    kernel
     (``kernel_ms``, labels and sums: what the Locator launches) and its
     plain version, the kernel without the sums and the plain labeller, and
     the Locator on each route; the bound on the fused kernel's bytes."""
@@ -657,6 +755,9 @@ def labeller_on(maps, device):
         check(np.array_equal(coords_kernel[i], coords_plain[i]),
               f"frame {i}: coordinates differ from the plain labeller's")
     blobs = int(len(sums_k[0]))
+    if not timed:
+        return dict(tiled_mask=list(tiled.shape), blobs=blobs,
+                    max_abs_err=max_abs_err)
     kernel_ms = device_ms(lambda: cc_kernel.launch(tiled, band), 20, device)
     # where a locate call's device time goes (the rest of its wall time is
     # the host's: torch's launches, the two syncs, numpy)
@@ -1304,7 +1405,8 @@ def fixture_script():
     return mod
 
 
-def state_errors(got, want, adam_tol, errs, tols):
+def state_errors(got, want, adam_tol, errs, tols,
+                 var_tol=TOL_RUNNING_VAR_REL):
     """Max abs error of each tensor of ``want`` (relative for running
     variances) into ``errs``, with its tolerance into ``tols``."""
     for k, w in want.items():
@@ -1313,7 +1415,7 @@ def state_errors(got, want, adam_tol, errs, tols):
         err = float((got[k].detach().float().cpu() - w).abs().max())
         if k.endswith("running_var"):
             err /= float(w.abs().max())
-            tols[k] = TOL_RUNNING_VAR_REL
+            tols[k] = var_tol
         else:
             tols[k] = adam_tol
         errs[k] = err
@@ -1429,6 +1531,129 @@ def ensemble_fixture_run(device, tmp):
         state_errors(ens[i], w, TOL_ENS_ADAM, e, t)
         errs.update({f"{i}.{k}": v for k, v in e.items()})
         tols.update({f"{i}.{k}": v for k, v in t.items()})
+    return errs, tols
+
+
+def zoo_port_net(name):
+    """The port's net of ``ZOO_NETS`` entry ``name`` (in the fixture
+    script) and its JAX weight bridge ``(params, batch_stats) ->
+    state_dict``."""
+    from atomai_tpu_torch import nets
+    from atomai_tpu_torch.models import (conversion,
+                                         init_denoising_autoencoder)
+    kind, kw = fixture_script().ZOO_NETS[name]
+    if kind == "seg":
+        kw = dict(kw)
+        net, meta = nets.init_fcnn_model(kw.pop("model"), 1, **kw)
+        bridge = conversion.fcnn_from_jax
+    elif kind == "denoiser":
+        net, meta = init_denoising_autoencoder()
+        bridge = conversion.denoiser_from_jax
+    else:
+        net, meta = (nets.init_reg_model(1, kw["backbone"]) if kind == "reg"
+                     else nets.init_cls_model(kw["nb_classes"],
+                                              kw["backbone"]))
+        bridge = conversion.reg_cls_from_jax
+    return net, lambda p, s: bridge(p, s, meta)
+
+
+def zoo_variables(stored, name, fresh_stats=False):
+    """The numpy-drawn variables of net ``name`` of the zoo fixture; with
+    ``fresh_stats``, a fresh net's BatchNorm statistics."""
+    fx = fixture_script()
+    prefix = f"shape/{name}/"
+    v = fx.seeded_variables({k[len(prefix):]: a for k, a in stored.items()
+                             if k.startswith(prefix)},
+                            kernel_gain=fx.ZOO_GAIN)
+    if fresh_stats:
+        v = fx.with_identity_stats(v)
+    return unflatten(v, "params"), unflatten(v, "batch_stats")
+
+
+def zoo_fixture_run(device, tmp, policies):
+    """Every net of the zoo fixture on ``device`` under each of
+    ``policies`` ({label: (Precision, tolerance)}), and the fixture's
+    three Regressor("mobilenet") cycles in float32 (TF32 off): ({name:
+    error}, {name: tolerance}). A forward's error is its largest absolute
+    difference over the JAX output's largest absolute value."""
+    import torch
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import Regressor, conversion
+    fx = fixture_script()
+    stored = dict(np.load(fx.ZOO_FIXTURE))
+    x = torch.from_numpy(stored["x"]).permute(0, 3, 1, 2).to(device)
+    errs, tols = {}, {}
+    for name, (kind, _) in fx.ZOO_NETS.items():
+        net, bridge = zoo_port_net(name)
+        net.load_state_dict(bridge(*zoo_variables(stored, name)))
+        net.to(device).eval()
+        want = stored[f"y/{name}"]
+        for label, (policy, tol) in policies.items():
+            with torch.inference_mode(), policy.scope(device):
+                y = net(x).float()
+            if y.ndim == 4:
+                y = y.permute(0, 2, 3, 1)
+            errs[f"{name}/{label}"] = float(
+                np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+            tols[f"{name}/{label}"] = tol
+    X, y = fx.zoo_reg_data()
+    t, R = fx.ZOO_REG["n_test"], fx.ZOO_REG
+    m = Regressor("mobilenet", 1, device=device)
+    m.load_jax_variables(*zoo_variables(stored, "reg_mobilenet",
+                                        fresh_stats=True))
+    m.precision = Precision.full()
+    with quiet():
+        m.fit(X[:-t], y[:-t], X[-t:], y[-t:], training_cycles=R["cycles"],
+              batch_size=R["batch"], print_loss=R["cycles"],
+              optimizer="sgd", lr_scheduler=[R["lr"]],
+              filename=os.path.join(tmp, "reg"))
+    errs["reg/schedule"] = int(np.abs(m.batch_idx_train -
+                                      stored["reg_schedule"]).max())
+    tols["reg/schedule"] = 0
+    for k in ("train_loss", "test_loss"):
+        rel = np.abs(np.asarray(m.loss_acc[k]) / stored[f"reg_{k}"] - 1)
+        errs[f"reg/{k}"], tols[f"reg/{k}"] = float(rel.max()), \
+            TOL_ZOO_LOSS_REL
+        if k == "train_loss":
+            errs["reg/first_train_loss"] = float(rel[0])
+            tols["reg/first_train_loss"] = TOL_ZOO_FIRST_LOSS_REL
+    final = unflatten(stored, "reg_final")
+    init_p, init_s = zoo_variables(stored, "reg_mobilenet", fresh_stats=True)
+    names = {path: (key, kind) for key, path, kind in
+             conversion.BACKBONE_NAMES["mobilenet"]()}
+    got = m.net.state_dict()
+    for path in fx.ZOO_REG_FINAL:
+        flat = "/".join(path)
+        trees = []
+        for p, s in ((final["params"], final.get("batch_stats", {})),
+                     (init_p, init_s)):
+            for part in path:
+                p, s = p[part], s.get(part, {})
+            trees.append((p, s))
+        if path == ("Dense_0",):
+            prefix, convert = "output_layer", (
+                lambda p, s: conversion._dense(p, flat))
+        else:
+            key, kind = names[path[2:]]
+            prefix = f"backbone.features.{key}"
+            convert = (lambda p, s: conversion._conv(p, flat)) \
+                if kind == "conv" else (lambda p, s: conversion._batch_norm(
+                    p, s, len(p["scale"]), flat))
+        (want, start) = (convert(*t) for t in trees)
+        for k, w in want.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            g = got[f"{prefix}.{k}"].detach().float().cpu()
+            if k.startswith("running"):
+                err = float((g - w).abs().max() / w.abs().max())
+                tol = TOL_ZOO_STATS_REL
+            else:
+                # the SGD update, against the JAX one
+                step = w - start[k]
+                err = float(((g - start[k]) - step).abs().max()
+                            / step.abs().max())
+                tol = TOL_ZOO_STEP_REL
+            errs[f"reg/{prefix}.{k}"], tols[f"reg/{prefix}.{k}"] = err, tol
     return errs, tols
 
 
@@ -1917,6 +2142,214 @@ def phase_reconstruct(device, size=REC_SIZE, cycles=REC_CYCLES):
     emit("reconstruct", size=size, cycles=cycles, cases=cases)
 
 
+def phase_zoo_fixture(device):
+    from atomai_tpu_torch.core import Precision, default_precision
+    with tempfile.TemporaryDirectory() as tmp:
+        errs, tols = zoo_fixture_run(device, tmp, {
+            "f32": (Precision.full(), TOL_ZOO_F32),
+            "mixed": (default_precision(device), TOL_ZOO_MIXED)})
+    bad = failures(errs, tols)
+    emit("zoo_fixture", nets={k: errs[k] for k in errs
+                              if not k.startswith("reg/")},
+         **fixture_summary(errs, tols), failures=bad)
+    check(not bad, f"zoo fixture off: {bad}")
+
+
+def phase_zoo_seg_path(device):
+    import torch
+    from atomai_tpu_torch import models
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**MAIN)
+    h_imgs, h_masks, h_xy = make_lattice_stack(**HELD_OUT)
+    results = {}
+    for model, kw in ZOO_SEG_NETS:
+        name = model + ("_dilated" if kw else "")
+        with tempfile.TemporaryDirectory() as tmp, quiet():
+            m = models.Segmentor(model, 1, seed=1, device=device, **kw)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            m.fit(imgs, masks, training_cycles=SEG_CYCLES,
+                  batch_size=SEG_BATCH, print_loss=SEG_CYCLES,
+                  filename=os.path.join(tmp, "seg"))
+            torch.cuda.synchronize(device)
+            fit_s = time.perf_counter() - t0
+            hist = list(m.loss_acc["train_loss"])
+            check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+                  f"{name}: train loss {hist[0]} -> {hist[-1]}")
+
+            cc_kernel.LAUNCHES = 0
+            maps, coords = m.predict(imgs, verbose=False)
+            torch.cuda.synchronize(device)
+            launches = cc_kernel.LAUNCHES
+            check(launches > 0, f"{name}: predict never launched the "
+                  "labeller")
+            check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
+                  f"{name}: bad predict output")
+            lab = labeller_on(SegPredictor(m.net, nb_classes=1,
+                                           verbose=False)
+                              .predict_device(imgs), device, timed=False)
+            predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 3,
+                                 device)
+            prob = m.predict(h_imgs, compute_coords=False, verbose=False)
+            iou = mean_jaccard(prob[..., 0], h_masks)
+            _, h_coords = m.predict(h_imgs, verbose=False)
+            median = float(np.median(atom_errors(h_coords, h_xy,
+                                                 MASK_OFFSET)))
+            # the warm production loop: ZOO_WARM_CYCLES more of run(),
+            # then BUSY_CYCLES more under the profiler
+            m.training_cycles = ZOO_WARM_CYCLES
+            m._reset_training_history()
+            _, run_ms = timed(m.run, device)
+            m.training_cycles = BUSY_CYCLES
+            busy = busy_share(m.run, device)
+        results[name] = dict(
+            nb_filters=m.meta_state_dict["nb_filters"],
+            layers=m.meta_state_dict["layers"], loss_first=hist[0],
+            loss_last=hist[-1], fit_s=fit_s,
+            warm_cycles_per_s=ZOO_WARM_CYCLES / (run_ms / 1e3),
+            busy_share=busy, predict_ms=predict_ms, launches=launches,
+            labeller_max_abs_err=lab["max_abs_err"], blobs=lab["blobs"],
+            atoms=int(sum(len(c) for c in coords.values())),
+            held_out_iou=iou, held_out_median_err_px=median)
+    emit("zoo_seg_path", frames=list(imgs.shape), cycles=SEG_CYCLES,
+         batch=SEG_BATCH, nets=results,
+         gates={"iou": TOL_IOU, "median_err_px": TOL_MEDIAN_PX})
+    for name, r in results.items():
+        check(r["held_out_iou"] >= TOL_IOU,
+              f"{name}: held-out IoU {r['held_out_iou']}")
+        check(r["held_out_median_err_px"] < TOL_MEDIAN_PX,
+              f"{name}: held-out median atom error "
+              f"{r['held_out_median_err_px']} px")
+    return {name: r["launches"] for name, r in results.items()}
+
+
+def phase_denoiser_path(device):
+    import torch
+    from atomai_tpu_torch.models import DenoisingAutoencoder
+    rng = np.random.RandomState(0)
+    clean = rng.rand(DEN_N + DEN_HELD, DEN_SIZE, DEN_SIZE).astype(np.float32)
+    noisy = clean + DEN_NOISE * rng.randn(*clean.shape).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m = DenoisingAutoencoder(device=device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m.fit(noisy[:DEN_N], clean[:DEN_N], training_cycles=DEN_CYCLES,
+              batch_size=DEN_BATCH, print_loss=DEN_CYCLES,
+              filename=os.path.join(tmp, "den"))
+        torch.cuda.synchronize(device)
+        fit_s = time.perf_counter() - t0
+        hist = list(m.loss_acc["train_loss"])
+        out = m.predict(noisy[DEN_N:])
+        predict_ms = cuda_ms(lambda: m.predict(noisy[DEN_N:]), 5, device)
+        # the bench's loop: another DEN_CYCLES of run()
+        m._reset_training_history()
+        _, run_ms = timed(m.run, device)
+        m.training_cycles = BUSY_CYCLES
+        busy = busy_share(m.run, device)
+    mse_out = float(np.mean((out - clean[DEN_N:]) ** 2))
+    mse_in = float(np.mean((noisy[DEN_N:] - clean[DEN_N:]) ** 2))
+    emit("denoiser_path", pairs=[DEN_N, DEN_SIZE, DEN_SIZE],
+         cycles=DEN_CYCLES, batch=DEN_BATCH, loss_first=hist[0],
+         loss_last=hist[-1], fit_s=fit_s,
+         warm_cycles_per_s=DEN_CYCLES / (run_ms / 1e3), busy_share=busy,
+         predict_ms=predict_ms, predict_frames=DEN_HELD,
+         held_out_mse_denoised=mse_out, held_out_mse_noisy=mse_in)
+    check(out.shape == (DEN_HELD, DEN_SIZE, DEN_SIZE) and
+          bool(np.isfinite(out).all()), "bad denoiser output")
+    check(mse_out < mse_in, f"denoised MSE {mse_out} not below the noisy "
+          f"input's {mse_in}")
+
+
+def spacing_frames(spacings, per_spacing, seed):
+    """``per_spacing`` lattice frames of RC_SIZE for each spacing (each
+    group min-max normalised by the generator), shuffled: (images,
+    spacing of each)."""
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs = np.concatenate([
+        make_lattice_stack(n_images=per_spacing, size=RC_SIZE,
+                           spacing=float(sp), seed=seed + i)[0]
+        for i, sp in enumerate(spacings)])
+    target = np.repeat(np.asarray(spacings, np.float32), per_spacing)
+    perm = np.random.RandomState(seed).permutation(len(imgs))
+    return imgs[perm], target[perm]
+
+
+def fit_timed(m, device, X, y, cycles, tmp):
+    """Fits ``m`` for ``cycles`` of RC_BATCH: (first fit's seconds, the
+    train losses)."""
+    import torch
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with quiet():
+        m.fit(X, y, training_cycles=cycles, batch_size=RC_BATCH,
+              print_loss=cycles, filename=os.path.join(tmp, "rc"))
+    torch.cuda.synchronize(device)
+    hist = list(m.loss_acc["train_loss"])
+    check(bool(np.isfinite(hist).all()), "non-finite losses")
+    return time.perf_counter() - t0, hist
+
+
+def phase_reg_cls_path(device):
+    from atomai_tpu_torch.models import Classifier, Regressor
+    n_sp = RC_TRAIN // len(RC_SPACINGS)
+    X, y = spacing_frames(RC_SPACINGS, n_sp, seed=0)
+    Xh, yh = spacing_frames(RC_SPACINGS, RC_HELD // len(RC_SPACINGS),
+                            seed=1000)
+    Xc, yc = spacing_frames(RC_CLASSES, RC_TRAIN // len(RC_CLASSES), seed=0)
+    Xch, ych = spacing_frames(RC_CLASSES, RC_HELD // len(RC_CLASSES),
+                              seed=1000)
+    label = {sp: i for i, sp in enumerate(RC_CLASSES)}
+    yc, ych = (np.asarray([label[int(v)] for v in a]) for a in (yc, ych))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, make, data, held in (
+                ("regressor", lambda: Regressor("mobilenet", 1,
+                                                device=device), (X, y),
+                 (Xh, yh)),
+                ("classifier", lambda: Classifier("mobilenet", 3,
+                                                  device=device), (Xc, yc),
+                 (Xch, ych))):
+            m = make()
+            fit_s, hist = fit_timed(m, device, *data, RC_CYCLES, tmp)
+            pred = m.predict(held[0], verbose=False)
+            if kind == "regressor":
+                score = {"held_out_mse": float(np.mean((pred - held[1]) ** 2)),
+                         "constant_mse": float(np.mean(
+                             (held[1] - data[1].mean()) ** 2))}
+            else:
+                score = {"held_out_accuracy": float(np.mean(
+                    pred == held[1]))}
+            predict_ms = cuda_ms(lambda: m.predict(held[0], verbose=False),
+                                 5, device)
+            m.training_cycles = RC_CYCLES
+            m._reset_training_history()
+            with quiet():
+                _, run_ms = timed(m.run, device)
+                m.training_cycles = BUSY_CYCLES
+                busy = busy_share(m.run, device)
+            out[kind] = dict(fit_s=fit_s, loss_first=hist[0],
+                             loss_last=hist[-1], predict_ms=predict_ms,
+                             predict_frames=len(held[0]),
+                             warm_cycles_per_s=RC_CYCLES / (run_ms / 1e3),
+                             busy_share=busy, **score)
+        for backbone in ("resnet", "vgg"):
+            m = Classifier(backbone, 3, device=device)
+            fit_s, hist = fit_timed(m, device, Xc, yc, RC_SHORT, tmp)
+            out[f"classifier_{backbone}"] = dict(
+                fit_s=fit_s, cycles=RC_SHORT, loss_first=hist[0],
+                loss_last=hist[-1])
+    emit("reg_cls_path", frames=[RC_TRAIN, RC_SIZE, RC_SIZE],
+         held_out=RC_HELD, cycles=RC_CYCLES, batch=RC_BATCH, **out,
+         gates={"classifier_accuracy": GATE_CLS_ACC})
+    r = out["regressor"]
+    check(r["held_out_mse"] < r["constant_mse"], f"regressor held-out MSE "
+          f"{r['held_out_mse']} not below the constant's {r['constant_mse']}")
+    acc = out["classifier"]["held_out_accuracy"]
+    check(acc > GATE_CLS_ACC, f"classifier held-out accuracy {acc}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1945,6 +2378,10 @@ def main():
     phase_gp_fixture(device)
     phase_dkl_path(device)
     phase_reconstruct(device)
+    phase_zoo_fixture(device)
+    kernels[0]["zoo_seg_path"] = phase_zoo_seg_path(device)
+    phase_denoiser_path(device)
+    phase_reg_cls_path(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,12 +81,37 @@ draw with numpy (not stored):
 - ``reconstruct``: ``Reconstructor.reconstruct`` of a 32 x 32 image with
   half its pixels measured, 50 cycles (the exact path).
 
+``tests/fixtures/torch_port_zoo.npz`` holds the supervised model zoo at
+its default widths (:data:`ZOO_NETS`: the dilated Unet, dilnet, SegResNet,
+ResHedNet, the denoiser, the regressor on every backbone and a
+three-class classifier), float32 at the highest matmul precision:
+- ``shape/<net>/...``: the shape of every variable of each net; the
+  variables are drawn from numpy seed 0 by :func:`seeded_variables` with
+  kernel gain :data:`ZOO_GAIN` (not stored: ResNet50 alone holds 23.5 M
+  weights);
+- ``x``: a (2, 64, 64, 1) input drawn from numpy seed 0;
+- ``y/<net>``: each net's eval-mode output of ``x``;
+- ``reg_schedule``, ``reg_train_loss``, ``reg_test_loss``: three
+  SGD(1e-5) cycles of ``Regressor("mobilenet", 1)`` from its seeded
+  variables with a fresh net's BatchNorm statistics
+  (:func:`with_identity_stats`), batch 8, on :func:`zoo_reg_data` (40
+  images of 64 x 64, the last 8 to test). SGD, not the default Adam: Adam
+  moves every weight by lr whatever its gradient's size, so the
+  rounding-size gradients of a deep net (11,172 of MobileNetV2's 2.2 M
+  take either sign) would separate the two packages' weights by 2 * lr;
+  SGD moves each by lr times its gradient, which holds the backward itself
+  to the JAX one. A small lr keeps the three steps where the loss is
+  nearly linear in them: this train-mode MobileNetV2 on 8 images is
+  ill-conditioned (BatchNorms over 32 values), and the JAX package's
+  float32 gradient already lies 2-7% from the float64 one;
+- ``reg_final/...``: the trained variables of :data:`ZOO_REG_FINAL`.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
 ``tests/test_torch_nets.py``, ``tests/test_torch_vae.py``,
 ``tests/test_torch_seg_train_fixture.py``,
-``tests/test_torch_imspec_fixture.py`` and ``tests/test_torch_ensemble.py``
-regenerate the contents and compare them with the files, so the fixtures
-cannot go stale. ``tests/test_torch_dklgp_fixture.py`` holds the port to
+``tests/test_torch_imspec_fixture.py``, ``tests/test_torch_ensemble.py``
+and ``tests/test_torch_zoo_fixture.py`` regenerate the contents and compare
+them with the files, so the fixtures cannot go stale. ``tests/test_torch_dklgp_fixture.py`` holds the port to
 ``torch_port_dklgp.npz`` without regenerating it (the JAX runs take about
 half a minute); ``tests/test_torch_gptrainer.py`` and
 ``tests/test_torch_dklgpr.py`` hold the same code paths against the JAX
@@ -126,6 +151,31 @@ DKL = dict(n=512, indim=64, embedim=2, hidden=(1000, 500, 50), cycles=5,
            lr=0.01, n_predict=256)
 GP2D = dict(n=400, cycles=10, n_predict=50, grid_points_ratio=0.25)
 RECONSTRUCT = dict(size=32, cycles=50)
+ZOO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_zoo.npz")
+# name -> (kind, constructor arguments), every net at its default width
+ZOO_NETS = {
+    "unet_dilated": ("seg", dict(model="Unet", with_dilation=True)),
+    "dilnet": ("seg", dict(model="dilnet")),
+    "segresnet": ("seg", dict(model="SegResNet")),
+    "reshednet": ("seg", dict(model="ResHedNet")),
+    "denoiser": ("denoiser", {}),
+    "reg_resnet": ("reg", dict(backbone="resnet")),
+    "reg_vgg": ("reg", dict(backbone="vgg")),
+    "reg_mobilenet": ("reg", dict(backbone="mobilenet")),
+    "reg_resnet-slim": ("reg", dict(backbone="resnet-slim")),
+    "reg_vgg-slim": ("reg", dict(backbone="vgg-slim")),
+    "reg_mobilenet-slim": ("reg", dict(backbone="mobilenet-slim")),
+    "cls_mobilenet": ("cls", dict(backbone="mobilenet", nb_classes=3)),
+}
+# kernels U(+-sqrt(6 / fan_in)): variance 2 / fan_in, so that activations
+# keep their scale through the 50 layers of ResNet50 and the 13 of VGG16
+ZOO_GAIN = float(np.sqrt(6.0))
+ZOO_REG = dict(n=40, n_test=8, size=64, cycles=3, batch=8, lr=1e-5)
+ZOO_REG_FINAL = (("ConvBackbone_0", "features", "stem_conv"),
+                 ("ConvBackbone_0", "features", "stem_bn"),
+                 ("ConvBackbone_0", "features", "block1", "dw"),
+                 ("ConvBackbone_0", "features", "head_bn"),
+                 ("Dense_0",))
 
 
 def flatten(tree, prefix):
@@ -153,10 +203,10 @@ def unflatten(arrays, prefix):
     return tree
 
 
-def seeded_variables(shapes, seed=0):
+def seeded_variables(shapes, seed=0, kernel_gain=1.0):
     """Flat variables ``{"params/...": array, "batch_stats/...": array}``
     of the given shapes, drawn from ``RandomState(seed)`` in sorted key
-    order: kernels U(+-1/sqrt(fan_in)), biases U(+-0.1), BatchNorm scales
+    order: kernels U(+-kernel_gain/sqrt(fan_in)), biases U(+-0.1), BatchNorm scales
     1 + 0.1 N(0, 1), running means 0.1 N(0, 1), running variances
     0.5 + U(0, 1). numpy only, so that the card's machine draws the same."""
     rng = np.random.RandomState(seed)
@@ -165,7 +215,7 @@ def seeded_variables(shapes, seed=0):
         shape = tuple(int(v) for v in shapes[key])
         leaf = key.split("/")[-1]
         if leaf == "kernel":
-            bound = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            bound = kernel_gain / np.sqrt(np.prod(shape[:-1]))
             v = rng.uniform(-bound, bound, shape)
         elif leaf == "bias":
             v = rng.uniform(-0.1, 0.1, shape)
@@ -178,6 +228,17 @@ def seeded_variables(shapes, seed=0):
         else:
             raise ValueError(f"no draw rule for {key}")
         out[key] = v.astype(np.float32)
+    return out
+
+
+def with_identity_stats(variables):
+    """``variables`` with every BatchNorm running mean 0 and variance 1,
+    the statistics of a fresh net."""
+    out = dict(variables)
+    for k, v in variables.items():
+        if k.startswith("batch_stats/"):
+            out[k] = (np.zeros_like(v) if k.endswith("/mean")
+                      else np.ones_like(v))
     return out
 
 
@@ -512,13 +573,114 @@ def make_dklgp_fixture():
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
 
 
+def zoo_jax_net(name):
+    """The JAX net of :data:`ZOO_NETS` entry ``name``."""
+    kind, kw = ZOO_NETS[name]
+    if kind == "seg":
+        from atomai_tpu.nets import init_fcnn_model
+        kw = dict(kw)
+        return init_fcnn_model(kw.pop("model"), 1, **kw)[0]
+    if kind == "denoiser":
+        from atomai_tpu.models.denoiser import DenoiserNet
+        return DenoiserNet()
+    from atomai_tpu.nets import init_cls_model, init_reg_model
+    if kind == "reg":
+        return init_reg_model(1, kw["backbone"])[0]
+    return init_cls_model(kw["nb_classes"], kw["backbone"])[0]
+
+
+def zoo_reg_data():
+    """40 images of 64 x 64 (numpy seed 1), each a noisy ramp whose slope
+    is the target."""
+    rng = np.random.RandomState(1)
+    n, size = ZOO_REG["n"], ZOO_REG["size"]
+    slope = rng.rand(n).astype(np.float32)
+    ramp = np.linspace(0, 1, size, dtype=np.float32)[None, None, :]
+    X = slope[:, None, None] * ramp + 0.1 * rng.rand(n, size, size)
+    return X.astype(np.float32), slope
+
+
+def variable_shapes(net, x):
+    """{"params/...": shape, "batch_stats/...": shape} of ``net``, from
+    ``jax.eval_shape`` (no initialiser runs)."""
+    import jax
+    import jax.numpy as jnp
+    init = jax.eval_shape(lambda x0: dict(net.init(
+        {"params": jax.random.key(0)}, x0, False)), jnp.asarray(x))
+    out = {}
+    for col in ("params", "batch_stats"):
+        if col in init:
+            zeros = jax.tree.map(lambda t: np.zeros(t.shape, np.float32),
+                                 dict(init[col]))
+            out.update({k: np.asarray(v.shape, np.int64) for k, v in
+                        flatten(zeros, col).items()})
+    return out
+
+
+def make_zoo_fixture():
+    """Eval forwards of every zoo net and three SGD cycles of
+    Regressor("mobilenet"), from seeded variables, on the CPU in
+    float32."""
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.models import Regressor
+
+    x = np.random.RandomState(0).rand(2, 64, 64, 1).astype(np.float32)
+    out = {"x": x}
+    with jax.default_matmul_precision("highest"):
+        for name in ZOO_NETS:
+            net = zoo_jax_net(name)
+            shapes = variable_shapes(net, x)
+            v = seeded_variables(shapes, kernel_gain=ZOO_GAIN)
+            variables = {col: unflatten(v, col) for col in
+                         ("params", "batch_stats") if any(
+                             k.startswith(col + "/") for k in v)}
+            out[f"y/{name}"] = np.asarray(jax.jit(
+                lambda v, x0: net.apply(v, x0, False))(
+                    variables, jnp.asarray(x)), np.float32)
+            out.update({f"shape/{name}/{k}": s for k, s in shapes.items()})
+        X, y = zoo_reg_data()
+        t = ZOO_REG["n_test"]
+        m = Regressor("mobilenet", 1)
+        v = with_identity_stats(seeded_variables(
+            {k[len("shape/reg_mobilenet/"):]: s for k, s in out.items()
+             if k.startswith("shape/reg_mobilenet/")}, kernel_gain=ZOO_GAIN))
+        m.params = unflatten(v, "params")
+        m.batch_stats = unflatten(v, "batch_stats")
+        with tempfile.TemporaryDirectory() as tmp:
+            m.fit(X[:-t], y[:-t], X[-t:], y[-t:],
+                  training_cycles=ZOO_REG["cycles"],
+                  batch_size=ZOO_REG["batch"], print_loss=ZOO_REG["cycles"],
+                  optimizer="sgd", lr_scheduler=[ZOO_REG["lr"]],
+                  filename=os.path.join(tmp, "reg"), mesh=False)
+    out.update({
+        "reg_schedule": np.asarray(m.batch_idx_train, np.int64),
+        "reg_train_loss": np.asarray(m.loss_acc["train_loss"], np.float32),
+        "reg_test_loss": np.asarray(m.loss_acc["test_loss"], np.float32)})
+    params = jax.tree.map(np.asarray, jax.device_get(m.params))
+    stats = jax.tree.map(np.asarray, jax.device_get(m.batch_stats))
+    for path in ZOO_REG_FINAL:
+        for col, tree in (("params", params), ("batch_stats", stats)):
+            node = tree
+            for part in path:
+                node = node.get(part, {}) if isinstance(node, dict) else {}
+            if node:
+                out.update(flatten({"/".join(path): node},
+                                   f"reg_final/{col}"))
+    return out
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
                        (RVAE_FIXTURE, make_rvae_fixture),
                        (SEG_TRAIN_FIXTURE, make_seg_train_fixture),
                        (IMSPEC_FIXTURE, make_imspec_fixture),
                        (ENSEMBLE_FIXTURE, make_ensemble_fixture),
-                       (DKLGP_FIXTURE, make_dklgp_fixture)):
+                       (DKLGP_FIXTURE, make_dklgp_fixture),
+                       (ZOO_FIXTURE, make_zoo_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -99,7 +99,10 @@ def test_segmentor_cuda_without_card_raises():
 
 
 def test_segmentor_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        Segmentor("dilnet", 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
-        Segmentor("Unet", 1, with_dilation=True, device="cpu")
+    """The options that raised before the rest of the zoo was ported now
+    build, and record the JAX package's metadict."""
+    from atomai_tpu.nets import init_fcnn_model as jax_init_fcnn_model
+    for model, kw in (("dilnet", {}), ("Unet", {"with_dilation": True})):
+        m = Segmentor(model, 1, device="cpu", **kw)
+        assert m.meta_state_dict == jax_init_fcnn_model(model, 1, **kw)[1]
+    assert type(m.net.bn).__name__ == "DilatedBlock"

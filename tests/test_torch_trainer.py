@@ -351,10 +351,14 @@ def test_load_model_vae_and_unported(tmp_path):
     with pytest.raises(NotImplementedError, match="Queue 1 #20"):
         load_model(str(tmp_path / "model.aoi"))
     from atomai_tpu_torch.core import save_checkpoint
-    other = save_checkpoint(str(tmp_path / "reg"),
-                            {"model_type": "reg"}, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 #20"):
-        load_model(other)
+    unported = save_checkpoint(str(tmp_path / "jvae"),
+                               {"model_type": "vae", "vae_type": "jVAE"}, {})
+    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
+        load_model(unported, device="cpu")
+    unknown = save_checkpoint(str(tmp_path / "other"),
+                              {"model_type": "other"}, {})
+    with pytest.raises(ValueError, match="Unknown model type"):
+        load_model(unknown, device="cpu")
 
 
 def test_cuda_trainer_without_card_raises():
@@ -405,7 +409,44 @@ def _default_device_reconstructor(tmp_path):
     return Reconstructor()
 
 
+def _default_device_zoo_segmentor(tmp_path):
+    return Segmentor("SegResNet", 1, nb_filters=4, layers=(1, 1, 1))
+
+
+def _default_device_regressor(tmp_path):
+    from atomai_tpu_torch.models import Regressor
+    return Regressor("vgg-slim", 1)
+
+
+def _default_device_classifier(tmp_path):
+    from atomai_tpu_torch.models import Classifier
+    return Classifier("vgg-slim", 2)
+
+
+def _default_device_denoiser(tmp_path):
+    from atomai_tpu_torch.models import DenoisingAutoencoder
+    return DenoisingAutoencoder()
+
+
+def _default_device_zoo_ensemble(tmp_path):
+    from atomai_tpu_torch.trainers import EnsembleTrainer
+    return EnsembleTrainer("dilnet", 1, nb_filters=4)
+
+
+def _default_device_load_reg_model(tmp_path):
+    from atomai_tpu_torch.models import Regressor
+    path = Regressor("vgg-slim", 1, device="cpu").save_model(
+        str(tmp_path / "reg"))
+    return load_model(path)
+
+
 @pytest.mark.parametrize("make", [_default_device_segmentor,
+                                  _default_device_zoo_segmentor,
+                                  _default_device_regressor,
+                                  _default_device_classifier,
+                                  _default_device_denoiser,
+                                  _default_device_zoo_ensemble,
+                                  _default_device_load_reg_model,
                                   _default_device_rvae,
                                   _default_device_load_model,
                                   _default_device_locator,
