@@ -8,8 +8,9 @@ Ported so far:
   sigmoid) and ``Locator`` (threshold, connected-component labels, centres
   of mass, optional 2D-Gaussian refinement); ``load_model`` reads the
   port's ``.aoit`` checkpoints;
-- rVAE (and VAE) training and inference: ``rVAE(...).fit`` -> encode,
-  decode, reconstruct, manifold2d;
+- the VAE family (VAE, rVAE, and the joint jVAE and jrVAE with
+  Gumbel-softmax latents): ``fit`` -> encode, decode, reconstruct,
+  manifold2d, manifold_traversal, encode_images, encode_trajectories;
 - ImSpec and the deep ensembles (training, mean and variance prediction,
   ``ensemble_locate``);
 - the Gaussian-process family: ``dklGPR`` (deep kernel learning,
@@ -17,7 +18,8 @@ Ported so far:
   ``Reconstructor``, on cuSOLVER/cuBLAS linear algebra.
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``atomai_tpu_torch/csrc``: the labeller (``cc_label.cu``) and the rVAE's
-fused spatial-decoder MLP, forward and backward (``spatial_mlp.cu``);
+fused spatial-decoder MLP (rVAE, jrVAE), forward and backward
+(``spatial_mlp.cu``);
 every other op is stock PyTorch. The package imports ``torch`` and never
 JAX.
 

@@ -234,13 +234,13 @@ def _put(state: Dict[str, torch.Tensor], name: str,
     state.update({f"{name}.{k}": v for k, v in tensors.items()})
 
 
-def _nhwc_rows_to_nchw(weight: torch.Tensor, hw: Tuple[int, int],
+def _nhwc_rows_to_nchw(weight: torch.Tensor, spatial: Tuple[int, ...],
                        c: int) -> torch.Tensor:
-    """A head's (out, H*W*C) weight over NHWC-flattened features ->
-    over NCHW-flattened ones."""
+    """A head's (out, prod(spatial) * C) weight over channel-last
+    flattened features -> over channel-first ones (2D or 1D)."""
     out = weight.shape[0]
-    return weight.reshape(out, hw[0], hw[1], c).permute(
-        0, 3, 1, 2).reshape(out, -1).contiguous()
+    return weight.reshape((out,) + tuple(spatial) + (c,)).movedim(
+        -1, 1).reshape(out, -1).contiguous()
 
 
 def vae_from_jax(params: Mapping[str, Any], meta: Mapping[str, Any]
@@ -248,25 +248,35 @@ def vae_from_jax(params: Mapping[str, Any], meta: Mapping[str, Any]
     """(encoder, decoder) ``state_dict``s of the port's VAE nets from the
     JAX package's ``{"encoder": ..., "decoder": ...}`` params and the
     model's metadict (``init_VAE_nets``' keys: ``coord``,
-    ``conv_encoder``, ``numlayers_encoder``, ``numlayers_decoder``,
-    ``numhidden_encoder``, ``in_dim``).
+    ``conv_encoder``, ``conv_decoder``, ``discrete_dim``,
+    ``numlayers_encoder``, ``numlayers_decoder``, ``numhidden_encoder``,
+    ``in_dim``).
 
-    Flax numbers its Dense layers in call order: the encoder's trunk is
-    ``Dense_0..Dense_{L-1}`` and its heads ``Dense_L`` (``fc11``) and
-    ``Dense_{L+1}`` (``fc12``); inside ``rDecoderNet``,
-    ``coord_latent_0/Dense_0`` is ``fc_coord`` and ``Dense_1``
-    ``fc_latent`` (no bias), then ``Dense_0..Dense_{L-1}`` are the hidden
-    layers and ``Dense_L`` the head. Raises ``ValueError`` on a tree that
-    does not fit the metadict.
+    Flax numbers its Dense layers in call order: an MLP encoder's trunk is
+    ``Dense_0..Dense_{L-1}``, its heads ``Dense_L`` (``fc11``),
+    ``Dense_{L+1}`` (``fc12``) and, for discrete latents,
+    ``Dense_{L+2+k}`` (``fc13.k``); a conv encoder's are ``ConvBlock_0``,
+    then ``Dense_0``, ``Dense_1`` and ``Dense_{2+k}``, whose rows read a
+    channel-last flatten and are reordered to the port's channel-first
+    one. Inside ``rDecoderNet``, ``coord_latent_0/Dense_0`` is
+    ``fc_coord`` and ``Dense_1`` ``fc_latent`` (no bias), then
+    ``Dense_0..Dense_{L-1}`` are the hidden layers and ``Dense_L`` the
+    head; the conv decoder is ``Dense_0`` (``fc_linear``, no bias),
+    ``ConvBlock_0`` (``decoder``) and ``Conv_0`` (``out``). Raises
+    ``ValueError`` on a tree that does not fit the metadict.
     """
-    if meta.get("discrete_dim"):
-        raise ValueError("discrete latents (jVAE, jrVAE) are not ported yet")
     enc_p, dec_p = params["encoder"], params["decoder"]
     conv = meta.get("conv_encoder", False)
+    conv_d = meta.get("conv_decoder", False) and not meta.get("coord", 0)
+    n_disc = len(meta.get("discrete_dim") or ())
     n_e, n_d = meta["numlayers_encoder"], meta["numlayers_decoder"]
-    want_e = ({"ConvBlock_0", "Dense_0", "Dense_1"} if conv
-              else {f"Dense_{i}" for i in range(n_e + 2)})
-    want_d = {f"Dense_{i}" for i in range(n_d + 1)}
+    in_dim = tuple(meta["in_dim"])
+    rank = 4 if len(in_dim) > 1 else 3
+    n_heads = 2 + n_disc
+    want_e = ({"ConvBlock_0"} | {f"Dense_{i}" for i in range(n_heads)}
+              if conv else {f"Dense_{i}" for i in range(n_e + n_heads)})
+    want_d = ({"Dense_0", "ConvBlock_0", "Conv_0"} if conv_d
+              else {f"Dense_{i}" for i in range(n_d + 1)})
     if meta.get("coord", 0):
         want_d.add("coord_latent_0")
     for part, tree, want in (("encoder", enc_p, want_e),
@@ -275,24 +285,33 @@ def vae_from_jax(params: Mapping[str, Any], meta: Mapping[str, Any]
             raise ValueError(f"{part} params {sorted(tree)} do not fit the "
                              f"metadict (expected {sorted(want)})")
 
+    heads = ["fc11", "fc12"] + [f"fc13.{k}" for k in range(n_disc)]
     enc: Dict[str, torch.Tensor] = {}
     if conv:
-        in_dim = tuple(meta["in_dim"])
         enc.update({f"conv.{k}": v for k, v in _conv_block(
-            enc_p["ConvBlock_0"], {}, False, "encoder/ConvBlock_0").items()})
-        for name, flax in (("fc11", "Dense_0"), ("fc12", "Dense_1")):
-            d = _dense(enc_p[flax], f"encoder/{flax}")
+            enc_p["ConvBlock_0"], {}, False, "encoder/ConvBlock_0",
+            rank).items()})
+        for i, name in enumerate(heads):
+            d = _dense(enc_p[f"Dense_{i}"], f"encoder/Dense_{i}")
             d["weight"] = _nhwc_rows_to_nchw(
-                d["weight"], in_dim[:2], meta["numhidden_encoder"])
+                d["weight"], in_dim[:rank - 2], meta["numhidden_encoder"])
             _put(enc, name, d)
     else:
         for i in range(n_e):
             _put(enc, f"dense.{2 * i}", _dense(enc_p[f"Dense_{i}"],
                                                f"encoder/Dense_{i}"))
-        for name, i in (("fc11", n_e), ("fc12", n_e + 1)):
+        for i, name in enumerate(heads, n_e):
             _put(enc, name, _dense(enc_p[f"Dense_{i}"], f"encoder/Dense_{i}"))
 
     dec: Dict[str, torch.Tensor] = {}
+    if conv_d:
+        _put(dec, "fc_linear", _dense(dec_p["Dense_0"], "decoder/Dense_0",
+                                      bias=False))
+        dec.update({f"decoder.{k}": v for k, v in _conv_block(
+            dec_p["ConvBlock_0"], {}, False, "decoder/ConvBlock_0",
+            rank).items()})
+        _put(dec, "out", _conv(dec_p["Conv_0"], "decoder/Conv_0", rank))
+        return enc, dec
     trunk = "decoder"
     if meta.get("coord", 0):
         cl = dec_p["coord_latent_0"]

@@ -11,11 +11,9 @@ one-hot class of a class-conditional model).
 from copy import deepcopy as dc
 from typing import Any, Tuple
 
-import numpy as np
 import torch
 
 from ...losses_metrics.vi_losses import rvae_loss
-from ...utils.coords import transform_coordinates
 from .vae import BaseVAE
 
 
@@ -47,20 +45,11 @@ class rVAE(BaseVAE):
                              eps=None):
         """Encode, sample z = [phi, dx (2), z], transform the pixel grid,
         decode, ELBO with the rotation prior."""
-        b = x.shape[0]
-        x_coord = self.x_coord.expand((b,) + self.x_coord.shape)
         z_mean, z_logsd = self.encoder_net(x)
         z = self.reparameterize(z_mean, torch.exp(z_logsd), generator, eps)
-        phi = z[:, 0]
-        if self.translation:
-            dx = (z[:, 1:3] * self.dx_prior)[:, None, :]
-            z = z[:, 3:]
-        else:
-            dx = 0
-            z = z[:, 1:]
+        x_coord, z = self._transformed_grid(z)
         if y is not None:
             z = torch.cat([z, self._one_hot(y)], -1)
-        x_coord = transform_coordinates(x_coord, phi, dx)
         x_reconstr = self.decoder_net(x_coord, z)
         kw = {k: v for k, v in self.kdict_.items()
               if k in ("phi_prior", "capacity")}
@@ -71,10 +60,6 @@ class rVAE(BaseVAE):
             loss: str = "mse", **kwargs) -> None:
         """Trains the rVAE; ``rotation_prior`` and ``translation_prior``
         (both 0.1 by default) set the priors' widths."""
-        X_train = np.asarray(X_train, np.float32)
-        self._check_inputs(X_train, y_train, X_test, y_test)
-        self.dx_prior = kwargs.get("translation_prior", 0.1)
-        self.kdict_["phi_prior"] = kwargs.get("rotation_prior", 0.1)
-        if "capacity" in kwargs:
-            self.kdict_["capacity"] = kwargs["capacity"]
+        self._prepare_fit(X_train, y_train, X_test, y_test, kwargs,
+                          ("capacity",))
         self._fit_loop(X_train, y_train, X_test, y_test, loss, **kwargs)

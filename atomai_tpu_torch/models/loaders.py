@@ -3,7 +3,7 @@
 Counterpart of `atomai_tpu/models/loaders.py:30-208` for the model types
 the port has: ``seg`` (Segmentor, any of its nets), ``imspec`` (ImSpec),
 ``reg`` (Regressor), ``cls`` (Classifier), ``denoising_autoencoder``
-(DenoisingAutoencoder) and ``vae`` (VAE, rVAE), and ensembles of
+(DenoisingAutoencoder) and ``vae`` (VAE, rVAE, jVAE, jrVAE), and ensembles of
 segmentation or ImSpec nets (:func:`load_ensemble`). The model is rebuilt
 from the constructor arguments in the file's metadict, then its weights
 are loaded. A Segmentor of a user's module ("custom") cannot be rebuilt
@@ -88,17 +88,18 @@ def load_model(filepath: str, device: str = "cuda"):
     if model_type == "vae":
         from . import dgm
         cls_name = meta.get("vae_type", "VAE")
-        if cls_name not in ("VAE", "rVAE"):
-            raise NotImplementedError(
-                f"{cls_name} is not ported yet (ROADMAP Queue 1 #14)")
+        if cls_name not in ("VAE", "rVAE", "jVAE", "jrVAE"):
+            raise ValueError(f"Unknown VAE type in checkpoint: {cls_name}")
         net_kwargs = {k: meta[k] for k in
                       ("numlayers_encoder", "numlayers_decoder",
                        "numhidden_encoder", "numhidden_decoder",
-                       "conv_encoder", "skip", "sigmoid_out",
+                       "conv_encoder", "conv_decoder", "skip", "sigmoid_out",
                        "softplus_out")
                       if meta.get(k) is not None}
-        if cls_name == "rVAE":
+        if cls_name in ("rVAE", "jrVAE"):
             net_kwargs["translation"] = meta.get("coord", 3) == 3
+        if cls_name in ("jVAE", "jrVAE"):
+            net_kwargs["discrete_dim"] = list(meta["discrete_dim"])
         model = getattr(dgm, cls_name)(
             tuple(meta["in_dim"]), meta.get("latent_dim", 2),
             nb_classes=meta.get("nb_classes", 0), device=device,
@@ -118,9 +119,10 @@ def load_model(filepath: str, device: str = "cuda"):
 
 def _load_typed(filepath: str, expected: str, kind: str, device: str):
     model = load_model(filepath, device)
-    if model.meta_state_dict.get("model_type") != expected:
-        raise ValueError(f"Checkpoint holds a "
-                         f"'{model.meta_state_dict.get('model_type')}' "
+    # the VAE family keeps its metadict as ``metadict``
+    meta = getattr(model, "meta_state_dict", None) or model.metadict
+    if meta.get("model_type") != expected:
+        raise ValueError(f"Checkpoint holds a '{meta.get('model_type')}' "
                          f"model, not a {kind} model")
     return model
 
@@ -146,7 +148,7 @@ def load_cls_model(filepath: str, device: str = "cuda"):
 
 
 def load_vae_model(filepath: str, device: str = "cuda"):
-    """A VAE or rVAE from its ``.aoit`` file."""
+    """A VAE, rVAE, jVAE or jrVAE from its ``.aoit`` file."""
     return _load_typed(filepath, "vae", "VAE", device)
 
 

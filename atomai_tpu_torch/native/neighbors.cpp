@@ -1,22 +1,26 @@
-// DBSCAN on a uniform grid hash, for the host-side clustering of atom
-// coordinates (ensemble_locate's cluster_coord).
+// Neighbour queries on a uniform grid hash, for the host-side analytics of
+// atom coordinates: the clustering of ensemble_locate's cluster_coord and
+// the trajectory chaining of encode_trajectories.
 //
 // Atom coordinates are near-uniform lattices, the best case for bucketing:
-// points are hashed into cells of edge eps, and each eps-ball is answered
-// from the cells that overlap it. Exposed through a C ABI and loaded with
-// ctypes (no pybind11):
+// points are hashed into cells (of edge eps for DBSCAN, sized for O(1)
+// points a cell for k-NN), and each query is answered from the cells
+// around it. Exposed through a C ABI and loaded with ctypes (no pybind11):
 //
+//   nn_knn        k nearest neighbours with an optional upper bound
 //   nn_dbscan     DBSCAN labels (noise = -1), sklearn's semantics
 //
-// The grid hash and nn_dbscan are those of the JAX package's
+// The grid hash, nn_knn and nn_dbscan are those of the JAX package's
 // atomai_tpu/native/neighbors.cpp; this package keeps its own copy, since
-// it loads nothing of that package. tests/test_torch_dbscan.py holds it
-// against a plain numpy + scipy cKDTree version and the JAX package's.
+// it loads nothing of that package. tests/test_torch_dbscan.py and
+// tests/test_torch_vae_tools.py hold them against plain scipy cKDTree
+// versions and the JAX package's.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <limits>
+#include <queue>
 #include <vector>
 
 namespace {
@@ -121,6 +125,43 @@ inline double sqdist(const double* a, const double* b, int dim) {
     return s;
 }
 
+// Visits every point in cells at Chebyshev ring distance `ring` from the
+// query's cell, invoking fn(point_id).
+template <typename Fn>
+void visit_ring(const Grid& g, const int* qc, int ring, Fn&& fn) {
+    int c[kMaxDim];
+    int lo[kMaxDim], hi[kMaxDim];
+    for (int d = 0; d < g.dim; ++d) {
+        lo[d] = std::max(qc[d] - ring, 0);
+        hi[d] = std::min(qc[d] + ring, g.shape[d] - 1);
+        if (lo[d] > hi[d]) return;
+    }
+    // iterate the box, skipping the interior (Chebyshev distance < ring)
+    auto on_shell = [&](const int* c) {
+        for (int d = 0; d < g.dim; ++d)
+            if (std::abs(c[d] - qc[d]) == ring) return true;
+        return ring == 0;
+    };
+    if (g.dim == 2) {
+        for (c[0] = lo[0]; c[0] <= hi[0]; ++c[0])
+            for (c[1] = lo[1]; c[1] <= hi[1]; ++c[1]) {
+                if (!on_shell(c)) continue;
+                int64_t f = g.flat(c);
+                for (int32_t j = g.start[f]; j < g.start[f + 1]; ++j)
+                    fn(g.order[j]);
+            }
+    } else {
+        for (c[0] = lo[0]; c[0] <= hi[0]; ++c[0])
+            for (c[1] = lo[1]; c[1] <= hi[1]; ++c[1])
+                for (c[2] = lo[2]; c[2] <= hi[2]; ++c[2]) {
+                    if (!on_shell(c)) continue;
+                    int64_t f = g.flat(c);
+                    for (int32_t j = g.start[f]; j < g.start[f + 1]; ++j)
+                        fn(g.order[j]);
+                }
+    }
+}
+
 template <typename Fn>
 void visit_box(const Grid& g, const double* q, double r, Fn&& fn) {
     int lo[kMaxDim], hi[kMaxDim], c[kMaxDim];
@@ -149,6 +190,55 @@ void visit_box(const Grid& g, const double* q, double r, Fn&& fn) {
 }  // namespace
 
 extern "C" {
+
+// k nearest neighbors of each query among pts, excluding nothing (a query
+// that is also a data point returns itself at distance 0, matching
+// cKDTree.query). Misses (fewer than k in bound) are reported as
+// dist=+inf, idx=n — cKDTree's convention.
+void nn_knn(int n, int dim, const double* pts, int nq, const double* q,
+            int k, double upper_bound, double* out_d, int32_t* out_i) {
+    Grid g = build_grid(n, dim, pts, /*cell_hint=*/0.0);
+    const double inf = std::numeric_limits<double>::infinity();
+    const double ub2 =
+        upper_bound < inf ? upper_bound * upper_bound : inf;
+    int max_ring = 0;
+    for (int d = 0; d < dim; ++d) max_ring = std::max(max_ring, g.shape[d]);
+    for (int iq = 0; iq < nq; ++iq) {
+        const double* qp = q + iq * dim;
+        int qc[kMaxDim];
+        for (int d = 0; d < dim; ++d) qc[d] = g.cell_coord(d, qp[d]);
+        // max-heap of the best k (d2, idx)
+        std::priority_queue<std::pair<double, int32_t>> best;
+        for (int ring = 0; ring <= max_ring; ++ring) {
+            // every point in a farther ring is at least this far away
+            double ring_min = (ring - 1) * g.cell;
+            if (ring > 0 && static_cast<int>(best.size()) == k &&
+                best.top().first <= ring_min * ring_min)
+                break;
+            if (ring > 0 && ring_min * ring_min > ub2) break;
+            visit_ring(g, qc, ring, [&](int32_t j) {
+                double d2 = sqdist(qp, pts + j * dim, dim);
+                if (d2 > ub2) return;
+                if (static_cast<int>(best.size()) < k)
+                    best.emplace(d2, j);
+                else if (d2 < best.top().first) {
+                    best.pop();
+                    best.emplace(d2, j);
+                }
+            });
+        }
+        int m = static_cast<int>(best.size());
+        for (int j = m - 1; j >= 0; --j) {
+            out_d[iq * k + j] = std::sqrt(best.top().first);
+            out_i[iq * k + j] = best.top().second;
+            best.pop();
+        }
+        for (int j = m; j < k; ++j) {
+            out_d[iq * k + j] = inf;
+            out_i[iq * k + j] = n;  // cKDTree miss convention
+        }
+    }
+}
 
 // DBSCAN with sklearn's semantics: a core point has >= min_samples
 // neighbors within eps (itself included); clusters are BFS components of

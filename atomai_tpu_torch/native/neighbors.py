@@ -1,23 +1,30 @@
-"""DBSCAN of atom coordinates, in C++ on the host.
+"""k-nearest-neighbour queries and DBSCAN of atom coordinates, in C++ on
+the host.
 
-Counterpart of `atomai_tpu/native/neighbors.py:141-153` ``dbscan``, with
-sklearn's semantics: a point with at least ``min_samples`` points within
-``eps`` (itself included) is a core point; clusters are the connected
-components of core points, numbered in the order of their first core
-point; a border point takes the cluster that reaches it first; the rest is
-noise (-1).
+Counterpart of `atomai_tpu/native/neighbors.py:78-96` ``knn`` and
+`:141-153` ``dbscan``:
+- :func:`knn`: ``scipy.spatial.cKDTree.query``'s semantics: the k nearest
+  points of each query in ascending distance, a miss (fewer than k within
+  ``upper_bound``, the bound itself included) reported as distance ``inf``
+  and index ``n``;
+- :func:`dbscan`: sklearn's semantics: a point with at least
+  ``min_samples`` points within ``eps`` (itself included) is a core
+  point; clusters are the connected components of core points, numbered
+  in the order of their first core point; a border point takes the
+  cluster that reaches it first; the rest is noise (-1).
 
-:func:`dbscan` runs ``neighbors.cpp`` (a grid hash with cells of edge
-``eps``), compiled by ``g++ -O3 -shared -fPIC -std=c++17`` into
-``atomai_tpu_torch/_build/`` at its first call, the way ``ops/_build.py``
-builds the CUDA sources. There is no fallback: a missing ``g++`` or a
-failed build raises. :func:`dbscan_reference` is the plain version (numpy
-and ``scipy.spatial.cKDTree``) that the tests hold it against.
+Both run ``neighbors.cpp`` (a grid hash), compiled by ``g++ -O3 -shared
+-fPIC -std=c++17`` into ``atomai_tpu_torch/_build/`` at the first call,
+the way ``ops/_build.py`` builds the CUDA sources. There is no fallback: a
+missing ``g++`` or a failed build raises. :func:`knn_reference` and
+:func:`dbscan_reference` are the plain versions (numpy and
+``scipy.spatial.cKDTree``) that the tests hold them against.
 """
 
 import ctypes
 import os
 import shutil
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -38,6 +45,12 @@ def build() -> ctypes.CDLL:
             raise RuntimeError("g++ not found on PATH: the native DBSCAN "
                                "cannot be built")
         lib = ctypes.CDLL(compile_shared(SOURCE, gxx, GXX_FLAGS))
+        f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.nn_knn.restype = None
+        lib.nn_knn.argtypes = [
+            ctypes.c_int, ctypes.c_int, f64, ctypes.c_int, f64, ctypes.c_int,
+            ctypes.c_double, f64,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")]
         lib.nn_dbscan.restype = None
         lib.nn_dbscan.argtypes = [
             ctypes.c_int, ctypes.c_int,
@@ -56,6 +69,39 @@ def _points(points) -> np.ndarray:
         raise ValueError(f"points must be (n, 2) or (n, 3), got shape "
                          f"{pts.shape}")
     return pts
+
+
+def knn(points, queries, k: int, upper_bound: Optional[float] = None
+        ) -> Tuple[np.ndarray, np.ndarray]:
+    """(distances (nq, k) float64, indices (nq, k) int64) of the k nearest
+    of (n, 2) or (n, 3) ``points`` to each query, nearest first; a miss
+    beyond ``upper_bound`` (or past the n points) is ``inf`` and ``n``."""
+    pts, q = _points(points), _points(queries)
+    nq = len(q)
+    d = np.full((nq, k), np.inf)
+    i = np.full((nq, k), len(pts), np.int32)
+    if len(pts) and nq:
+        ub = np.inf if upper_bound is None else float(upper_bound)
+        build().nn_knn(len(pts), pts.shape[1], pts, nq, q, int(k), ub, d, i)
+    return d, i.astype(np.int64)
+
+
+def knn_reference(points, queries, k: int,
+                  upper_bound: Optional[float] = None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`knn`: an unbounded ``cKDTree.query``,
+    then the points beyond ``upper_bound`` marked as misses (the bound
+    itself included, as the grid's d^2 <= bound^2 test has it; cKDTree's
+    own bound is strict)."""
+    from scipy.spatial import cKDTree
+    pts, q = _points(points), _points(queries)
+    d, i = cKDTree(pts).query(q, k=k)
+    d = np.asarray(d, np.float64).reshape(len(q), k)
+    i = np.asarray(i, np.int64).reshape(len(q), k)
+    if upper_bound is not None:
+        miss = ~(d <= float(upper_bound))
+        d[miss], i[miss] = np.inf, len(pts)
+    return d, i
 
 
 def dbscan(points, eps: float, min_samples: int) -> np.ndarray:

@@ -7,9 +7,10 @@ from .backbones import (BACKBONE_FEATURES, Bottleneck, InvertedResidual,
 from .blocks import (ConvBackbone, ConvBlock, DilatedBlock, Dropout,
                      ResBlock, ResModule, UpsampleBlock, init_weights_,
                      max_pool)
-from .ed import (SignalDecoder, SignalED, SignalEncoder, convEncoderNet,
-                 coord_latent, fcDecoderNet, fcEncoderNet, init_imspec_model,
-                 init_VAE_nets, rDecoderNet)
+from .ed import (SignalDecoder, SignalED, SignalEncoder, convDecoderNet,
+                 convEncoderNet, coord_latent, fcDecoderNet, fcEncoderNet,
+                 init_imspec_model, init_VAE_nets, jconvEncoderNet,
+                 jfcEncoderNet, rDecoderNet)
 from .fcnn import (DOWNSAMPLE_FACTORS, ResHedNet, SegResNet, Unet, dilnet,
                    init_fcnn_model)
 from .gp import (KERNELS, CustomGPModel, GPRegressionModel,
@@ -30,6 +31,7 @@ __all__ = ["CustomBackbone", "ConvBlock", "DilatedBlock", "Dropout", "UpsampleBl
            "init_cls_model", "init_mtask_cls_model",
            "SignalDecoder", "SignalED", "SignalEncoder", "init_imspec_model",
            "convEncoderNet", "coord_latent", "fcDecoderNet", "fcEncoderNet",
+           "jfcEncoderNet", "jconvEncoderNet", "convDecoderNet",
            "init_VAE_nets", "rDecoderNet", "DOWNSAMPLE_FACTORS", "Unet",
            "init_fcnn_model", "fcFeatureExtractor", "StackedFeatureExtractor",
            "rbf_kernel", "matern52_kernel", "scale_to_bounds",

@@ -1,18 +1,21 @@
 """Encoders and decoders of the im2spec nets and of the VAE family.
 
-Counterpart of `atomai_tpu/nets/ed.py:36-136, 139-186, 256-276, 303-501`:
+Counterpart of `atomai_tpu/nets/ed.py:36-501`:
 - SignalEncoder / SignalDecoder / SignalED, the image <-> spectrum
   translator, and init_imspec_model, its factory with its metadict;
-- fcEncoderNet / convEncoderNet -> (z_mu, z_logstd);
-- fcDecoderNet (the plain VAE's) and rDecoderNet with its coord_latent
-  (the rVAE's spatial decoder, after arXiv:1909.11663: a per-pixel MLP
-  over fc(coord) + fc(z) broadcast over the pixels);
+- fcEncoderNet / convEncoderNet -> (z_mu, z_logstd), and the joint
+  encoders jfcEncoderNet / jconvEncoderNet, which add one softmax head per
+  discrete latent -> (z_mu, z_logstd, alpha_1, ...);
+- fcDecoderNet and convDecoderNet (the plain VAE's) and rDecoderNet with
+  its coord_latent (the rVAE's spatial decoder, after arXiv:1909.11663: a
+  per-pixel MLP over fc(coord) + fc(z) broadcast over the pixels);
 - init_VAE_nets, the factory with its metadict.
 
 Inputs and outputs keep the JAX package's channel-last layout: images
 (N, H, W) or (N, H, W, C). Submodules carry original atomai's names
-(``dense.{2i}``, ``fc11``, ``fc12``, ``coord_latent.fc_coord``,
-``coord_latent.fc_latent``, ``fc_decoder.{2i}``, ``out``), the names
+(``dense.{2i}``, ``fc11``, ``fc12``, ``fc13.{k}``, ``fc_linear``,
+``coord_latent.fc_coord``, ``coord_latent.fc_latent``,
+``fc_decoder.{2i}``, ``out``), the names
 `atomai_tpu/models/conversion.py:320-366` maps. Hidden layers follow the
 precision scope the caller runs under (bf16 under the card's mixed
 policy); the heads run in float32 (:func:`head_f32`), as the JAX package's
@@ -186,6 +189,18 @@ def _tanh_stack(in_features: int, hidden_dim: int, num_layers: int
     return nn.Sequential(*layers)
 
 
+def _encoded(encoder: nn.Module, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, ...]:
+    """(z_mu, z_logstd) from the float32 heads, then the softmax of each
+    discrete head (a joint encoder's ``fc13``)."""
+    z_mu = head_f32(encoder.fc11, x)
+    z_logstd = head_f32(encoder.fc12, x)
+    if encoder.softplus_out:
+        z_logstd = F.softplus(z_logstd)
+    return (z_mu, z_logstd) + tuple(torch.softmax(head_f32(fc, x), 1)
+                                    for fc in getattr(encoder, "fc13", ()))
+
+
 class fcEncoderNet(nn.Module):
     """MLP encoder -> (z_mu, z_logstd) (`ed.py:139-162`)."""
 
@@ -200,44 +215,62 @@ class fcEncoderNet(nn.Module):
         self.fc12 = nn.Linear(head_in, latent_dim)
         self.softplus_out = softplus_out
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.dense(x.reshape(x.shape[0], -1))
-        z_mu = head_f32(self.fc11, x)
-        z_logstd = head_f32(self.fc12, x)
-        if self.softplus_out:
-            z_logstd = nn.functional.softplus(z_logstd)
-        return z_mu, z_logstd
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return _encoded(self, self.dense(x.reshape(x.shape[0], -1)))
+
+
+class jfcEncoderNet(fcEncoderNet):
+    """MLP encoder with one softmax head per discrete latent
+    (`ed.py:189-214`) -> (z_mu, z_logstd, alpha_1, ...)."""
+
+    def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
+                 discrete_dim=(1,), num_layers: int = 2,
+                 hidden_dim: int = 32, softplus_out: bool = False):
+        super().__init__(in_dim, latent_dim, num_layers, hidden_dim,
+                         softplus_out)
+        self.fc13 = nn.ModuleList(nn.Linear(self.fc11.in_features, d)
+                                  for d in discrete_dim)
 
 
 class convEncoderNet(nn.Module):
-    """Conv encoder -> (z_mu, z_logstd) (`ed.py:165-186`); 2D images only.
+    """Conv encoder -> (z_mu, z_logstd) (`ed.py:165-186`): images
+    (H, W[, C]) through a 2D ConvBlock, spectra (L,) through a 1D one.
 
-    The heads read the conv map flattened in NCHW order (original atomai's
-    order); the JAX package flattens NHWC, and ``vae_from_jax`` reorders
-    the heads' weights accordingly.
+    The heads read the conv map flattened channel-first (NCHW / NCL,
+    original atomai's order); the JAX package flattens channel-last, and
+    ``vae_from_jax`` reorders the heads' weights accordingly.
     """
 
     def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
                  num_layers: int = 2, hidden_dim: int = 32,
                  softplus_out: bool = False, lrelu_a: float = 0.1):
         super().__init__()
-        if len(in_dim) < 2:
-            raise NotImplementedError("only 2D conv encoders are ported")
+        self.ndim = 2 if len(in_dim) > 1 else 1
         c = in_dim[2] if len(in_dim) > 2 else 1
-        self.conv = ConvBlock(2, num_layers, c, hidden_dim, lrelu_a=lrelu_a)
-        n_flat = hidden_dim * in_dim[0] * in_dim[1]
+        self.conv = ConvBlock(self.ndim, num_layers, c, hidden_dim,
+                              lrelu_a=lrelu_a)
+        n_flat = hidden_dim * int(np.prod(in_dim[:self.ndim]))
         self.fc11 = nn.Linear(n_flat, latent_dim)
         self.fc12 = nn.Linear(n_flat, latent_dim)
         self.softplus_out = softplus_out
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = x[:, None] if x.ndim == 3 else x.permute(0, 3, 1, 2)
-        x = self.conv(x).reshape(x.shape[0], -1)
-        z_mu = head_f32(self.fc11, x)
-        z_logstd = head_f32(self.fc12, x)
-        if self.softplus_out:
-            z_logstd = nn.functional.softplus(z_logstd)
-        return z_mu, z_logstd
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = x[:, None] if x.ndim == self.ndim + 1 else x.movedim(-1, 1)
+        return _encoded(self, self.conv(x).reshape(x.shape[0], -1))
+
+
+class jconvEncoderNet(convEncoderNet):
+    """Conv encoder with one softmax head per discrete latent
+    (`ed.py:217-245`) -> (z_mu, z_logstd, alpha_1, ...)."""
+
+    def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
+                 discrete_dim=(1,), num_layers: int = 2,
+                 hidden_dim: int = 32, softplus_out: bool = False,
+                 lrelu_a: float = 0.1):
+        super().__init__(in_dim, latent_dim, num_layers, hidden_dim,
+                         softplus_out, lrelu_a)
+        self.fc13 = nn.ModuleList(nn.Linear(self.fc11.in_features, d)
+                                  for d in discrete_dim)
 
 
 def _channel_last(h: torch.Tensor, out_dim: Tuple[int, ...]) -> torch.Tensor:
@@ -266,6 +299,67 @@ class fcDecoderNet(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return _channel_last(head_f32(self.out, self.decoder(z)),
                              self.out_dim)
+
+
+class _LecunNormalInit:
+    """flax's default init for a conv (lecun-normal kernel: a normal of
+    std sqrt(1/fan_in) truncated at two of its own std, rescaled to keep
+    that variance; zero bias), which :func:`init_weights_` draws in place
+    of the U(+-1/sqrt(fan_in)) of the other layers."""
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> None:
+        fan_in = self.in_channels * int(np.prod(self.kernel_size))
+        std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+        w = torch.empty(self.weight.shape, device=generator.device)
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        self.weight.copy_(w)
+        self.bias.zero_()
+
+
+class _LecunConv1d(_LecunNormalInit, nn.Conv1d):
+    pass
+
+
+class _LecunConv2d(_LecunNormalInit, nn.Conv2d):
+    pass
+
+
+class convDecoderNet(nn.Module):
+    """Conv decoder (`ed.py:279-300`): a bias-free Linear layer to
+    ``hidden_dim`` channels on the output grid, a ConvBlock (LeakyReLU
+    0.1, no BatchNorm) and a float32 1x1 conv to the output channels.
+    1D (out_dim (L,)) or 2D ((H, W[, C])).
+
+    The Linear layer's outputs are ordered channel-last (the JAX package's
+    reshape to (-1, *grid, hidden_dim)), then moved to channel-first. The
+    1x1 conv keeps flax's default init (the JAX conv carries no
+    ``init_kwargs``), see :class:`_LecunNormalInit`.
+    """
+
+    def __init__(self, out_dim: Tuple[int, ...], latent_dim: int,
+                 num_layers: int = 2, hidden_dim: int = 32,
+                 lrelu_a: float = 0.1):
+        super().__init__()
+        self.out_dim = tuple(out_dim)
+        ndim = 2 if len(out_dim) > 1 else 1
+        c = out_dim[-1] if len(out_dim) > 2 else 1
+        self.spatial = self.out_dim[:ndim]
+        self.hidden_dim = hidden_dim
+        self.fc_linear = nn.Linear(
+            latent_dim, hidden_dim * int(np.prod(self.spatial)), bias=False)
+        self.decoder = ConvBlock(ndim, num_layers, hidden_dim, hidden_dim,
+                                 lrelu_a=lrelu_a)
+        self.out = (_LecunConv1d if ndim == 1 else _LecunConv2d)(
+            hidden_dim, c, 1)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.fc_linear(z).reshape((-1,) + self.spatial
+                                      + (self.hidden_dim,))
+        h = head_f32(self.out, self.decoder(h.movedim(-1, 1)))
+        h = h.movedim(1, -1)
+        return h[..., 0] if h.shape[-1] == 1 else h
 
 
 class coord_latent(nn.Module):
@@ -352,17 +446,14 @@ def init_VAE_nets(in_dim: Tuple[int, ...], latent_dim: int, coord: int = 0,
                   ) -> Tuple[nn.Module, nn.Module, Dict[str, Any]]:
     """Encoder, decoder and metadict of the VAE family (`ed.py:443-501`).
 
-    The decoder takes ``latent_dim + nb_classes`` latents (the JAX
-    package's sizing). Discrete latents (jVAE, jrVAE) and the conv decoder
-    are not ported yet and raise.
+    The decoder takes ``latent_dim + sum(discrete_dim) + nb_classes``
+    latents, the JAX package's sizing (original atomai drops
+    ``nb_classes`` when there are discrete latents, which its own joint
+    forward contradicts). With ``discrete_dim`` the encoder is the joint
+    one; ``conv_decoder`` applies without ``coord`` only.
     """
-    if discrete_dim:
-        raise NotImplementedError(
-            "discrete latents (jVAE, jrVAE) are not ported yet")
     conv_e = kwargs.get("conv_encoder", False)
     conv_d = kwargs.get("conv_decoder", False) if not coord else False
-    if conv_d:
-        raise NotImplementedError("the conv decoder is not ported yet")
     numlayers_e = kwargs.get("numlayers_encoder", 2)
     numlayers_d = kwargs.get("numlayers_decoder", 2)
     numhidden_e = kwargs.get("numhidden_encoder", 128)
@@ -370,17 +461,25 @@ def init_VAE_nets(in_dim: Tuple[int, ...], latent_dim: int, coord: int = 0,
     skip = kwargs.get("skip", False)
     sigmoid_out = kwargs.get("sigmoid_out", False)
     softplus_out = bool(kwargs.get("softplus_out") or False)
-    dec_latent = latent_dim + nb_classes
+    dec_latent = latent_dim + (sum(discrete_dim) if discrete_dim else 0) \
+        + nb_classes
 
     if coord:
         decoder_net = rDecoderNet(tuple(in_dim), dec_latent, numlayers_d,
                                   numhidden_d, skip)
     else:
-        decoder_net = fcDecoderNet(tuple(in_dim), dec_latent, numlayers_d,
-                                   numhidden_d)
-    enet = convEncoderNet if conv_e else fcEncoderNet
-    encoder_net = enet(tuple(in_dim), latent_dim + coord, numlayers_e,
-                       numhidden_e, softplus_out=softplus_out)
+        dnet = convDecoderNet if conv_d else fcDecoderNet
+        decoder_net = dnet(tuple(in_dim), dec_latent, numlayers_d,
+                           numhidden_d)
+    if discrete_dim:
+        enet = jconvEncoderNet if conv_e else jfcEncoderNet
+        encoder_net = enet(tuple(in_dim), latent_dim + coord,
+                           tuple(discrete_dim), numlayers_e, numhidden_e,
+                           softplus_out=softplus_out)
+    else:
+        enet = convEncoderNet if conv_e else fcEncoderNet
+        encoder_net = enet(tuple(in_dim), latent_dim + coord, numlayers_e,
+                           numhidden_e, softplus_out=softplus_out)
     meta_state_dict = {
         "model_type": "vae",
         "in_dim": tuple(in_dim),

@@ -2,8 +2,8 @@
 
 Counterpart of `atomai_tpu/trainers/vitrainer.py` with one engine: a
 Python loop of eager steps, in place of the JAX package's scan/loop pair
-(which exists because XLA:CPU runs scan bodies single-threaded), its mesh
-code and its multi-epoch dispatch. What it keeps:
+(which exists because XLA:CPU runs scan bodies single-threaded) and its
+mesh code. What it keeps:
 - the encoder/decoder pair and their initialisation from a seed
   (`:83-101`);
 - ``compile_trainer`` with Adam(1e-4) (`:161-203`): torch's Adam with
@@ -15,7 +15,10 @@ code and its multi-epoch dispatch. What it keeps:
   dropped), the epoch ELBO as the mean of the batch ELBOs, and
   ``num_iter`` advancing by ``nb``;
 - epochs whose ELBO stays on the device (``train_epoch_lazy``): no host
-  round trip per epoch;
+  round trip per epoch; ``train_epochs_lazy(n)`` runs n of them with the
+  semantics of the JAX package's multi-epoch dispatch (`:406-465`);
+- the Gaussian and Gumbel-softmax reparameterisations and the log-pdfs
+  (`:206-234`);
 - per-epoch checkpoints written by a background thread.
 
 Random numbers come from a :class:`GeneratorSeq` seeded once: one
@@ -152,6 +155,38 @@ class viBaseTrainer:
                               device=z_mean.device, dtype=z_mean.dtype)
         return z_mean + z_sd * eps
 
+    @staticmethod
+    def reparameterize_discrete(alpha: torch.Tensor, tau: float,
+                                generator: Optional[torch.Generator] = None,
+                                u: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+        """Gumbel-softmax sample of the categorical ``alpha`` (B, k) at
+        temperature ``tau``, in float32: softmax((log(alpha + eps) + g) /
+        tau) over axis 1, g = -log(-log(u + eps) + eps), eps = 1e-12 and
+        u ~ U(0, 1) drawn from ``generator`` unless given."""
+        eps = 1e-12
+        with torch.autocast(alpha.device.type, enabled=False):
+            alpha = alpha.float()
+            if u is None:
+                u = torch.rand(alpha.shape, generator=generator,
+                               device=alpha.device)
+            gumbel = -torch.log(-torch.log(u.float() + eps) + eps)
+            logit = (torch.log(alpha + eps) + gumbel) / tau
+            return torch.softmax(logit, 1)
+
+    @staticmethod
+    def log_normal(x: torch.Tensor, mu: torch.Tensor,
+                   log_sd: torch.Tensor) -> torch.Tensor:
+        """log-pdf of a diagonal normal, summed over the last axis."""
+        log_pdf = (-0.5 * float(np.log(2 * np.pi)) - log_sd
+                   - (x - mu) ** 2 / (2 * torch.exp(log_sd) ** 2))
+        return torch.sum(log_pdf, -1)
+
+    @staticmethod
+    def log_unit_normal(x: torch.Tensor) -> torch.Tensor:
+        """log-pdf of the unit normal, summed over the last axis."""
+        return torch.sum(-0.5 * (float(np.log(2 * np.pi)) + x ** 2), -1)
+
     # ------------------------------------------------------------ engine
     def forward_compute_elbo(self, x: torch.Tensor,
                              y: Optional[torch.Tensor], num_iter: int,
@@ -218,19 +253,38 @@ class viBaseTrainer:
     def evaluate_model(self) -> float:
         return float(self.evaluate_model_lazy())
 
+    def train_epochs_lazy(self, n: int
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``n`` epochs, each followed by its test-set evaluation when
+        there is a test set: (train ELBOs (n,), test ELBOs (n,) or None),
+        on the device. The JAX package runs them in one dispatch with the
+        same draws, in the same order (train e0, eval e0, train e1, ...),
+        and evaluation after each epoch's ``num_iter`` step; eagerly that
+        is n successive epochs."""
+        elbos, elbos_t = [], []
+        for _ in range(n):
+            elbos.append(self.train_epoch_lazy())
+            if self.X_test is not None:
+                elbos_t.append(self.evaluate_model_lazy())
+        return (torch.stack(elbos),
+                torch.stack(elbos_t) if elbos_t else None)
+
     def _finalize_loss_history(self) -> None:
         """Device scalars of the lazy epochs -> floats, in one copy."""
         for k, vals in self.loss_history.items():
             if vals and isinstance(vals[0], torch.Tensor):
                 self.loss_history[k] = torch.stack(vals).cpu().tolist()
 
-    def print_statistics(self, e: int) -> None:
+    def print_statistics(self, e: int, train=None, test=None) -> None:
+        """Prints epoch ``e``'s ELBOs (by default the last recorded)."""
+        if train is None:
+            train = self.loss_history["train_loss"][-1]
+            if self.X_test is not None:
+                test = self.loss_history["test_loss"][-1]
         line = "Epoch: {}/{}, Training loss: {:.4f}".format(
-            e + 1, self.training_cycles,
-            -float(self.loss_history["train_loss"][-1]))
-        if self.X_test is not None:
-            line += ", Test loss: {:.4f}".format(
-                -float(self.loss_history["test_loss"][-1]))
+            e + 1, self.training_cycles, -float(train))
+        if test is not None:
+            line += ", Test loss: {:.4f}".format(-float(test))
         print(line)
 
     # --------------------------------------------------------- serialize

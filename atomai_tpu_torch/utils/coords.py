@@ -1,15 +1,16 @@
-"""Pixel-coordinate grids of the rVAE, atom-position refinement and the
-clustering of an ensemble's coordinates (counterpart of
-`atomai_tpu/utils/coords.py:51-81, 123-146, 247-269`)."""
+"""Pixel-coordinate grids of the rVAE, atom-position refinement, the
+clustering of an ensemble's coordinates and the tracking of atoms through
+a stack (counterpart of `atomai_tpu/utils/coords.py:51-81, 123-146,
+208-269, 292-341`)."""
 
 import warnings
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..native import dbscan
+from ..native import dbscan, knn
 from ..ops.peakfit import refine_peaks
 
 
@@ -106,6 +107,94 @@ def cluster_coord(coord_class_dict: Dict[int, np.ndarray], eps: float,
         clusters_var.append(np.var(coord[:, :2], axis=0))
     return (np.array(clusters, dtype=object), np.array(clusters_mean),
             np.array(clusters_var))
+
+
+def chain_tracks(coord_class_dict: Dict[int, np.ndarray],
+                 starts: np.ndarray, rmax: float,
+                 on_match: Optional[Callable] = None
+                 ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Chains many tracks at once through a stack {frame: (n, 3) [row,
+    col, class]}: in each frame (in the dict's order) every track moves to
+    the nearest coordinate within ``rmax`` of its position (one
+    :func:`native.knn` query for all tracks), or holds its position and may
+    resume in a later frame. ``on_match(track, frame, row) -> bool``
+    accepts or refuses a match (a refused one holds the position too).
+    Returns one (rows (m, width), frames (m,)) pair per start point."""
+    starts = np.asarray(starts, float)
+    flows: List[List[np.ndarray]] = [[] for _ in range(len(starts))]
+    frames: List[List[int]] = [[] for _ in range(len(starts))]
+    cur = starts.copy()
+    width = 3
+    for k, c in coord_class_dict.items():
+        c = np.asarray(c, float)
+        if len(c) == 0:
+            continue
+        width = c.shape[-1]
+        d, idx = knn(c[:, :2], cur, 1, rmax)
+        d, idx = d[:, 0], idx[:, 0]
+        for i in np.nonzero(np.isfinite(d))[0]:
+            row = c[idx[i]]
+            if on_match is None or on_match(int(i), k, row):
+                flows[i].append(row)
+                frames[i].append(k)
+                cur[i] = row[:2]
+    return [(np.asarray(f, float).reshape(len(f), width), np.asarray(fr))
+            for f, fr in zip(flows, frames)]
+
+
+class subimg_trajectories:
+    """Trajectories of the atoms of a stack's first frame, with the
+    ``window_size`` window around every tracked position (built on
+    :func:`chain_tracks`). A match whose window leaves the image is
+    refused, and the track holds its position."""
+
+    def __init__(self, imgdata: np.ndarray,
+                 coord_class_dict: Dict[int, np.ndarray],
+                 window_size: int, min_length: int = 0,
+                 rmax: int = 10) -> None:
+        self.imgdata = imgdata
+        self.coord_class_dict = coord_class_dict
+        self.r = window_size
+        self.min_length = min_length
+        self.rmax = rmax
+
+    def _crop(self, frame: int, row: np.ndarray) -> Optional[np.ndarray]:
+        half = self.r // 2
+        cx, cy = int(np.around(row[0])), int(np.around(row[1]))
+        crop = self.imgdata[frame][cx - half:cx + half, cy - half:cy + half]
+        return crop if crop.shape[:2] == (self.r, self.r) else None
+
+    def _track(self, starts: np.ndarray
+               ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        crops: List[List[np.ndarray]] = [[] for _ in range(len(starts))]
+
+        def accept(i, frame, row):
+            crop = self._crop(frame, row)
+            if crop is None:
+                return False
+            crops[i].append(crop)
+            return True
+
+        tracks = chain_tracks(self.coord_class_dict, starts, self.rmax,
+                              on_match=accept)
+        return [(flow, frames, np.asarray(cr))
+                for (flow, frames), cr in zip(tracks, crops)]
+
+    def get_trajectory(self, start_coord: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows, frames, windows) of the track from ``start_coord``."""
+        return self._track(np.asarray(start_coord, float)[None, :])[0]
+
+    def get_all_trajectories(self) -> Tuple[List[np.ndarray],
+                                            List[np.ndarray],
+                                            List[np.ndarray]]:
+        """(rows, frames, windows) lists of the tracks from the first
+        frame's coordinates that are longer than ``min_length``."""
+        first = next(iter(self.coord_class_dict.values()))
+        out = [t for t in self._track(first[:, :2])
+               if len(t[0]) > self.min_length]
+        return ([f for f, _, _ in out], [fr for _, fr, _ in out],
+                [s for _, _, s in out])
 
 
 def get_lengthscale_constraints(grid: np.ndarray) -> List[List[float]]:

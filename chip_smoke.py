@@ -2,9 +2,9 @@
 serving, segmentation training with augmentation and peak refinement, rVAE
 training, ImSpec training and serving, deep-ensemble training, serving
 and atom finding, the GP family: deep kernel learning and sparse-image
-reconstruction, and the rest of the supervised zoo: the other
-segmentation nets, the denoiser, regression and classification) and
-checks every step of them.
+reconstruction, the rest of the supervised zoo: the other segmentation
+nets, the denoiser, regression and classification, and the joint VAEs with
+the VAE family's encoding tools) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -122,8 +122,29 @@ Phases, one JSON line each (all before the last line):
     lattice frames of 64², 100 cycles of batch 32: warm cycles/s,
     ``predict`` ms, held-out MSE below the constant predictor's and
     accuracy above 1/3 + 0.2; 20 cycles of the ResNet50 and VGG16
-    classifiers.
-Then one JSON line on the kernels, and as the last line
+    classifiers;
+23. jvae_fixture: one training step (ELBO, every gradient, one Adam step)
+    of ``jVAE((32, 32), latent_dim=2, discrete_dim=[4])`` and of the
+    ``jrVAE`` of the same arguments at config C's batch of 128, from the
+    numpy-drawn params, noise and Gumbel uniforms of
+    ``tests/fixtures/torch_port_jvae.npz``, against the JAX package's
+    numbers there: both in float32 (TF32 off; the jrVAE's decoder on its
+    per-layer route) at the float32 bounds, the jrVAE on the spatial-MLP
+    kernels in float32 and under the mixed policy at phase 7's bounds;
+24. jvae_path: the JAX bench's jVAE and jrVAE pins on phase 8's 1,024
+    patches: ``fit`` for 2 epochs of batch 128, then 20 epochs of the
+    bench loop (epoch, metadict, async checkpoint): ELBOs finite and
+    rising, steps/s and the card's busy share of an epoch; the jrVAE's
+    kernel launches equal to its steps, each kernel's ms at this path's
+    shapes beside its plain version and bound; then the trained jrVAE's
+    ``encode``, ``reconstruct``, ``manifold2d``, ``manifold_traversal``,
+    ``encode_images`` of a 256² lattice frame (50,625 windows) and
+    ``encode_trajectories`` on 16 frames of it shifted a pixel a frame,
+    the tracks equal to those of the cKDTree route
+    (``native.knn_reference``); ``fit(epochs_per_dispatch=5)`` for 10
+    epochs against one epoch at a time from the same seed.
+Then one JSON line on the kernels (the spatial-MLP records with their
+``jrvae_path`` numbers), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -328,6 +349,22 @@ TOL_F64_GRAD_REL = 1e-2
 # stretched to this size), 100 cycles, at the JAX tests' error bars
 REC_SIZE, REC_CYCLES = 256, 100
 REC_CASES = ((0.1, 0.15), (0.3, 0.2))     # (measured share, MAE gate)
+# the joint VAEs (the JAX bench's pins, `bench.py:435-449`): one step of
+# each against the fixture. In float32 (TF32 off) on cuBLAS the bounds of
+# the CPU's rVAE fixture check: config C's weight gradients sum 131,072
+# pixel rows, whose float32 summation orders differ by up to ~1.5e-5 of a
+# tensor's scale; Adam's first step moves a weight by lr * sign(g), the
+# other way for a rounding-size g, hence TOL_ADAM_ABS. On the spatial MLP
+# kernels (bf16 operands) and under the mixed policy, phase 7's bounds
+# for its kernel route: TOL_ELBO_REL and TOL_GRAD_SCALED.
+TOL_JVAE_ELBO_REL = 1e-5
+TOL_JVAE_GRAD_SCALED = 3e-5
+JVAE_KW = dict(latent_dim=2, discrete_dim=[4])
+JVAE_EPD = 5              # epochs a dispatch against one at a time
+JVAE_EPD_EPOCHS = 10
+TOL_EPD_REL = 1e-6
+TRAJ_FRAMES = 16          # encode_trajectories: a 256² frame shifted 1 px
+TRAJ_RMAX = 3             # a frame; tracks chained within 3 px
 
 
 def check(cond, msg):
@@ -913,26 +950,54 @@ def config_c_patches():
 
 
 def decoder_args(model, x, device):
-    """The spatial MLP's inputs as ``rVAE.forward_compute_elbo`` builds
-    them for the batch ``x`` (its shapes and values)."""
+    """The spatial MLP's inputs as ``rVAE.forward_compute_elbo`` (or
+    ``jrVAE``'s) builds them for the batch ``x`` (its shapes and
+    values)."""
     import torch
     from atomai_tpu_torch.core import head_f32
     from atomai_tpu_torch.utils import transform_coordinates
     with torch.no_grad():
-        z_mean, _ = model.encoder_net(x)
+        encoded = model.encoder_net(x)
+        z_mean = encoded[0]
         xc = transform_coordinates(
             model.x_coord.expand((len(x),) + model.x_coord.shape),
             z_mean[:, 0], (z_mean[:, 1:3] * model.dx_prior)[:, None])
+        # a joint model's decoder also takes the discrete latents (here
+        # their softmax parameters)
+        z = torch.cat([z_mean[:, 3:]] + list(encoded[2:]), 1)
         dec = model.decoder_net
         cl = dec.coord_latent
         hidden = [dec.fc_decoder[2 * i]
                   for i in range(len(dec.fc_decoder) // 2)]
-        args = (xc.transpose(1, 2), head_f32(cl.fc_latent, z_mean[:, 3:]),
+        args = (xc.transpose(1, 2), head_f32(cl.fc_latent, z),
                 cl.fc_coord.weight.T, cl.fc_coord.bias[None],
                 torch.stack([m.weight.T for m in hidden]),
                 torch.stack([m.bias for m in hidden]), dec.out.weight.T,
                 dec.out.bias[None])
     return [a.float().contiguous() for a in args]
+
+
+def mlp_kernel_ms(args, gy, device):
+    """Device ms of the forward kernel, its plain version, the backward
+    kernel and its plain version on the spatial MLP inputs ``args`` and
+    output gradient ``gy``, and the forward kernel's error over scale
+    there (checked)."""
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    with Precision.full().scope(device):
+        fwd_ms = device_ms(lambda: sm.spatial_mlp_forward_cuda(*args), 50,
+                           device)
+        fwd_plain_ms = device_ms(lambda: sm.spatial_mlp_reference(*args), 50,
+                                 device)
+        bwd_ms = device_ms(lambda: sm.spatial_mlp_backward_cuda(*args, gy),
+                           50, device)
+        bwd_plain_ms = device_ms(
+            lambda: sm.spatial_mlp_backward_reference(*args, gy), 50, device)
+        y_err = scaled_err(sm.spatial_mlp_forward_cuda(*args),
+                           sm.spatial_mlp_reference(*args))
+    check(y_err <= TOL_MLP_SCALED, f"kernel off by {y_err} at the path's "
+          "own decoder inputs")
+    return fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err
 
 
 def loop_rate(model, fname, steps, device):
@@ -1025,19 +1090,8 @@ def phase_rvae_path(device, mlp_errs):
     gy = torch.randn((RVAE_BATCH, 1, X.shape[1] * X.shape[2]),
                      generator=torch.Generator(device).manual_seed(0),
                      device=device) * 1e-2
-    with Precision.full().scope(device):
-        fwd_ms = device_ms(lambda: sm.spatial_mlp_forward_cuda(*args), 50,
-                         device)
-        fwd_plain_ms = device_ms(lambda: sm.spatial_mlp_reference(*args), 50,
-                               device)
-        bwd_ms = device_ms(lambda: sm.spatial_mlp_backward_cuda(*args, gy), 50,
-                         device)
-        bwd_plain_ms = device_ms(
-            lambda: sm.spatial_mlp_backward_reference(*args, gy), 50, device)
-        y_err = scaled_err(sm.spatial_mlp_forward_cuda(*args),
-                           sm.spatial_mlp_reference(*args))
-    check(y_err <= TOL_MLP_SCALED, f"kernel off by {y_err} at the path's "
-          "own decoder inputs")
+    fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err = mlp_kernel_ms(
+        args, gy, device)
 
     # the whole decoder call, forward and forward + autograd backward, on
     # each route under the model's bf16 policy
@@ -2350,6 +2404,265 @@ def phase_reg_cls_path(device):
     check(acc > GATE_CLS_ACC, f"classifier held-out accuracy {acc}")
 
 
+def jvae_fixture_step(device, name, precision, stock=False):
+    """One training step of the fixture's ``name`` ("jvae" or "jrvae") on
+    ``device`` under ``precision``, from its seeded params and noise (the
+    jrVAE's decoder on its per-layer route when ``stock``): (ELBO error
+    relative, {param: gradient error over scale}, Adam's largest absolute
+    error)."""
+    import torch
+    from atomai_tpu_torch import models
+    fx = fixture_script()
+    stored = dict(np.load(fx.JVAE_FIXTURE))
+    shapes = {k[len(f"shape/{name}/"):]: v for k, v in stored.items()
+              if k.startswith(f"shape/{name}/")}
+    params = unflatten(fx.seeded_variables(shapes, fx.JVAE_SEEDS[name]),
+                       "params")
+    m = getattr(models, fx.JVAE_MODELS[name])((32, 32), device=device,
+                                              **JVAE_KW)
+    m.load_jax_params(params)
+    if m.coord:
+        m.dx_prior = 0.1
+        m.kdict_["phi_prior"] = 0.1
+    m.precision = precision
+    x = fx.jvae_batch()
+    m.compile_trainer((x, None), training_cycles=1, batch_size=len(x))
+    x = torch.from_numpy(x).to(device)
+    eps = torch.from_numpy(stored[f"{name}/eps"]).to(device)
+    u = torch.from_numpy(stored[f"{name}/u"]).to(device)
+    route = stock_decoder(m) if stock else contextlib.nullcontext()
+    m.optimizer.zero_grad()
+    with route, precision.tf32_scope():
+        with precision.scope(device):
+            elbo = m.forward_compute_elbo(x, None, fx.JVAE_NUM_ITER,
+                                          eps=eps, u=[u])
+        (-elbo).backward()
+    want = float(stored[f"{name}/elbo"])
+    elbo_err = abs(float(elbo.detach()) - want) / abs(want)
+
+    def as_flat(pair):
+        return {f"{part}.{k}": v for part, tree in zip(("encoder", "decoder"),
+                                                       pair)
+                for k, v in tree.items()}
+
+    flat = flat_params(m)
+    grads = as_flat(models.vae_from_jax(unflatten(stored, f"{name}_grads"),
+                                        m.metadict))
+    grad_errs = {k: scaled_err(-flat[k].grad.cpu(), g)
+                 for k, g in grads.items()}
+    m.optimizer.step()
+    adam = as_flat(models.vae_from_jax(unflatten(stored, f"{name}_adam"),
+                                       m.metadict))
+    adam_err = max(float((flat[k].detach().cpu() - a).abs().max())
+                   for k, a in adam.items())
+    return elbo_err, grad_errs, adam_err
+
+
+def jvae_fixture_run(device, cases):
+    """The fixture's steps ``cases`` {label: (model, Precision, stock,
+    ELBO tolerance, gradient tolerance, Adam tolerance)} on ``device``:
+    ({label: {"elbo_rel", "grad_scaled", "worst_grad", "adam_abs"}},
+    failures)."""
+    out, bad = {}, {}
+    for label, (name, precision, stock, tol_elbo, tol_grad,
+                tol_adam) in cases.items():
+        elbo_err, grad_errs, adam_err = jvae_fixture_step(
+            device, name, precision, stock)
+        worst = max(grad_errs, key=grad_errs.get)
+        out[label] = {"elbo_rel": elbo_err, "grad_scaled": grad_errs[worst],
+                      "worst_grad": worst, "adam_abs": adam_err,
+                      "tolerances": [tol_elbo, tol_grad, tol_adam]}
+        for what, err, tol in (("elbo", elbo_err, tol_elbo),
+                               ("grad", grad_errs[worst], tol_grad),
+                               ("adam", adam_err, tol_adam)):
+            if not err <= tol:
+                bad[f"{label}/{what}"] = [err, tol]
+    return out, bad
+
+
+def jvae_card_cases(device):
+    """Phase 23's steps: both models in float32 (TF32 off) at the float32
+    bounds (the jrVAE's decoder on its per-layer route), then the jrVAE on
+    its spatial-MLP kernels in float32 and under the card's mixed policy,
+    at phase 7's bounds for the kernel route."""
+    from atomai_tpu_torch.core import Precision, default_precision
+    f32 = Precision.full()
+    tight = (TOL_JVAE_ELBO_REL, TOL_JVAE_GRAD_SCALED, TOL_ADAM_ABS)
+    bf16 = (TOL_ELBO_REL, TOL_GRAD_SCALED, TOL_ADAM_ABS)
+    return {"jvae_f32": ("jvae", f32, False) + tight,
+            "jrvae_f32_stock": ("jrvae", f32, True) + tight,
+            "jrvae_f32_kernels": ("jrvae", f32, False) + bf16,
+            "jrvae_mixed_kernels": ("jrvae", default_precision(device),
+                                    False) + bf16}
+
+
+def phase_jvae_fixture(device):
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+    cases, bad = jvae_fixture_run(device, jvae_card_cases(device))
+    emit("jvae_fixture", cases=cases, failures=bad,
+         kernel_launches=[sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES])
+    check(not bad, f"joint VAE fixture off: {bad}")
+    check(sm.FORWARD_LAUNCHES == sm.BACKWARD_LAUNCHES == 2,
+          "the jrVAE's kernel steps did not launch the kernels once each")
+
+
+def lattice_track_stack(frames, size=256, spacing=16, seed=0):
+    """One lattice frame shifted one pixel to the right a frame, and its
+    atoms {frame: (n, 3) [row, col, 0]}."""
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, _, xy = make_lattice_stack(n_images=1, size=size, spacing=spacing,
+                                     seed=seed)
+    stack = np.stack([np.roll(imgs[0], t, axis=1) for t in range(frames)])
+    atoms = {t: np.concatenate([xy[0] + [0, t], np.zeros((len(xy[0]), 1))],
+                               -1) for t in range(frames)}
+    return stack, atoms
+
+
+def joint_path_run(m, X, fname, device):
+    """``fit(2 epochs)`` then the bench loop (``loop_rate``) of a joint
+    model: its numbers; the ELBOs checked finite and rising."""
+    import torch
+    steps = len(X) // RVAE_BATCH
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    m.fit(X, training_cycles=2, batch_size=RVAE_BATCH, filename=fname,
+          verbose=False)
+    torch.cuda.synchronize(device)
+    fit_s = time.perf_counter() - t0
+    hist = list(m.loss_history["train_loss"])
+    rate, loop_ms, loop_s, elbo_last = loop_rate(m, fname, steps, device)
+    check(bool(np.isfinite(hist + [elbo_last]).all()),
+          "non-finite epoch ELBOs")
+    check(elbo_last > hist[0], f"ELBO did not rise: {hist[0]} -> "
+          f"{elbo_last}")
+    return {"fit_s": fit_s, "elbo_fit": hist, "elbo_loop_last": elbo_last,
+            "loop_steps_per_s": rate, "loop_ms_cuda_events": loop_ms,
+            "loop_s_host": loop_s, "steps": (2 + RVAE_EPOCHS) * steps}
+
+
+def phase_jvae_path(device, mlp_errs):
+    import torch
+    from atomai_tpu_torch import native
+    from atomai_tpu_torch.models import jrVAE, jVAE
+    from atomai_tpu_torch.ops import roofline
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    from atomai_tpu_torch.utils import coords
+    X = config_c_patches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jv = jVAE((32, 32), device=device, **JVAE_KW)
+        out["jvae"] = joint_path_run(jv, X, os.path.join(tmp, "jv"), device)
+        out["jvae"]["busy_share"] = busy_share(jv.train_epoch_lazy, device)
+        m = jrVAE((32, 32), device=device, **JVAE_KW)
+        check(m.decoder_net.fused(), "the jrVAE's decoder does not route to "
+              "the kernels")
+        sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+        out["jrvae"] = joint_path_run(m, X, os.path.join(tmp, "jrv"), device)
+        launches = (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES)
+        steps = out["jrvae"]["steps"]
+        check(launches == (steps, steps), f"the jrVAE's {steps} steps "
+              f"launched the kernels {launches} times")
+        out["jrvae"]["busy_share"] = busy_share(m.train_epoch_lazy, device)
+
+    # the kernels at this path's shapes (the decoder's 2 + 4 latents)
+    x = torch.from_numpy(X[:RVAE_BATCH]).to(device)
+    args = decoder_args(m, x, device)
+    gy = torch.randn((RVAE_BATCH, 1, X.shape[1] * X.shape[2]),
+                     generator=torch.Generator(device).manual_seed(0),
+                     device=device) * 1e-2
+    fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err = mlp_kernel_ms(
+        args, gy, device)
+    dims = (RVAE_BATCH, X.shape[1] * X.shape[2], args[2].shape[1],
+            args[4].shape[0])
+    bounds = [roofline.bound(f, b) for f, b in
+              zip(sm.spatial_mlp_flops(*dims), sm.spatial_mlp_bytes(*dims))]
+
+    # serving the trained jrVAE
+    with quiet():
+        z_mean, z_logsd, alphas = m.encode(X[:256])
+        rec = m.reconstruct(X[:4], num_samples=8)
+        manifold = m.manifold2d()
+        traversal = m.manifold_traversal(0, d=10)
+    check(z_mean.shape == z_logsd.shape == (256, 5) and
+          alphas.shape == (256, 4) and
+          bool(np.allclose(alphas.sum(1), 1, atol=1e-5)), "bad encode")
+    check(rec.shape == (32, 32, 32) and bool(np.isfinite(rec).all()),
+          "bad reconstruct")
+    check(manifold.shape == (9 * 32, 9 * 32) and
+          bool(np.isfinite(manifold).all()), "bad manifold2d")
+    check(traversal.shape == (4 * 34, 10 * 34 + 2) and
+          float(traversal.min()) >= 0 and float(traversal.max()) <= 1,
+          "bad manifold_traversal")
+    frames, atoms = lattice_track_stack(TRAJ_FRAMES)
+
+    def encode_images():
+        with quiet():
+            return m.encode_images(frames[0])
+
+    def encode_trajectories():
+        return m.encode_trajectories(frames, atoms, 32, 0, TRAJ_RMAX)
+
+    # each timed warm (host clock, to an idle card), after the call whose
+    # output is checked
+    _, encoded = encode_images()
+    images_ms = timed(encode_images, device)[0] * 1e3
+    n_win = 256 - 32 + 1
+    check(encoded.shape == (1, n_win, n_win, 5) and
+          bool(np.isfinite(encoded).all()), f"bad encode_images output "
+          f"{encoded.shape}")
+    traj = encode_trajectories()
+    traj_ms = timed(encode_trajectories, device)[0] * 1e3
+    knn = coords.knn
+    coords.knn = native.knn_reference
+    try:
+        traj_ref = encode_trajectories()
+    finally:
+        coords.knn = knn
+    same = (len(traj[0]) == len(traj_ref[0]) and all(
+        np.array_equal(a[:, :2], b[:, :2]) and np.allclose(a, b, rtol=1e-6)
+        and np.array_equal(fa, fb) for a, b, fa, fb in
+        zip(traj[0], traj_ref[0], traj[1], traj_ref[1])))
+    full = sum(len(f) == TRAJ_FRAMES for f in traj[1])
+    check(same, "encode_trajectories differs from the cKDTree route")
+    check(full > 100, f"only {full} tracks run through all frames")
+
+    # fit(epochs_per_dispatch) against one epoch at a time, same seed
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for epd in (JVAE_EPD, 1):
+            r = jrVAE((32, 32), device=device, **JVAE_KW)
+            r.fit(X, training_cycles=JVAE_EPD_EPOCHS, batch_size=RVAE_BATCH,
+                  epochs_per_dispatch=epd, verbose=False,
+                  filename=os.path.join(tmp, f"epd{epd}"))
+            runs.append((np.asarray(r.loss_history["train_loss"]),
+                         r.num_iter))
+    epd_err = float(np.abs(runs[0][0] / runs[1][0] - 1).max())
+    check(epd_err <= TOL_EPD_REL and runs[0][1] == runs[1][1],
+          f"epochs_per_dispatch history off by {epd_err}, num_iter "
+          f"{runs[0][1]} vs {runs[1][1]}")
+
+    emit("jvae_path", patches=list(X.shape), batch=RVAE_BATCH,
+         models=out, fwd_launches=launches[0], bwd_launches=launches[1],
+         fwd_kernel_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+         bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+         fwd_bound_ms=bounds[0][0], bwd_bound_ms=bounds[1][0],
+         path_inputs_scaled_err=y_err,
+         encode_images_ms=images_ms, encode_images_windows=n_win ** 2,
+         encode_trajectories_ms=traj_ms,
+         tracks=len(traj[0]), tracks_through_all_frames=full,
+         trajectories_equal_reference=same,
+         epochs_per_dispatch={"epd": JVAE_EPD, "epochs": JVAE_EPD_EPOCHS,
+                              "max_rel_diff": epd_err,
+                              "num_iter": [runs[0][1], runs[1][1]]})
+    return [{"launches": launches[i], "max_abs_err": mlp_errs[i],
+             "ms": (fwd_ms, bwd_ms)[i],
+             "plain_ms": (fwd_plain_ms, bwd_plain_ms)[i],
+             "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+             "share_of_bound": bounds[i][0] / (fwd_ms, bwd_ms)[i]}
+            for i in range(2)]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2382,6 +2695,9 @@ def main():
     kernels[0]["zoo_seg_path"] = phase_zoo_seg_path(device)
     phase_denoiser_path(device)
     phase_reg_cls_path(device)
+    phase_jvae_fixture(device)
+    for record, jrvae in zip(kernels[1:], phase_jvae_path(device, mlp_errs)):
+        record["jrvae_path"] = jrvae
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

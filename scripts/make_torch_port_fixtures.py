@@ -106,11 +106,28 @@ three-class classifier), float32 at the highest matmul precision:
   float32 gradient already lies 2-7% from the float64 one;
 - ``reg_final/...``: the trained variables of :data:`ZOO_REG_FINAL`.
 
+``tests/fixtures/torch_port_jvae.npz`` holds one training step of each
+joint VAE at bench config C's width (the JAX bench's pins,
+`bench.py:435-449`): ``jVAE((32, 32), latent_dim=2, discrete_dim=[4])``
+and ``jrVAE`` of the same arguments, float32 at the highest matmul
+precision, on the 128 patches of the rVAE fixture (:func:`jvae_batch`,
+not stored), at ``num_iter`` :data:`JVAE_NUM_ITER` (the capacities part
+way up their ramps), both priors 0.1:
+- ``shape/<model>/...``: the shape of every param; the params are drawn
+  from numpy seed :data:`JVAE_SEEDS` by :func:`seeded_variables` (not
+  stored);
+- ``<model>/eps``: the continuous latents' normal noise and
+  ``<model>/u``: the discrete latent's Gumbel uniforms, numpy seed 0;
+- ``<model>/elbo``, ``<model>_grads/...``: the ELBO and its gradient;
+  ``<model>_adam/...``: the params after one ``optax.adam(1e-4)`` step
+  on -ELBO.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
 ``tests/test_torch_nets.py``, ``tests/test_torch_vae.py``,
 ``tests/test_torch_seg_train_fixture.py``,
-``tests/test_torch_imspec_fixture.py``, ``tests/test_torch_ensemble.py``
-and ``tests/test_torch_zoo_fixture.py`` regenerate the contents and compare
+``tests/test_torch_imspec_fixture.py``, ``tests/test_torch_ensemble.py``,
+``tests/test_torch_zoo_fixture.py`` and ``tests/test_torch_jvae_fixture.py``
+regenerate the contents and compare
 them with the files, so the fixtures cannot go stale. ``tests/test_torch_dklgp_fixture.py`` holds the port to
 ``torch_port_dklgp.npz`` without regenerating it (the JAX runs take about
 half a minute); ``tests/test_torch_gptrainer.py`` and
@@ -176,6 +193,12 @@ ZOO_REG_FINAL = (("ConvBackbone_0", "features", "stem_conv"),
                  ("ConvBackbone_0", "features", "block1", "dw"),
                  ("ConvBackbone_0", "features", "head_bn"),
                  ("Dense_0",))
+
+
+JVAE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_jvae.npz")
+JVAE_MODELS = {"jvae": "jVAE", "jrvae": "jrVAE"}
+JVAE_SEEDS = {"jvae": 0, "jrvae": 1}
+JVAE_NUM_ITER = 5000
 
 
 def flatten(tree, prefix):
@@ -673,6 +696,73 @@ def make_zoo_fixture():
     return out
 
 
+def jvae_batch():
+    """The 128 config C patches of the rVAE fixture."""
+    return config_c_patches()[::8][:RVAE_BATCH].astype(np.float32)
+
+
+def jvae_noise(model):
+    """(eps, u) of a joint model at config C's width: the continuous
+    latents' normal noise and the 4-way discrete latent's uniforms."""
+    rng = np.random.RandomState(0)
+    cont = 5 if model == "jrvae" else 2
+    return (rng.randn(RVAE_BATCH, cont).astype(np.float32),
+            rng.rand(RVAE_BATCH, 4).astype(np.float32))
+
+
+def make_jvae_fixture():
+    """One jVAE and one jrVAE training step at config C's width from
+    seeded params, computed with the JAX package on the CPU in float32."""
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+    import optax
+    jax.config.update("jax_platforms", "cpu")
+    import atomai_tpu as aoi
+
+    x = jnp.asarray(jvae_batch())
+    out = {}
+    for name, cls in JVAE_MODELS.items():
+        m = getattr(aoi.models, cls)((32, 32), latent_dim=2,
+                                     discrete_dim=[4])
+        m.dx_prior = 0.1
+        m.kdict_["phi_prior"] = 0.1
+        m._init_params()
+        shapes = {k: np.asarray(v.shape, np.int64) for k, v in flatten(
+            jax.tree.map(np.asarray, m.params), "params").items()}
+        params = unflatten(seeded_variables(shapes, JVAE_SEEDS[name]),
+                           "params")
+        eps, u = jvae_noise(name)
+        # the noise comes from the fixture, not from JAX keys
+        m.reparameterize = lambda key, mu, sd: mu + sd * jnp.asarray(eps)
+
+        def discrete(key, alpha, tau, u=jnp.asarray(u), cls=type(m)):
+            with mock.patch.object(jax.random, "uniform",
+                                   lambda *a, **k: u):
+                return cls.reparameterize_discrete(key, alpha, tau)
+
+        m.reparameterize_discrete = discrete
+
+        def elbo_fn(p, m=m):
+            return m.forward_compute_elbo_fn(p, x, None, jax.random.key(0),
+                                             JVAE_NUM_ITER, True)
+
+        with jax.default_matmul_precision("highest"):
+            elbo, grads = jax.jit(jax.value_and_grad(elbo_fn))(params)
+        tx = optax.adam(1e-4)
+        updates, _ = tx.update(jax.tree.map(lambda g: -g, grads),
+                               tx.init(params), params)
+        stepped = optax.apply_updates(params, updates)
+        out.update({f"shape/{name}/{k}": v for k, v in shapes.items()})
+        out.update({f"{name}/eps": eps, f"{name}/u": u,
+                    f"{name}/elbo": np.asarray(elbo, np.float32)})
+        for prefix, tree in (("grads", grads), ("adam", stepped)):
+            out.update(flatten(jax.tree.map(np.asarray, tree),
+                               f"{name}_{prefix}"))
+    return out
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
                        (RVAE_FIXTURE, make_rvae_fixture),
@@ -680,7 +770,8 @@ def main():
                        (IMSPEC_FIXTURE, make_imspec_fixture),
                        (ENSEMBLE_FIXTURE, make_ensemble_fixture),
                        (DKLGP_FIXTURE, make_dklgp_fixture),
-                       (ZOO_FIXTURE, make_zoo_fixture)):
+                       (ZOO_FIXTURE, make_zoo_fixture),
+                       (JVAE_FIXTURE, make_jvae_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -350,11 +350,18 @@ def test_load_model_vae_and_unported(tmp_path):
                                atol=1e-6)
     with pytest.raises(NotImplementedError, match="Queue 1 #20"):
         load_model(str(tmp_path / "model.aoi"))
+    # joint VAEs are ported: a jVAE's checkpoint loads as a jVAE
     from atomai_tpu_torch.core import save_checkpoint
-    unported = save_checkpoint(str(tmp_path / "jvae"),
-                               {"model_type": "vae", "vae_type": "jVAE"}, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        load_model(unported, device="cpu")
+    from atomai_tpu_torch.models import jVAE
+    j = jVAE((8, 8), latent_dim=2, discrete_dim=[3], numlayers_encoder=1,
+             numhidden_encoder=8, numlayers_decoder=1, numhidden_decoder=8,
+             device="cpu")
+    j.fit(X, training_cycles=1, batch_size=16,
+          filename=str(tmp_path / "jvae"), verbose=False)
+    j2 = load_model(str(tmp_path / "jvae.aoit"), device="cpu")
+    assert type(j2) is jVAE and j2.discrete_dim == [3]
+    for a, b in zip(j2.encode(X[:4]), j.encode(X[:4])):
+        np.testing.assert_array_equal(a, b)
     unknown = save_checkpoint(str(tmp_path / "other"),
                               {"model_type": "other"}, {})
     with pytest.raises(ValueError, match="Unknown model type"):

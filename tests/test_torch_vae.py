@@ -339,8 +339,20 @@ def test_vae_from_jax_rejects_a_tree_that_does_not_fit():
     del bad["encoder"]["Dense_3"]
     with pytest.raises(ValueError, match="encoder"):
         vae_from_jax(bad, tm.metadict)
-    with pytest.raises(ValueError, match="not ported"):
+    # discrete latents are ported: a jrVAE's metadict asks for the
+    # discrete head (Dense_4) that the rVAE's tree lacks, and the JAX
+    # jrVAE's own tree of the same widths loads into the port's jrVAE
+    with pytest.raises(ValueError, match="Dense_4"):
         vae_from_jax(params, dict(tm.metadict, discrete_dim=[2]))
+    kw = dict(CONFIGS["rvae"][1], discrete_dim=[2])
+    jm = jaoi.models.jrVAE((12, 12), seed=0, **kw)
+    jm._init_params()
+    jparams = jax.tree.map(np.asarray, jax.device_get(jm.params))
+    port = aoi.models.jrVAE((12, 12), seed=0, device="cpu", **kw)
+    enc, dec = vae_from_jax(jparams, port.metadict)
+    assert {k for k in enc if k.startswith("fc13.")} == {"fc13.0.weight",
+                                                         "fc13.0.bias"}
+    port.load_jax_params(jparams)
 
 
 def _patches(n=64, size=16):
