@@ -15,7 +15,14 @@ Ported so far:
   ``ensemble_locate``);
 - the Gaussian-process family: ``dklGPR`` (deep kernel learning,
   ``fit`` -> ``predict``/``thompson``), ``GPTrainer`` and the sparse-image
-  ``Reconstructor``, on cuSOLVER/cuBLAS linear algebra.
+  ``Reconstructor``, on cuSOLVER/cuBLAS linear algebra;
+- checkpoints: ``load_model`` / ``load_ensemble`` / ``load_weights`` /
+  ``resume_training`` read the JAX package's ``.aoi`` files as well as the
+  port's ``.aoit``; ``models.load_torch_checkpoint`` reads the original
+  atomai's ``.tar`` files; ``export_model`` / ``load_exported`` write and
+  serve ``torch.export`` artifacts;
+- ``stat``: local-descriptor statistics (``imlocal``: GMM, PCA, ICA, NMF,
+  transitions), ``SpectralUnmixer`` and ``SlidingFFTNMF``, on the card.
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``atomai_tpu_torch/csrc``: the labeller (``cc_label.cu``) and the rVAE's
 fused spatial-decoder MLP (rVAE, jrVAE), forward and backward
@@ -24,8 +31,8 @@ every other op is stock PyTorch. The package imports ``torch`` and never
 JAX.
 
 Public layout follows ``atomai_tpu``: ``models``, ``predictors``,
-``trainers``, ``transforms``, ``losses_metrics``, ``utils``, ``ops`` (plus
-``core`` and ``nets``).
+``trainers``, ``transforms``, ``losses_metrics``, ``utils``, ``stat``,
+``ops`` (plus ``core`` and ``nets``).
 """
 
 from . import core
@@ -37,8 +44,11 @@ from . import transforms
 from . import trainers
 from . import predictors
 from . import models
-from .models import load_model
+from . import stat
+from .models import load_model, load_ensemble
+from .core.export import export_model, load_exported
 from .__version__ import version as __version__
 
 __all__ = ["core", "utils", "nets", "ops", "losses_metrics", "transforms",
-           "trainers", "predictors", "models", "load_model", "__version__"]
+           "trainers", "predictors", "models", "stat", "load_model",
+           "load_ensemble", "export_model", "load_exported", "__version__"]

@@ -10,8 +10,15 @@ of CPU tensors::
          | JSON meta header
          | torch.save payload, read back with ``weights_only=True``
 
-The port's files take the suffix ``.aoit``. It cannot read the JAX
-package's ``.aoi`` files (msgpack payload) yet: ROADMAP Queue 1 #20.
+The port's files take the suffix ``.aoit``. :func:`load_checkpoint` also
+reads the JAX package's ``.aoi`` files, whose payload is flax's msgpack
+(``core/msgpack.py``): their arrays come back as the JAX package's nested
+dicts of numpy arrays, under flax's names, for the weight bridge
+(``models/conversion.py``) to turn into ``state_dict``s. The format
+follows the suffix: ``.aoi`` is msgpack, anything else ``torch.save``. A
+path without either suffix is ``<path>.aoit`` if that file exists, else
+``<path>.aoi`` if that one does (the JAX package appends ``.aoi``), else
+``<path>.aoit``. Writing stays ``.aoit``.
 
 Writes are atomic (temp file + ``os.replace``): a process killed mid-save
 leaves the previous checkpoint intact. :func:`save_checkpoint_async`
@@ -32,11 +39,26 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import msgpack
+
 SUFFIX = ".aoit"
+JAX_SUFFIX = ".aoi"
 
 
 def _path(filename: str) -> str:
     return filename if filename.endswith(SUFFIX) else filename + SUFFIX
+
+
+def resolve_path(filename: str) -> str:
+    """The file a checkpoint name stands for: itself with a ``.aoit`` or
+    ``.aoi`` suffix, else ``<name>.aoit`` if it exists, else
+    ``<name>.aoi`` if it exists, else ``<name>.aoit``."""
+    if filename.endswith((SUFFIX, JAX_SUFFIX)):
+        return filename
+    for suffix in (SUFFIX, JAX_SUFFIX):
+        if os.path.exists(filename + suffix):
+            return filename + suffix
+    return filename + SUFFIX
 
 
 def _map(fn, tree):
@@ -166,13 +188,34 @@ def flush_async_checkpoints() -> None:
 
 
 def load_checkpoint(filename: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-    """(meta, arrays) of a file written by :func:`save_checkpoint`; the
-    arrays come back as CPU tensors."""
-    with open(_path(filename), "rb") as f:
+    """(meta, arrays) of a file written by :func:`save_checkpoint` (the
+    arrays as CPU tensors, in ``state_dict`` form) or by the JAX package's
+    ``save_checkpoint`` (a ``.aoi`` file: the arrays as nested dicts of
+    numpy arrays under flax's names); see :func:`resolve_path` for a name
+    without a suffix."""
+    filename = resolve_path(filename)
+    with open(filename, "rb") as f:
         (hlen,) = struct.unpack("<Q", f.read(8))
         meta = json.loads(f.read(hlen).decode("utf-8"))
-        arrays = torch.load(io.BytesIO(f.read()), weights_only=True)
-    return meta, arrays
+        payload = f.read()
+    if filename.endswith(JAX_SUFFIX):
+        return meta, msgpack.restore(payload)
+    return meta, torch.load(io.BytesIO(payload), weights_only=True)
+
+
+def is_jax_tree(arrays: Any) -> bool:
+    """Whether a checkpoint's arrays are the JAX package's (flax module
+    names, which never hold a dot) rather than the port's ``state_dict``s
+    (whose keys always do)."""
+    def keys(tree):
+        for k, v in tree.items():
+            yield k
+            if isinstance(v, dict):
+                yield from keys(v)
+    params = arrays.get("params", arrays) if isinstance(arrays, dict) \
+        else {}
+    names = list(keys(params)) if isinstance(params, dict) else []
+    return bool(names) and not any("." in str(k) for k in names)
 
 
 def _json_default(o):

@@ -12,10 +12,11 @@ from typing import Any
 from ..predictors import clsPredictor
 from ..trainers import clsTrainer
 from ..transforms import reg_augmentor
-from .regressor import ImageModelWeights, backbone_args
+from .conversion import reg_cls_from_jax
+from .regressor import backbone_args
 
 
-class Classifier(ImageModelWeights, clsTrainer):
+class Classifier(clsTrainer):
     """Image classification.
 
     Example:
@@ -25,6 +26,8 @@ class Classifier(ImageModelWeights, clsTrainer):
 
     Keyword args as :class:`~atomai_tpu_torch.models.Regressor`'s.
     """
+
+    jax_bridge = staticmethod(reg_cls_from_jax)
 
     def __init__(self, model: str = "mobilenet", nb_classes: int = None,
                  **kwargs: Any) -> None:

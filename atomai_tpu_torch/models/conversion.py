@@ -23,10 +23,18 @@ import torch
 _LAYOUT = {4: ((3, 2, 0, 1), "4D HWIO"), 3: ((2, 1, 0), "3D WIO")}
 
 
+def _f32(a) -> np.ndarray:
+    """A float32 numpy copy of an array leaf (numpy, or a CPU tensor such
+    as the bfloat16 leaves of a ``.aoi`` file)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
 def _conv(sub: Mapping[str, Any], where: str,
           rank: int = 4) -> Dict[str, torch.Tensor]:
     """A conv's weight (and bias); ``rank`` 4 for 2D convs, 3 for 1D."""
-    kernel = np.asarray(sub["kernel"], np.float32)
+    kernel = _f32(sub["kernel"])
     axes, name = _LAYOUT[rank]
     if kernel.ndim != rank:
         raise ValueError(f"{where}: expected a {name} kernel, got shape "
@@ -34,7 +42,7 @@ def _conv(sub: Mapping[str, Any], where: str,
     out = {"weight": torch.from_numpy(
         np.array(kernel.transpose(axes), order="C"))}
     if "bias" in sub:
-        bias = np.asarray(sub["bias"], np.float32)
+        bias = _f32(sub["bias"])
         if bias.shape != (kernel.shape[-1],):
             raise ValueError(f"{where}: bias shape {bias.shape} does not "
                              f"match {kernel.shape[-1]} output channels")
@@ -50,7 +58,7 @@ def _batch_norm(p: Mapping[str, Any], s: Mapping[str, Any], channels: int,
                            ("var", "running_var", s)):
         if src not in tree:
             raise ValueError(f"{where}: missing BatchNorm '{src}'")
-        a = np.asarray(tree[src], np.float32)
+        a = _f32(tree[src])
         if a.shape != (channels,):
             raise ValueError(f"{where}: BatchNorm '{src}' has shape "
                              f"{a.shape}, expected ({channels},)")
@@ -170,7 +178,7 @@ def _module(kind: str, p: Mapping[str, Any], s: Mapping[str, Any],
     if kind == "conv":
         return _conv(p, where)
     # a BatchNorm of its own (ResHedNet's score heads)
-    return _batch_norm(p, s, np.asarray(p["scale"]).shape[0], where)
+    return _batch_norm(p, s, len(p["scale"]), where)
 
 
 def fcnn_from_jax(params: Mapping[str, Any],
@@ -213,13 +221,13 @@ def unet_from_jax(params: Mapping[str, Any],
 
 def _dense(sub: Mapping[str, Any], where: str,
            bias: bool = True) -> Dict[str, torch.Tensor]:
-    kernel = np.asarray(sub["kernel"], np.float32)
+    kernel = _f32(sub["kernel"])
     if kernel.ndim != 2:
         raise ValueError(f"{where}: expected a 2D (in, out) Dense kernel, "
                          f"got shape {kernel.shape}")
     out = {"weight": torch.from_numpy(np.array(kernel.T, order="C"))}
     if bias:
-        b = np.asarray(sub["bias"], np.float32)
+        b = _f32(sub["bias"])
         if b.shape != (kernel.shape[1],):
             raise ValueError(f"{where}: bias shape {b.shape} does not match "
                              f"{kernel.shape[1]} outputs")
@@ -405,23 +413,18 @@ def ensemble_from_jax(ensemble: Mapping[Any, Any], meta: Mapping[str, Any]
 _GP_NAMES = ("raw_lengthscale", "raw_outputscale", "raw_noise", "mean_const")
 
 
-def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
-                 meta: Mapping[str, Any]
-                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(extractor ``state_dict``, GP params) of the port's DKL models from a
-    JAX ``dklGPTrainer``'s ``fe_params`` and ``gp_params`` and its
-    ``dimdict`` (``input_dim``, ``embedim``).
-
-    An fc extractor's ``Dense_i`` kernel (in, out) becomes ``layers.i``'s
-    weight (out, in); a tree with a leading member axis (kernels
-    (b, in, out), independent outputs and ensembles) becomes a
+def dkl_fe_from_jax(fe_params: Mapping[str, Any], meta: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """The port's DKL feature extractor ``state_dict`` from a JAX
+    ``dklGPTrainer``'s ``fe_params`` and its ``dimdict`` (``input_dim``,
+    ``embedim``): an fc extractor's ``Dense_i`` kernel (in, out) becomes
+    ``layers.i``'s weight (out, in); a tree with a leading member axis
+    (kernels (b, in, out), independent outputs and ensembles) becomes a
     ``StackedFeatureExtractor``'s ``kernels.i`` and ``biases.i`` as they
-    are. The raw GP parameters are copied as they are. Raises
-    ``ValueError`` on a tree that does not fit the dimdict.
-    """
+    are. Raises ``ValueError`` on a tree that does not fit the dimdict."""
     n = len(fe_params)
     _expect(fe_params, {f"Dense_{i}" for i in range(n)}, "feature extractor")
-    kernels = [np.asarray(fe_params[f"Dense_{i}"]["kernel"], np.float32)
+    kernels = [_f32(fe_params[f"Dense_{i}"]["kernel"])
                for i in range(n)]
     stacked = kernels[0].ndim == 3
     if (kernels[0].shape[-2] != meta["input_dim"]
@@ -433,7 +436,7 @@ def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
     for i, k in enumerate(kernels):
         where = f"feature extractor/Dense_{i}"
         if stacked:
-            b = np.asarray(fe_params[f"Dense_{i}"]["bias"], np.float32)
+            b = _f32(fe_params[f"Dense_{i}"]["bias"])
             if k.ndim != 3 or b.shape != (k.shape[0], k.shape[2]):
                 raise ValueError(f"{where}: kernel {k.shape} and bias "
                                  f"{b.shape} are not member-stacked")
@@ -441,6 +444,17 @@ def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
             fe[f"biases.{i}"] = torch.from_numpy(np.array(b))
         else:
             _put(fe, f"layers.{i}", _dense(fe_params[f"Dense_{i}"], where))
+    return fe
+
+
+def dkl_from_jax(fe_params: Mapping[str, Any], gp_params: Mapping[str, Any],
+                 meta: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(extractor ``state_dict``, GP params) of the port's DKL models from a
+    JAX ``dklGPTrainer``'s ``fe_params`` and ``gp_params`` and its
+    ``dimdict``: :func:`dkl_fe_from_jax`, and the raw GP parameters copied
+    as they are. Raises ``ValueError`` on a tree that does not fit."""
+    fe = dkl_fe_from_jax(fe_params, meta)
     _expect(gp_params, _GP_NAMES, "GP")
     gp = {k: torch.from_numpy(np.array(gp_params[k], np.float32))
           for k in _GP_NAMES}
@@ -536,7 +550,7 @@ def _backbone(p: Mapping[str, Any], s: Mapping[str, Any],
             where = "features/" + "/".join(path)
             _put(out, f"features.{key}", _conv(sub_p, where)
                  if kind == "conv" else _batch_norm(
-                     sub_p, sub_s, np.asarray(sub_p["scale"]).shape[0],
+                     sub_p, sub_s, len(sub_p["scale"]),
                      where))
         return out
     n = sum(1 for k in p if k.startswith("Conv_"))
@@ -579,3 +593,385 @@ def reg_cls_from_jax(params: Mapping[str, Any],
     for t, name in enumerate(heads):
         _put(state, name, _dense(params[f"Dense_{t}"], f"Dense_{t}"))
     return state
+
+
+# ------------------------------------------------------------------
+# the original atomai's (PyTorch) .tar checkpoints
+# ------------------------------------------------------------------
+# The port's own copy of the JAX package's maps (`atomai_tpu/models/
+# conversion.py:25-52, 267-366, 434-450, 546-612`): each entry pairs a
+# prefix of the reference's state_dict with a flax module path; the
+# reference's layers are read in state_dict order per kind (convs and
+# linears; BatchNorms) and built into the JAX package's variable tree,
+# which the bridges above then turn into the port's state_dicts.
+
+_UNET_PLAIN = [("c1", "ConvBlock_0"), ("c2", "ConvBlock_1"),
+               ("c3", "ConvBlock_2"), ("bn", "ConvBlock_3"),
+               ("upsample_block1", "UpsampleBlock_0"), ("c4", "ConvBlock_4"),
+               ("upsample_block2", "UpsampleBlock_1"), ("c5", "ConvBlock_5"),
+               ("upsample_block3", "UpsampleBlock_2"), ("c6", "ConvBlock_6"),
+               ("px", "Conv_0")]
+_UNET_DIL = [("c1", "ConvBlock_0"), ("c2", "ConvBlock_1"),
+             ("c3", "ConvBlock_2"), ("bn", "DilatedBlock_0"),
+             ("upsample_block1", "UpsampleBlock_0"), ("c4", "ConvBlock_3"),
+             ("upsample_block2", "UpsampleBlock_1"), ("c5", "ConvBlock_4"),
+             ("upsample_block3", "UpsampleBlock_2"), ("c6", "ConvBlock_5"),
+             ("px", "Conv_0")]
+_DILNET = [("c1", "ConvBlock_0"), ("at1", "DilatedBlock_0"),
+           ("at2", "DilatedBlock_1"), ("up1", "UpsampleBlock_0"),
+           ("c2", "ConvBlock_1"), ("px", "Conv_0")]
+_SEGRESNET = [("c1", "ConvBlock_0"), ("c2", "ResModule_0"),
+              ("bn", "ResModule_1"), ("upsample_block1", "UpsampleBlock_0"),
+              ("c3", "ResModule_2"), ("upsample_block2", "UpsampleBlock_1"),
+              ("c4", "ConvBlock_1"), ("px", "Conv_0")]
+
+
+def _fcnn_mapping(model: str, with_dilation: bool):
+    if model == "Unet":
+        m = _UNET_DIL if with_dilation else _UNET_PLAIN
+    elif model == "dilnet":
+        m = _DILNET
+    elif model == "SegResNet":
+        m = _SEGRESNET
+    else:
+        raise NotImplementedError(
+            f"Torch checkpoint conversion not implemented for '{model}'")
+    return [(t, (f,)) for t, f in m]
+
+
+def _collect_layers(sd: Mapping[str, Any], prefix: str):
+    """([(weight, bias)] of the convs and linears, [BatchNorm dict]) under
+    ``prefix`` in the reference's state_dict order."""
+    layers = []
+    for k in sd:
+        if k == prefix or k.startswith(prefix + "."):
+            lk = k.rsplit(".", 1)[0]
+            if lk not in layers:
+                layers.append(lk)
+    convs, bns = [], []
+    for lk in layers:
+        w = sd.get(lk + ".weight")
+        if w is None:
+            continue
+        w = _f32(w)
+        b = sd.get(lk + ".bias")
+        if w.ndim == 1 and lk + ".running_mean" in sd:
+            bns.append({"scale": w, "bias": _f32(b),
+                        "mean": _f32(sd[lk + ".running_mean"]),
+                        "var": _f32(sd[lk + ".running_var"])})
+        elif w.ndim >= 2:
+            convs.append((w, None if b is None else _f32(b)))
+    return convs, bns
+
+
+def _to_flax(w: np.ndarray, b: Optional[np.ndarray]) -> Dict[str, Any]:
+    """A torch conv (OIHW, OIL) or linear (out, in) as a flax leaf."""
+    kernel = {4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}[w.ndim]
+    out = {"kernel": np.ascontiguousarray(w.transpose(kernel))}
+    if b is not None:
+        out["bias"] = b
+    return out
+
+
+def _relayout_linear(convs, layout):
+    """A torch Linear's features across the NCHW -> NHWC flatten: "in"
+    reorders the input columns (a Linear reading a flattened conv map),
+    "out" the output rows and bias (a Linear whose output is reshaped to
+    (C, *spatial) in torch, (*spatial, C) in flax)."""
+    mode, c, sp = layout
+    sp = tuple(sp)
+    out = []
+    for w, b in convs:
+        if mode == "in":
+            wt = np.moveaxis(w.reshape((w.shape[0], c) + sp), 1, -1)
+            out.append((wt.reshape(w.shape[0], -1), b))
+        else:
+            wt = np.moveaxis(w.reshape((c,) + sp + (w.shape[1],)), 0, -2)
+            bt = None if b is None else \
+                np.moveaxis(b.reshape((c,) + sp), 0, -1).ravel()
+            out.append((wt.reshape(-1, w.shape[1]), bt))
+    return out
+
+
+def _flax_module(name: str, convs, bns, where: str):
+    """(params, batch_stats) of the flax module ``name`` from its ordered
+    layers: a Conv/Dense leaf, an UpsampleBlock (``Conv_0``), a ConvBlock
+    or DilatedBlock (``Conv_i``, ``BatchNorm_i``), or a ResModule
+    (``ResBlock_j`` of three convs and zero or two BatchNorms)."""
+    kind = name.rsplit("_", 1)[0]
+    if kind in ("Conv", "Dense"):
+        if len(convs) != 1 or bns:
+            raise ValueError(f"{where}: expected one layer, got "
+                             f"{len(convs)} and {len(bns)} BatchNorms")
+        return _to_flax(*convs[0]), {}
+    if kind == "UpsampleBlock":
+        return {"Conv_0": _to_flax(*convs[0])}, {}
+    if kind == "ResModule":
+        per = 2 if bns else 0
+        if len(convs) % 3 or len(bns) != per * len(convs) // 3:
+            raise ValueError(f"{where}: {len(convs)} convs and {len(bns)} "
+                             "BatchNorms are not ResBlocks")
+        p, s = {}, {}
+        for j in range(len(convs) // 3):
+            bp, bs = _conv_bn(convs[3 * j:3 * j + 3],
+                              bns[per * j:per * j + per])
+            p[f"ResBlock_{j}"] = bp
+            if bs:
+                s[f"ResBlock_{j}"] = bs
+        return p, s
+    if bns and len(bns) != len(convs):
+        raise ValueError(f"{where}: {len(convs)} convs and {len(bns)} "
+                         "BatchNorms")
+    return _conv_bn(convs, bns)
+
+
+def _conv_bn(convs, bns):
+    """``Conv_i`` and ``BatchNorm_i`` of ordered layers."""
+    p = {f"Conv_{i}": _to_flax(w, b) for i, (w, b) in enumerate(convs)}
+    s = {}
+    for i, bn in enumerate(bns):
+        p[f"BatchNorm_{i}"] = {"scale": bn["scale"], "bias": bn["bias"]}
+        s[f"BatchNorm_{i}"] = {"mean": bn["mean"], "var": bn["var"]}
+    return p, s
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def reference_to_jax(sd: Mapping[str, Any], mapping) -> Tuple[Dict, Dict]:
+    """The JAX package's (params, batch_stats) of a reference state_dict,
+    from ``mapping`` entries ``(torch prefix, flax path[, layout])``."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for entry in mapping:
+        prefix, path = entry[0], tuple(entry[1])
+        convs, bns = _collect_layers(sd, prefix)
+        if len(entry) > 2:
+            convs = _relayout_linear(convs, entry[2])
+        if not convs and not bns:
+            raise ValueError(f"no torch tensors under prefix '{prefix}'")
+        p, s = _flax_module(path[-1], convs, bns, prefix)
+        _set(params, path, p)
+        if s:
+            _set(stats, path, s)
+    return params, stats
+
+
+def _imspec_mapping(meta: Mapping[str, Any]):
+    """SignalED (JAX `conversion.py:267-290`)."""
+    in_dim, out_dim = tuple(meta["in_dim"]), tuple(meta["out_dim"])
+    down = meta.get("encoder_downsampling", 0)
+    up = meta.get("decoder_upsampling", False)
+    enc_sp = tuple(s // down for s in in_dim) if down else in_dim
+    dec_sp = tuple(s // 4 for s in out_dim) if up else out_dim
+    m = [("encoder.conv", ("encoder", "ConvBlock_0")),
+         ("encoder.fc", ("encoder", "Dense_0"),
+          ("in", meta.get("nbfilters_encoder", 64), enc_sp)),
+         ("decoder.fc", ("decoder", "Dense_0"),
+          ("out", meta.get("nbfilters_decoder", 64), dec_sp))]
+    if up:
+        m += [("decoder.deconv1", ("decoder", "ConvBlock_0")),
+              ("decoder.deconv2", ("decoder", "ConvBlock_1")),
+              ("decoder.conv", ("decoder", "ConvBlock_2"))]
+    else:
+        m += [("decoder.conv", ("decoder", "ConvBlock_0"))]
+    return m + [("decoder.dilblock", ("decoder", "DilatedBlock_0")),
+                ("decoder.out", ("decoder", "Conv_0"))]
+
+
+def _vae_encoder_mapping(meta: Mapping[str, Any]):
+    """(j)EncoderNet, fc or conv (JAX `conversion.py:320-343`)."""
+    n_disc = len(meta.get("discrete_dim") or ())
+    heads = ["fc11", "fc12"] + [f"fc13.{k}" for k in range(n_disc)]
+    if meta.get("conv_encoder", False):
+        lay = ("in", meta.get("numhidden_encoder", 128),
+               tuple(meta["in_dim"][:2]))
+        return [("conv", ("ConvBlock_0",))] + [
+            (h, (f"Dense_{i}",), lay) for i, h in enumerate(heads)]
+    n = meta.get("numlayers_encoder", 2)
+    return [(f"dense.{2 * i}", (f"Dense_{i}",)) for i in range(n)] + [
+        (h, (f"Dense_{n + i}",)) for i, h in enumerate(heads)]
+
+
+def _vae_decoder_mapping(meta: Mapping[str, Any]):
+    """fc, conv or rotational decoder (JAX `conversion.py:346-366`)."""
+    n = meta.get("numlayers_decoder", 2)
+    out_dim = tuple(meta["in_dim"])
+    if meta.get("coord", 0):
+        return [("coord_latent.fc_coord", ("coord_latent_0", "Dense_0")),
+                ("coord_latent.fc_latent", ("coord_latent_0", "Dense_1"))] + [
+            (f"fc_decoder.{2 * i}", (f"Dense_{i}",)) for i in range(n)] + [
+            ("out", (f"Dense_{n}",))]
+    if meta.get("conv_decoder", False):
+        return [("fc_linear", ("Dense_0",),
+                 ("out", meta.get("numhidden_decoder", 128), out_dim[:2])),
+                ("decoder", ("ConvBlock_0",)), ("conv_1x1", ("Conv_0",))]
+    c = out_dim[-1] if len(out_dim) > 2 else 1
+    return [(f"decoder.{2 * i}", (f"Dense_{i}",)) for i in range(n)] + [
+        ("out", (f"Dense_{n}",), ("out", c, out_dim[:2]))]
+
+
+def _denoiser_mapping(meta: Mapping[str, Any]):
+    """Sequential(encoder, decoder) (JAX `conversion.py:434-450`)."""
+    n_enc = len(meta.get("encoder_filters", (8, 16, 32, 64)))
+    n_dec = len(meta.get("decoder_filters", (64, 32, 16, 8)))
+    m = [(f"0.{2 * i}", (f"ConvBlock_{i}",)) for i in range(n_enc)]
+    for i in range(n_dec):
+        if i > 0:
+            m.append((f"1.{2 * i - 1}", (f"UpsampleBlock_{i - 1}",)))
+        m.append((f"1.{2 * i}", (f"ConvBlock_{n_enc + i}",)))
+    return m + [(f"1.{2 * (n_dec - 1) + 1}", ("Conv_0",))]
+
+
+def _reference_backbone_key(backbone: str, key: str) -> str:
+    """The reference's ``backbone.backbone_layers`` key of a torchvision
+    layer: its ResNet50 re-wraps the children in one Sequential
+    (0 conv1, 1 bn1, 4-7 layer1-4); VGG16 and MobileNetV2 keep the
+    ``features`` indices."""
+    if backbone == "resnet":
+        head, _, rest = key.partition(".")
+        key = {"conv1": "0", "bn1": "1"}.get(head) or \
+            f"{3 + int(head[len('layer'):])}.{rest}"
+    return "backbone.backbone_layers." + key
+
+
+def _reference_reg_cls(sd: Mapping[str, Any], meta: Mapping[str, Any]):
+    """(params, batch_stats) of a reference Regressor or Classifier
+    (JAX `conversion.py:608-679`)."""
+    backbone = meta.get("backbone", "mobilenet")
+    if backbone not in BACKBONE_NAMES:
+        raise ValueError(f"Unknown backbone_type '{backbone}'")
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, path, kind in BACKBONE_NAMES[backbone]():
+        full = _reference_backbone_key(backbone, key)
+        path = ("ConvBackbone_0", "features") + tuple(path)
+        if kind == "conv":
+            b = sd.get(full + ".bias")
+            _set(params, path, _to_flax(_f32(sd[full + ".weight"]),
+                                        None if b is None else _f32(b)))
+        else:
+            _set(params, path, {"scale": _f32(sd[full + ".weight"]),
+                                "bias": _f32(sd[full + ".bias"])})
+            _set(stats, path, {"mean": _f32(sd[full + ".running_mean"]),
+                               "var": _f32(sd[full + ".running_var"])})
+    head = "output_layer" if meta["model_type"] == "reg" \
+        else "output_layer.0"
+    params["Dense_0"] = _to_flax(_f32(sd[head + ".weight"]),
+                                 _f32(sd[head + ".bias"]))
+    return params, stats
+
+
+def _state_dict(sd) -> Dict[str, Any]:
+    return dict(sd.items()) if hasattr(sd, "items") else sd
+
+
+def _reference_model(loaded: Mapping[str, Any], device: str):
+    """The port's model of a reference metadict, weights loaded."""
+    from . import loaders
+    meta = {k: v for k, v in loaded.items()
+            if k not in ("weights", "encoder", "decoder", "optimizer")}
+    kind = meta.get("model_type")
+    if kind == "seg":
+        meta.setdefault("model", "Unet")
+        model = loaders.build_model(meta, device)
+        model.load_jax_variables(*reference_to_jax(
+            _state_dict(loaded["weights"]),
+            _fcnn_mapping(meta["model"], meta.get("with_dilation", False))))
+    elif kind == "imspec":
+        model = loaders.build_model(meta, device)
+        model.load_jax_variables(*reference_to_jax(
+            _state_dict(loaded["weights"]),
+            _imspec_mapping(model.meta_state_dict)))
+    elif kind == "denoising_autoencoder":
+        model = loaders.build_model(meta, device)
+        model.load_jax_variables(*reference_to_jax(
+            _state_dict(loaded["weights"]), _denoiser_mapping(meta)))
+    elif kind in ("reg", "cls"):
+        model = loaders.build_model(meta, device)
+        model.load_jax_variables(*_reference_reg_cls(
+            _state_dict(loaded["weights"]), meta))
+    elif kind == "vae":
+        coord, disc = meta.get("coord", 0), meta.get("discrete_dim")
+        meta["vae_type"] = ("jr" if coord and disc else "r" if coord
+                            else "j" if disc else "") + "VAE"
+        model = loaders.build_model(meta, device)
+        enc, _ = reference_to_jax(_state_dict(loaded["encoder"]),
+                                  _vae_encoder_mapping(model.metadict))
+        dec, _ = reference_to_jax(_state_dict(loaded["decoder"]),
+                                  _vae_decoder_mapping(model.metadict))
+        model.load_jax_params({"encoder": enc, "decoder": dec})
+        return model
+    else:
+        raise NotImplementedError(
+            f"Torch checkpoint conversion for model_type={kind} is not "
+            "implemented (supported: 'seg', 'imspec', 'vae', 'reg', 'cls', "
+            "'denoising_autoencoder')")
+    model.meta_state_dict = {**model.meta_state_dict, **meta}
+    return model
+
+
+def load_torch_checkpoint(filepath: str, device: str = "cuda"):
+    """The port's model, on ``device`` (the card by default), of a
+    checkpoint of the original atomai (a ``.tar`` metadict: constructor
+    arguments and a ``state_dict``), for every model type of its
+    ``load_model`` (JAX `conversion.py:705-734`): "seg" (Unet, dilnet,
+    SegResNet), "imspec", "vae" (rVAE, jVAE, jrVAE by the stored
+    ``coord`` and ``discrete_dim``), "reg" and "cls" (the torchvision
+    backbones) and "denoising_autoencoder".
+
+    The file is read with ``torch.load(..., weights_only=False)``, as the
+    JAX package reads it: the reference pickles its metadict, so only load
+    files you trust."""
+    loaded = torch.load(filepath, map_location="cpu", weights_only=False)
+    return _reference_model(loaded, device)
+
+
+def load_torch_ensemble(filepath: str, device: str = "cuda"):
+    """(the Segmentor with the members' mean parameters, {member:
+    state_dict}) of the original atomai's ``*_ensemble_metadict.tar``
+    (JAX `conversion.py:737-770`), on ``device``. Each member keeps its own
+    BatchNorm statistics; the averaged model takes the last member's, as
+    in the JAX package. Read with ``torch.load(..., weights_only=False)``
+    (trusted files only)."""
+    loaded = torch.load(filepath, map_location="cpu", weights_only=False)
+    if loaded.get("model_type") != "seg":
+        raise NotImplementedError(
+            "Ensemble conversion currently supports segmentation "
+            f"ensembles only (got model_type={loaded.get('model_type')})")
+    members = loaded["weights"]
+    if not isinstance(members, dict):
+        raise ValueError("expected ensemble weights as {index: state_dict}")
+    ensemble = {}
+    for idx in sorted(members):
+        model = _reference_model({**loaded, "weights": members[idx]}, device)
+        ensemble[int(idx)] = {k: v.detach().clone() for k, v in
+                              model.net.state_dict().items()}
+    with torch.no_grad():
+        for name, p in model.net.named_parameters():
+            p.copy_(torch.stack([m[name] for m in ensemble.values()]
+                                ).mean(0))
+    return model, ensemble
+
+
+PRETRAINED = {
+    "BFO": ("https://github.com/ziatdinovmax/atomai/blob/master/"
+            "pretrained/bfo.tar?raw=true", "./bfo.tar"),
+    "G_MD": ("https://github.com/ziatdinovmax/atomai/blob/master/"
+             "pretrained/G_MD.tar?raw=true", "./G_MD.tar"),
+}
+
+
+def load_pretrained_model(model_name: str, device: str = "cuda"):
+    """Downloads a published pretrained model of the original atomai
+    ('G_MD' or 'BFO') into the working directory and loads it with
+    :func:`load_torch_checkpoint` (JAX `conversion.py:773-787`)."""
+    import urllib.request
+    if model_name not in PRETRAINED:
+        raise ValueError("Available pretrained models: 'G_MD', 'BFO'")
+    url, path = PRETRAINED[model_name]
+    urllib.request.urlretrieve(url, path)
+    return load_torch_checkpoint(path, device)

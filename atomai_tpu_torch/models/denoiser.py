@@ -8,13 +8,12 @@ default), ``preprocess_denoiser_data``, the facade with ``fit`` /
 at construction; the JAX model draws them when ``fit`` compiles.
 """
 
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ..core.checkpoint import load_checkpoint
 from ..core.dtypes import head_f32
 from ..core.prng import generator_from_seed
 from ..nets.blocks import ConvBlock, UpsampleBlock, init_weights_, max_pool
@@ -108,6 +107,8 @@ class DenoisingAutoencoder(BaseTrainer):
     raises without one; "cpu" when asked for).
     """
 
+    jax_bridge = staticmethod(denoiser_from_jax)
+
     def __init__(self, encoder_filters: List[int] = (8, 16, 32, 64),
                  decoder_filters: List[int] = (64, 32, 16, 8),
                  encoder_layers: List[int] = (1, 2, 2, 2),
@@ -162,20 +163,6 @@ class DenoisingAutoencoder(BaseTrainer):
         y = BasePredictor(self.net, **kwargs).batch_forward(
             x.permute(0, 3, 1, 2), kwargs.get("num_batches", 10))
         return y.float().permute(0, 2, 3, 1).cpu().numpy().squeeze()
-
-    def load_weights(self, filepath: str) -> None:
-        """Loads the weights of a ``.aoit`` file written by
-        :meth:`save_model`."""
-        _, arrays = load_checkpoint(filepath)
-        self.net.load_state_dict(arrays["params"])
-
-    def load_jax_variables(self, params: Mapping[str, Any],
-                           batch_stats: Optional[Mapping[str, Any]] = None
-                           ) -> None:
-        """Loads a JAX DenoiserNet's variables (nested dicts of numpy
-        arrays)."""
-        self.net.load_state_dict(denoiser_from_jax(
-            params, batch_stats, self.meta_state_dict), strict=True)
 
 
 def init_denoising_autoencoder(**kwargs: Any

@@ -7,9 +7,8 @@ run), ``predict`` (:class:`ImSpecPredictor`), ``save_model`` and
 construction; the JAX ImSpec draws them when ``fit`` compiles.
 """
 
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Tuple
 
-from ..core.checkpoint import load_checkpoint
 from ..predictors import ImSpecPredictor
 from ..trainers import ImSpecTrainer
 from ..transforms import imspec_augmentor
@@ -33,6 +32,8 @@ class ImSpec(ImSpecTrainer):
     ``nbfilters_decoder``, ``batch_norm``, ``encoder_downsampling``,
     ``decoder_upsampling``.
     """
+
+    jax_bridge = staticmethod(signal_ed_from_jax)
 
     def __init__(self, in_dim: Tuple[int, ...], out_dim: Tuple[int, ...],
                  latent_dim: int = 2, **kwargs: Any) -> None:
@@ -61,17 +62,3 @@ class ImSpec(ImSpecTrainer):
         inputs, ``num_batches`` (default 10) chunks them."""
         return ImSpecPredictor(self.net, self.out_dim,
                                **kwargs).run(data, **kwargs)
-
-    def load_weights(self, filepath: str) -> None:
-        """Loads the weights of a ``.aoit`` file written by
-        :meth:`save_model`."""
-        _, arrays = load_checkpoint(filepath)
-        self.net.load_state_dict(arrays["params"])
-
-    def load_jax_variables(self, params: Mapping[str, Any],
-                           batch_stats: Optional[Mapping[str, Any]] = None
-                           ) -> None:
-        """Loads a JAX SignalED's variables (nested dicts of numpy arrays);
-        afterwards both packages compute the same function."""
-        self.net.load_state_dict(signal_ed_from_jax(
-            params, batch_stats, self.meta_state_dict), strict=True)

@@ -9,32 +9,12 @@ weights drawn from ``seed`` at construction; the JAX Regressor draws them
 when ``fit`` compiles.
 """
 
-from typing import Any, Mapping, Optional
+from typing import Any
 
-from ..core.checkpoint import load_checkpoint
 from ..predictors import RegPredictor
 from ..trainers import RegTrainer
 from ..transforms import reg_augmentor
 from .conversion import reg_cls_from_jax
-
-
-class ImageModelWeights:
-    """``load_weights`` and ``load_jax_variables`` of the regression and
-    classification models."""
-
-    def load_weights(self, filepath: str) -> None:
-        """Loads the weights of a ``.aoit`` file written by
-        :meth:`save_model`."""
-        _, arrays = load_checkpoint(filepath)
-        self.net.load_state_dict(arrays["params"])
-
-    def load_jax_variables(self, params: Mapping[str, Any],
-                           batch_stats: Optional[Mapping[str, Any]] = None
-                           ) -> None:
-        """Loads the JAX net's variables (nested dicts of numpy arrays);
-        afterwards both packages compute the same function."""
-        self.net.load_state_dict(reg_cls_from_jax(
-            params, batch_stats, self.meta_state_dict), strict=True)
 
 
 def backbone_args(model, count, count_name: str, kwargs):
@@ -52,7 +32,7 @@ def backbone_args(model, count, count_name: str, kwargs):
     return model, count
 
 
-class Regressor(ImageModelWeights, RegTrainer):
+class Regressor(RegTrainer):
     """Image-based regression.
 
     Example:
@@ -65,6 +45,8 @@ class Regressor(ImageModelWeights, RegTrainer):
     needs a card and raises without one; "cpu" when asked for),
     ``input_channels`` (default 1), ``backbone``.
     """
+
+    jax_bridge = staticmethod(reg_cls_from_jax)
 
     def __init__(self, model: str = "mobilenet", out_dim: int = 1,
                  **kwargs: Any) -> None:

@@ -8,9 +8,8 @@ torch-default distribution the JAX package imitates (``AOI_TORCH_INIT``);
 the JAX Segmentor draws them when ``fit`` compiles.
 """
 
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Optional, Tuple
 
-from ..core.checkpoint import load_checkpoint
 from ..predictors import SegPredictor
 from ..trainers import SegTrainer
 from ..transforms import seg_augmentor
@@ -34,6 +33,8 @@ class Segmentor(SegTrainer):
     ``nb_filters``, ``layers``, ``batch_norm``, ``dropout``,
     ``upsampling``, ``with_dilation``.
     """
+
+    jax_bridge = staticmethod(fcnn_from_jax)
 
     def fit(self, X_train, y_train, X_test=None, y_test=None,
             loss: str = "ce", optimizer=None, training_cycles: int = 1000,
@@ -61,17 +62,3 @@ class Segmentor(SegTrainer):
         return SegPredictor(
             self.net, refine, resize, logits, nb_classes=self.nb_classes,
             **kwargs).run(imgdata, compute_coords, **kwargs)
-
-    def load_weights(self, filepath: str) -> None:
-        """Loads the weights of a ``.aoit`` file written by
-        :meth:`save_model`."""
-        _, arrays = load_checkpoint(filepath)
-        self.net.load_state_dict(arrays["params"])
-
-    def load_jax_variables(self, params: Mapping[str, Any],
-                           batch_stats: Optional[Mapping[str, Any]] = None
-                           ) -> None:
-        """Loads the JAX net's variables (nested dicts of numpy arrays);
-        afterwards both packages compute the same function."""
-        self.net.load_state_dict(fcnn_from_jax(
-            params, batch_stats, self.meta_state_dict), strict=True)

@@ -35,7 +35,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.checkpoint import save_checkpoint
+from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import Precision, default_precision
 from ..core.prng import GeneratorSeq
@@ -600,3 +600,18 @@ class dklGPTrainer(GPTrainer):
         ``params`` is its ``state_dict``)."""
         return save_checkpoint(filename, {"model_type": "dkl_fe"},
                                {"params": self.fe.state_dict()})
+
+    def load_weights(self, filename: str) -> None:
+        """Loads a feature extractor's weights into this compiled trainer:
+        a ``.aoit`` file of :meth:`save_weights`, or the JAX package's
+        "dkl_fe" file (``.aoi``, its ``fe_params``), then takes the
+        embedding's statistics anew."""
+        from ..models.conversion import dkl_fe_from_jax
+        if self.fe is None:
+            raise RuntimeError("Compile the trainer before loading weights")
+        _, arrays = load_checkpoint(filename)
+        fe = dkl_fe_from_jax(arrays["params"], self.dimdict) \
+            if is_jax_tree(arrays) else arrays["params"]
+        self.fe.load_state_dict(fe, strict=True)
+        self._compute_scale_stats()
+        self._post_cache = None

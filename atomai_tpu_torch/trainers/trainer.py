@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.mlog import open_metrics_log
@@ -429,12 +429,70 @@ class BaseTrainer:
             meta["optimizer_steps"] = self.num_steps
         return save_checkpoint(filename, meta, arrays)
 
+    #: The model's weight bridge, ``(params, batch_stats, metadict) ->
+    #: state_dict`` from the JAX package's variables (set by the models).
+    jax_bridge: Optional[Callable] = None
+
+    def load_jax_variables(self, params: Any, batch_stats: Any = None
+                           ) -> None:
+        """Loads the JAX net's variables (nested dicts of numpy arrays)
+        through the model's weight bridge; afterwards both packages
+        compute the same function."""
+        if self.jax_bridge is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no weight bridge from JAX")
+        self.net.load_state_dict(self.jax_bridge(
+            params, batch_stats, self.meta_state_dict), strict=True)
+
+    def load_arrays(self, arrays: Dict[str, Any]) -> None:
+        """Loads a checkpoint's weights: the port's ``state_dict``
+        (``arrays["params"]``) or the JAX package's ``params`` and
+        ``batch_stats``."""
+        if is_jax_tree(arrays):
+            self.load_jax_variables(arrays["params"],
+                                    arrays.get("batch_stats"))
+        else:
+            self.net.load_state_dict(arrays["params"])
+
+    def load_weights(self, filepath: str) -> None:
+        """Loads the weights of a ``.aoit`` file written by
+        :meth:`save_model`, or of the JAX package's ``.aoi`` file of the
+        same model."""
+        self.load_arrays(load_checkpoint(filepath)[1])
+
+    def _jax_optimizer_state(self, arrays: Dict[str, Any]
+                             ) -> Dict[int, Dict[str, torch.Tensor]]:
+        """torch's optimizer state from the JAX package's optax state
+        (flax state-dict form): Adam's ``count``, ``mu`` and ``nu`` become
+        each parameter's ``step``, ``exp_avg`` and ``exp_avg_sq``, the
+        moments relaid out as the weights are (through the weight bridge,
+        with the checkpoint's BatchNorm statistics alongside); an SGD
+        without momentum has no state."""
+        chain = arrays["opt_state"]
+        adam = [chain[k] for k in sorted(chain, key=int)
+                if isinstance(chain[k], dict) and "mu" in chain[k]]
+        if not adam:
+            if isinstance(self.optimizer, (torch.optim.Adam,
+                                           torch.optim.AdamW)):
+                raise ValueError("the checkpoint's optimizer state holds no "
+                                 "Adam moments")
+            return {}
+        bs = arrays.get("batch_stats")
+        mu, nu = (self.jax_bridge(adam[0][k], bs, self.meta_state_dict)
+                  for k in ("mu", "nu"))
+        step = torch.tensor(float(np.asarray(adam[0]["count"])))
+        return {i: {"step": step.clone(), "exp_avg": mu[name],
+                    "exp_avg_sq": nu[name]}
+                for i, (name, _) in enumerate(self.net.named_parameters())}
+
     def resume_training(self, filepath: str,
                         additional_cycles: Optional[int] = None) -> None:
         """Restores the weights and the optimizer state of a checkpoint
-        saved with ``include_optimizer=True`` into the compiled trainer and
-        trains on, for ``additional_cycles`` (default: the compiled
-        ``training_cycles``)."""
+        saved with ``include_optimizer=True`` (a ``.aoit`` of the port, or
+        a ``.aoi`` of the JAX package with its optax Adam state, JAX
+        `trainer.py:766-800`) into the compiled trainer and trains on, for
+        ``additional_cycles`` (default: the compiled ``training_cycles``);
+        the batch schedule goes on from the file's ``completed_cycles``."""
         meta, arrays = load_checkpoint(filepath)
         if "opt_state" not in arrays:
             raise ValueError(
@@ -442,11 +500,17 @@ class BaseTrainer:
                 "save_model(..., include_optimizer=True) to resume")
         if self.optimizer is None:
             raise RuntimeError("Compile the trainer before resuming")
-        self.net.load_state_dict(arrays["params"])
+        self.load_arrays(arrays)
         state = self.optimizer.state_dict()
-        state["state"] = arrays["opt_state"]
+        if is_jax_tree(arrays):
+            state["state"] = self._jax_optimizer_state(arrays)
+            steps = [int(v["step"]) for v in state["state"].values()]
+            self.num_steps = int(meta.get("optimizer_steps",
+                                          steps[0] if steps else 0))
+        else:
+            state["state"] = arrays["opt_state"]
+            self.num_steps = int(meta.get("optimizer_steps", 0))
         self.optimizer.load_state_dict(state)
-        self.num_steps = int(meta.get("optimizer_steps", 0))
         if additional_cycles is not None:
             self.training_cycles = additional_cycles
             if not self.full_epoch:

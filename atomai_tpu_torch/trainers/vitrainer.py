@@ -32,8 +32,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..core.checkpoint import (load_checkpoint, save_checkpoint,
-                               save_checkpoint_async)
+from ..core.checkpoint import (is_jax_tree, load_checkpoint,
+                               save_checkpoint, save_checkpoint_async)
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.prng import GeneratorSeq
@@ -309,10 +309,21 @@ class viBaseTrainer:
         return save_checkpoint(savepath, {"model_type": "weights"},
                                {"params": self._state()})
 
+    def load_arrays(self, arrays) -> None:
+        """Loads a checkpoint's weights: the port's ``{"encoder",
+        "decoder"}`` ``state_dict``s, or the JAX package's params (through
+        ``vae_from_jax``)."""
+        if is_jax_tree(arrays):
+            from ..models.conversion import vae_from_jax
+            enc, dec = vae_from_jax(arrays["params"], self.metadict)
+        else:
+            enc, dec = arrays["params"]["encoder"], arrays["params"]["decoder"]
+        self.encoder_net.load_state_dict(enc)
+        self.decoder_net.load_state_dict(dec)
+
     def load_weights(self, filepath: str) -> None:
         """Loads weights saved by :meth:`save_model` or
-        :meth:`save_weights`."""
+        :meth:`save_weights`, or by the JAX package's (a ``.aoi`` file)."""
         _, arrays = load_checkpoint(filepath)
         self._init_params()
-        self.encoder_net.load_state_dict(arrays["params"]["encoder"])
-        self.decoder_net.load_state_dict(arrays["params"]["decoder"])
+        self.load_arrays(arrays)

@@ -3,12 +3,13 @@ staging, atom-position refinement, clustering and tracking, weight
 averaging, the GP inputs of a sparse image, and the GIF of a VAE's
 manifold recording."""
 
-from .coords import (chain_tracks, cluster_coord,
+from .coords import (chain_tracks, cluster_coord, compare_coordinates,
+                     get_intensities, get_intensities_,
                      get_lengthscale_constraints, grid2xy, imcoordgrid,
-                     mean_nn_distance, peak_refinement, subimg_trajectories,
-                     transform_coordinates)
+                     mean_nn_distance, peak_refinement, remove_edge_coord,
+                     subimg_trajectories, transform_coordinates)
 from .img import (crop_borders, extract_patches_2d, extract_subimages,
-                  get_coord_grid, img_pad, img_resize)
+                  get_coord_grid, img_pad, img_resize, load_image)
 from .imgen import (MakeAtom, create_atom_mask_pair, create_lattice_mask,
                     make_lattice_stack)
 from .nn import average_weights, sample_weights
@@ -29,4 +30,6 @@ __all__ = ["chain_tracks", "subimg_trajectories", "crop_borders",
            "format_image", "format_spectra",
            "num_classes_from_labels", "squeeze_mask_channels",
            "stack_batches", "to_onehot", "prepare_gp_input",
-           "get_lengthscale_constraints"]
+           "get_lengthscale_constraints", "get_intensities",
+           "get_intensities_", "compare_coordinates", "remove_edge_coord",
+           "load_image"]

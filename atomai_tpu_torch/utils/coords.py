@@ -197,6 +197,67 @@ class subimg_trajectories:
                 [s for _, _, s in out])
 
 
+def get_intensities_(coordinates: np.ndarray, img: np.ndarray, r: int = 3
+                     ) -> np.ndarray:
+    """Mean intensity of the r x r window around each coordinate (JAX
+    `coords.py:149-172`), all atoms at once from a summed-area table;
+    windows are clipped to the image, and one with no pixel inside it is
+    NaN."""
+    img = np.asarray(img, np.float64)
+    if img.ndim == 3:
+        img = img.mean(-1)
+    H, W = img.shape
+    sat = np.zeros((H + 1, W + 1))
+    np.cumsum(np.cumsum(img, axis=0), axis=1, out=sat[1:, 1:])
+    lo = np.around(np.asarray(coordinates)[:, :2]).astype(np.int64) - r // 2
+    hi = lo + r                       # the window spans [lo, lo + r)
+    x0, x1 = np.clip(lo[:, 0], 0, H), np.clip(hi[:, 0], 0, H)
+    y0, y1 = np.clip(lo[:, 1], 0, W), np.clip(hi[:, 1], 0, W)
+    sums = sat[x1, y1] - sat[x0, y1] - sat[x1, y0] + sat[x0, y0]
+    counts = (x1 - x0) * (y1 - y0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        means = sums / counts
+    return np.where(counts > 0, means, np.nan)
+
+
+def get_intensities(coordinates_all: Dict[int, np.ndarray],
+                    nn_input: np.ndarray, r: int = 3) -> List[np.ndarray]:
+    """:func:`get_intensities_` of each frame of a stack (JAX
+    `coords.py:175-179`)."""
+    return [get_intensities_(coord, nn_input[k], r)
+            for k, coord in coordinates_all.items()]
+
+
+def compare_coordinates(coordinates1: np.ndarray, coordinates2: np.ndarray,
+                        d_max: float, plot_results: bool = False,
+                        **kwargs) -> Tuple[np.ndarray, ...]:
+    """Each coordinate of set 1 paired with its nearest in set 2 (one
+    :func:`native.knn` query), the pairs closer than ``d_max`` kept:
+    (set 1's kept, their partners, their distances) (JAX
+    `coords.py:182-203`). ``plot_results`` is not ported (ROADMAP #19)."""
+    if plot_results:
+        raise NotImplementedError(
+            "plotting the comparison is not ported yet (ROADMAP #19)")
+    coordinates1 = np.asarray(coordinates1, float)
+    coordinates2 = np.asarray(coordinates2, float)
+    dist, idx = knn(coordinates2, coordinates1, 1)
+    dist, idx = dist[:, 0], idx[:, 0]
+    keep = dist < d_max
+    return coordinates1[keep], coordinates2[idx[keep]], dist[keep]
+
+
+def remove_edge_coord(coordinates: np.ndarray, dim: Tuple[int, int],
+                      dist_edge: int) -> np.ndarray:
+    """The coordinates at least ``dist_edge`` from the edges of an image
+    of ``dim`` (h, w) (JAX `coords.py:360-367`; rows against w and
+    columns against h, as there)."""
+    h, w = dim
+    c = coordinates
+    bad = ((c[:, 0] > w - dist_edge) | (c[:, 0] < dist_edge) |
+           (c[:, 1] > h - dist_edge) | (c[:, 1] < dist_edge))
+    return coordinates[~bad]
+
+
 def get_lengthscale_constraints(grid: np.ndarray) -> List[List[float]]:
     """GP lengthscale interval constraints [lower, upper] from a grid of
     pixel indices (`atomai_tpu/utils/coords.py:370-374`)."""

@@ -132,3 +132,20 @@ def get_coord_grid(imgdata: np.ndarray, step: int,
         coord = np.concatenate((coord, np.zeros((len(coord), 1))), axis=-1)
         return {i: coord for i in range(imgdata.shape[0])}
     return np.concatenate([coord] * imgdata.shape[0], axis=0)
+
+
+def load_image(image_path: str) -> np.ndarray:
+    """An image from a ``.npy`` file (uint8 as it is; anything else
+    min-max scaled to uint8) or a standard image format through PIL, as
+    RGB (JAX `img.py:486-500`; PIL is imported on use)."""
+    import os
+    ext = os.path.splitext(image_path)[1].lower()
+    if ext == ".npy":
+        img_array = np.load(image_path)
+        if img_array.dtype == np.uint8:
+            return img_array
+        a = img_array.astype(np.float64)
+        lo, hi = np.min(a), np.max(a)
+        return ((a - lo) / max(hi - lo, 1e-12) * 255).astype(np.uint8)
+    from PIL import Image
+    return np.asarray(Image.open(image_path).convert("RGB"))

@@ -1,11 +1,14 @@
 """Plotting helpers (counterpart of `atomai_tpu/utils/viz.py:15-20,
-153-170`): matplotlib's pyplot on the Agg backend, and a GIF from a
-directory of PNGs. matplotlib and PIL are imported inside the functions,
+90-106, 153-170`): matplotlib's pyplot on the Agg backend, the heatmap of
+a transition matrix, and a GIF from a directory of PNGs. matplotlib and PIL are imported inside the functions,
 so the package imports without them; where they are absent, plotting
 raises ``ModuleNotFoundError``."""
 
 import os
 import shutil
+from typing import Optional
+
+import numpy as np
 
 
 def _plt():
@@ -32,3 +35,22 @@ def animation_from_png(png_dir: str, moviename: str = "anim",
                        duration=int(duration * 1000), loop=0)
     if remove_dir:
         shutil.rmtree(png_dir, ignore_errors=True)
+
+
+def plot_transitions(m: np.ndarray, gmm_components: Optional[np.ndarray]
+                     = None, plot_values: bool = False, **kwargs) -> None:
+    """Heatmap of a transition matrix (``fsize``, ``cmap``, ``savefig``:
+    a file to write), with each value printed when ``plot_values``."""
+    plt = _plt()
+    fsize = kwargs.get("fsize", 6)
+    fig, ax = plt.subplots(1, 1, figsize=(fsize, fsize))
+    im = ax.imshow(m, cmap=kwargs.get("cmap", "Reds"))
+    if plot_values:
+        for (j, i), v in np.ndenumerate(m):
+            ax.text(i, j, "{:0.2f}".format(v), ha="center", va="center")
+    fig.colorbar(im)
+    ax.set_xlabel("Transition class")
+    ax.set_ylabel("Starting class")
+    if kwargs.get("savefig"):
+        fig.savefig(kwargs["savefig"])
+    plt.close(fig)

@@ -3,8 +3,10 @@ serving, segmentation training with augmentation and peak refinement, rVAE
 training, ImSpec training and serving, deep-ensemble training, serving
 and atom finding, the GP family: deep kernel learning and sparse-image
 reconstruction, the rest of the supervised zoo: the other segmentation
-nets, the denoiser, regression and classification, and the joint VAEs with
-the VAE family's encoding tools) and checks every step of them.
+nets, the denoiser, regression and classification, the joint VAEs with
+the VAE family's encoding tools, the JAX package's own checkpoints loaded,
+resumed, exported and served, and the stat layer) and checks every step of
+them.
 
     python3 chip_smoke.py
 
@@ -142,9 +144,34 @@ Phases, one JSON line each (all before the last line):
     ``encode_trajectories`` on 16 frames of it shifted a pixel a frame,
     the tracks equal to those of the cKDTree route
     (``native.knn_reference``); ``fit(epochs_per_dispatch=5)`` for 10
-    epochs against one epoch at a time from the same seed.
+    epochs against one epoch at a time from the same seed;
+25. aoi_fixture: the JAX package's own checkpoints
+    (``tests/fixtures/torch_port_unet.aoi``, config A's Unet after five
+    cycles with its optax Adam state, and ``torch_port_rvae.aoi``, config
+    C's rVAE after one epoch) loaded by ``load_model``: the Unet's forward
+    against the JAX numbers of ``torch_port_aoi.npz`` in float32 and under
+    the mixed policy, ``resume_training`` from the Adam state against the
+    JAX package's resumed losses (the seg-train fixture's bound), the
+    rVAE's counters, encoding (float32) and decoding (on the kernel);
+26. served_from_jax: the loaded Unet's ``predict`` on config A's 64 x 256²
+    frames (one labeller launch, labels, sums and coordinates equal to the
+    plain version's), the loaded rVAE's ``manifold2d`` and ``decode`` on
+    the spatial-MLP forward kernel against its plain version,
+    ``export_model`` of the loaded Unet on the card and on the CPU, both
+    artifacts served on the card by ``load_exported`` at batch 1 and 64
+    against the live maps, with times;
+27. stat_path: phase 10's trained Unet on the 64 x 512² lattice stack ->
+    Locator (one labeller launch, exact) -> edge atoms removed ->
+    ``stat.imlocal(window_size=32)`` (about 55,000 windows) -> GMM (diag),
+    PCA, FastICA, NMF and ``transition_matrix``; ``SpectralUnmixer`` (NMF)
+    of a 256 x 256 x 1024 cube made from a seed; ``SlidingFFTNMF`` of a
+    2048² lattice frame; each call's seconds and the card's busy share,
+    and the same calls of the port on the CPU (on the first windows and
+    on corners) against the card's: PCA components and variances, KMeans
+    and GMM labels, NMF and ICA reconstruction errors.
 Then one JSON line on the kernels (the spatial-MLP records with their
-``jrvae_path`` numbers), and as the last line
+``jrvae_path`` numbers, the labeller's and the forward's with the
+``served_from_jax`` and ``stat_path`` ones), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -365,6 +392,26 @@ JVAE_EPD_EPOCHS = 10
 TOL_EPD_REL = 1e-6
 TRAJ_FRAMES = 16          # encode_trajectories: a 256² frame shifted 1 px
 TRAJ_RMAX = 3             # a frame; tracks chained within 3 px
+
+# phases 25-27: the JAX package's own checkpoints, served; the stat layer
+AOI_UNET = os.path.join(FIXTURES, "torch_port_unet.aoi")
+AOI_RVAE = os.path.join(FIXTURES, "torch_port_rvae.aoi")
+AOI_RESUME_CYCLES = 3     # scripts/make_torch_port_fixtures.py's
+TOL_AOI_ENCODE = 1e-4     # of scale: the rVAE encoder in float32, TF32 off
+TOL_EXPORT_MIXED = 1e-2   # abs, probabilities: the traced bf16 forward
+TOL_EXPORT_F32 = 1e-4     # abs, probabilities: a CPU artifact, float32
+STAT_WINDOW = 32
+STAT_EDGE = 16            # px kept clear of the frame's edge
+STAT_CPU_N = 2048         # windows held against the CPU (the first ones)
+TOL_STAT_PCA = 1e-3       # abs, unit-norm components (sign-fixed)
+TOL_STAT_VAR_REL = 1e-3   # explained variance ratios, relative
+STAT_LABEL_SHARE = 0.99   # KMeans / GMM labels equal on the card and CPU
+TOL_STAT_REC_REL = 1e-2   # NMF / ICA reconstruction errors, relative
+CUBE = (256, 256, 1024)   # SpectralUnmixer's cube (256 MB of float32)
+CUBE_CPU = 32             # its 32 x 32 corner held against the CPU
+TOL_CUBE_FIT = 5e-2       # the cube's NMF reconstruction error, relative
+FFT_FRAME = 2048
+FFT_CPU = 256             # the frame's 256² corner held against the CPU
 
 
 def check(cond, msg):
@@ -2663,6 +2710,405 @@ def phase_jvae_path(device, mlp_errs):
             for i in range(2)]
 
 
+def timed_load(path, device):
+    """``load_model`` of ``path`` on ``device``: the model and its
+    seconds."""
+    import torch
+    from atomai_tpu_torch import load_model
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda d: None)
+    sync(device)
+    t0 = time.perf_counter()
+    m = load_model(path, device=device)
+    sync(device)
+    return m, time.perf_counter() - t0
+
+
+def aoi_fixture_run(device):
+    """The JAX package's own .aoi files on ``device``: forwards, encodings
+    and decodings against its numbers, and resume_training of its Adam
+    state against its resumed losses (checked); the fields to report."""
+    import torch
+    from atomai_tpu_torch.core import Precision
+    fx = dict(np.load(os.path.join(FIXTURES, "torch_port_aoi.npz")))
+    st = dict(np.load(os.path.join(FIXTURES, "torch_port_seg_train.npz")))
+    x = np.load(os.path.join(FIXTURES, "torch_port_unet_fwd.npz"))["x"]
+    m, unet_load_s = timed_load(AOI_UNET, device)
+    errs = {}
+    for label, policy, tol in [("f32", Precision.full(), TOL_UNET_F32),
+                               ("mixed", m.precision, TOL_UNET_BF16)]:
+        m_policy, m.precision = m.precision, policy
+        with torch.no_grad():
+            y = m.forward(torch.from_numpy(x).to(device)).cpu().numpy()
+        m.precision = m_policy
+        errs[label] = float(np.abs(y - fx["unet/y"]).max())
+        check(errs[label] <= tol, f"loaded Unet {label} off by "
+              f"{errs[label]} (tolerance {tol})")
+    m.precision = Precision.full()
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        m.compile_trainer((st["x_train"], st["y_train"], st["x_test"],
+                           st["y_test"]), training_cycles=AOI_RESUME_CYCLES,
+                          batch_size=4, print_loss=AOI_RESUME_CYCLES,
+                          filename=os.path.join(tmp, "resume"))
+        m.resume_training(AOI_UNET, additional_cycles=AOI_RESUME_CYCLES)
+    check(np.array_equal(m.batch_idx_train, fx["unet/resume_schedule"]),
+          "resumed batch schedule differs from the JAX package's")
+    loss_err = {k: [float(v) for v in np.abs(
+        np.asarray(m.loss_acc[k]) / fx[f"unet/resume_{k}"] - 1)]
+        for k in ("train_loss", "test_loss")}
+    check(loss_err["train_loss"][0] <= TOL_SEG_LOSS_REL,
+          f"first resumed loss off by {loss_err['train_loss'][0]}")
+    worst = max(max(v) for v in loss_err.values())
+    check(worst <= TOL_SEG_LOSS_REL, f"resumed losses off by {worst}")
+    check(m.num_steps == 5 + AOI_RESUME_CYCLES, f"{m.num_steps} steps")
+
+    v, rvae_load_s = timed_load(AOI_RVAE, device)
+    check(v.num_iter == 8 and (device.type != "cuda" or
+                               v.decoder_net.fused()),
+          f"loaded rVAE: num_iter {v.num_iter}, fused {v.decoder_net.fused()}")
+    v.precision = Precision.full()     # the encoder in float32, TF32 off
+    z_mean, z_logsd = v.encode(fx["rvae/x"])
+    enc_err = max(scaled_err(torch.from_numpy(z_mean),
+                             torch.from_numpy(fx["rvae/z_mean"])),
+                  scaled_err(torch.from_numpy(z_logsd),
+                             torch.from_numpy(fx["rvae/z_logsd"])))
+    check(enc_err <= TOL_AOI_ENCODE, f"encode off by {enc_err} of scale")
+    dec_err = {k: scaled_err(torch.from_numpy(np.asarray(got, np.float32)),
+                             torch.from_numpy(fx[f"rvae/{k}"]))
+               for k, got in (("decoded", v.decode(fx["rvae/z"])),
+                              ("manifold", v.manifold2d(d=4)))}
+    for k, e in dec_err.items():
+        check(e <= TOL_MLP_SCALED, f"{k} off by {e} of scale (the bf16 "
+              "kernel's bound)")
+    return dict(unet_load_s=unet_load_s, rvae_load_s=rvae_load_s,
+                unet_fwd_max_abs_err=errs,
+                resume_train_loss=m.loss_acc["train_loss"],
+                resume_train_loss_ref=fx["unet/resume_train_loss"].tolist(),
+                resume_rel_err=loss_err, rvae_num_iter=v.num_iter,
+                rvae_encode_scaled_err=enc_err,
+                rvae_decode_scaled_err=dec_err,
+                tolerances={"f32": TOL_UNET_F32, "mixed": TOL_UNET_BF16,
+                            "loss_rel": TOL_SEG_LOSS_REL,
+                            "encode": TOL_AOI_ENCODE,
+                            "decode": TOL_MLP_SCALED})
+
+
+def phase_aoi_fixture(device):
+    emit("aoi_fixture", **aoi_fixture_run(device))
+
+
+def phase_served_from_jax(device):
+    """The JAX-written Unet and rVAE served on the card: predict -> Locator
+    (one labeller launch, exact), the rVAE's decode and manifold on the
+    spatial-MLP forward kernel against its plain version, and the Unet
+    exported (on the card and on the CPU) and served at batch 1 and 64."""
+    import torch
+    from atomai_tpu_torch import export_model, load_exported, load_model
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.nets import ed
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, _, _ = make_lattice_stack(**MAIN)
+    m = load_model(AOI_UNET, device=device)
+    m.predict(imgs, verbose=False)          # warm-up
+    cc_kernel.LAUNCHES = 0
+    maps, coords = m.predict(imgs, verbose=False)
+    torch.cuda.synchronize(device)
+    launches = cc_kernel.LAUNCHES
+    check(launches == 1, f"predict launched the labeller {launches} times")
+    n, size = MAIN["n_images"], MAIN["size"]
+    check(maps.shape == (n, size, size, 1) and len(coords) == n,
+          "bad predict output")
+    lab = labeller_on(SegPredictor(m.net, nb_classes=1, verbose=False
+                                   ).predict_device(imgs), device)
+    predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 5, device)
+
+    v = load_model(AOI_RVAE, device=device)
+    sm.FORWARD_LAUNCHES = 0
+    z = np.random.RandomState(0).randn(81, 2).astype(np.float32)
+    manifold, decoded = v.manifold2d(), v.decode(z)
+    torch.cuda.synchronize(device)
+    mlp_launches = sm.FORWARD_LAUNCHES
+    check(mlp_launches == 2, f"decode and manifold2d launched the forward "
+          f"kernel {mlp_launches} times")
+    fused = ed.spatial_mlp
+    ed.spatial_mlp = sm.spatial_mlp_reference
+    try:
+        plain = v.manifold2d(), v.decode(z)
+    finally:
+        ed.spatial_mlp = fused
+    mlp_err = max(scaled_err(torch.from_numpy(np.asarray(a, np.float32)),
+                             torch.from_numpy(np.asarray(b, np.float32)))
+                  for a, b in zip((manifold, decoded), plain))
+    check(mlp_err <= TOL_MLP_SCALED, f"loaded rVAE's kernel decode off by "
+          f"{mlp_err} of scale")
+    v.dx_prior = 0.1          # the fit's default, which decoder_args reads
+    args = decoder_args(v, torch.from_numpy(config_c_patches()[:81]).to(
+        device), device)
+    gy = torch.zeros((81, 1, 1024), device=device)
+    fwd_ms, fwd_plain_ms, _, _, _ = mlp_kernel_ms(args, gy, device)
+    bound = roofline_bound_fwd(81, 1024, args[2].shape[1], args[4].shape[0])
+
+    # export: on the card (its bf16 policy traced), and on the CPU
+    served, timing = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = export_model(m, os.path.join(tmp, "unet"),
+                            example_shape=(size, size, 1))
+        timing["export_card_s"] = time.perf_counter() - t0
+        cpu_model = load_model(AOI_UNET, device="cpu")
+        t0 = time.perf_counter()
+        cpu_path = export_model(cpu_model, os.path.join(tmp, "unet_cpu"),
+                                example_shape=(size, size, 1))
+        timing["export_cpu_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served["card"] = load_exported(path, device=device)
+        served["cpu"] = load_exported(cpu_path, device=device)
+        timing["load_exported_s"] = time.perf_counter() - t0
+
+    def probs(e, x):
+        return 1 / (1 + np.exp(-e.predict(x, max_batch=64)))
+
+    errs = {}
+    live = {64: m.predict(imgs, compute_coords=False, verbose=False),
+            1: m.predict(imgs[:1], compute_coords=False, verbose=False)}
+    for b, want in live.items():
+        errs[f"card_b{b}"] = float(np.abs(probs(served["card"], imgs[:b])
+                                          - want).max())
+        check(errs[f"card_b{b}"] <= TOL_EXPORT_MIXED, f"exported predict "
+              f"at batch {b} off by {errs[f'card_b{b}']}")
+    # the CPU's float32 artifact against the live float32 forward (the
+    # predictor runs the card's mixed policy, the trainer's forward the
+    # model's own)
+    m.precision = Precision.full()
+    x = (imgs - imgs.min()) / (imgs.max() - imgs.min())
+    with torch.no_grad():
+        want = torch.sigmoid(m.forward(torch.from_numpy(
+            x[..., None].astype(np.float32)).to(device))).cpu().numpy()
+    m.precision = Precision.mixed()
+    errs["cpu_artifact_b64"] = float(np.abs(probs(served["cpu"], imgs) -
+                                            want).max())
+    check(errs["cpu_artifact_b64"] <= TOL_EXPORT_F32, "the CPU artifact on "
+          f"the card off by {errs['cpu_artifact_b64']}")
+    for b in (1, 64):
+        timing[f"exported_predict_b{b}_ms"] = cuda_ms(
+            lambda: served["card"].predict(imgs[:b], max_batch=64), 5,
+            device)
+        timing[f"segmentor_predict_maps_b{b}_ms"] = cuda_ms(
+            lambda: m.predict(imgs[:b], compute_coords=False,
+                              verbose=False), 5, device)
+        timing[f"exported_forward_b{b}_ms"] = cuda_ms(
+            lambda: served["card"](torch.from_numpy(imgs[:b, ..., None]
+                                                    ).to(device)), 5, device)
+    emit("served_from_jax", frames=list(imgs.shape), launches=launches,
+         atoms=int(sum(len(c) for c in coords.values())),
+         predict_ms=predict_ms, labeller=lab, mlp_launches=mlp_launches,
+         mlp_scaled_err=mlp_err, mlp_fwd_ms=fwd_ms,
+         mlp_fwd_plain_ms=fwd_plain_ms, mlp_fwd_bound_ms=bound[0],
+         export_max_abs_err=errs, export=timing,
+         tolerances={"mlp": TOL_MLP_SCALED, "export_mixed":
+                     TOL_EXPORT_MIXED, "export_f32": TOL_EXPORT_F32})
+    return ({"launches": launches, "max_abs_err": lab["max_abs_err"],
+             "ms": lab["kernel_ms"], "plain_ms": lab["kernel_plain_ms"],
+             "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"]},
+            {"launches": mlp_launches, "max_abs_err": mlp_err, "ms": fwd_ms,
+             "plain_ms": fwd_plain_ms, "bound_ms": bound[0],
+             "bound_by": bound[1]})
+
+
+def roofline_bound_fwd(B, n, H, L):
+    """(ms, "bytes"/"operations") of the spatial-MLP forward's bound."""
+    from atomai_tpu_torch.ops import roofline
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    return roofline.bound(sm.spatial_mlp_flops(B, n, H, L)[0],
+                          sm.spatial_mlp_bytes(B, n, H, L)[0])
+
+
+def stat_call(fn, device):
+    """(result, wall seconds, the card's busy share) of ``fn``: timed on
+    the host clock to an idle card, then profiled in a second call."""
+    import torch
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0, busy_share(fn, device)
+
+
+def rel_rec_err(X, W, H):
+    return float(np.linalg.norm(X - W @ H) / np.linalg.norm(X))
+
+
+def span_rec_err(X, C):
+    """Relative error of ``X`` (centred) projected on the row span of C."""
+    Xc = X - X.mean(0)
+    q, _ = np.linalg.qr(np.asarray(C, np.float64).T)
+    return float(np.linalg.norm(Xc - Xc @ q @ q.T) / np.linalg.norm(Xc))
+
+
+def spectral_cube(shape, seed=0):
+    """(h, w, e) non-negative cube: 4 Gaussian-peak spectra mixed by
+    smooth abundance maps, plus 1% noise."""
+    h, w, e = shape
+    rng = np.random.RandomState(seed)
+    axis = np.arange(e, dtype=np.float32)
+    ends = np.stack([np.exp(-((axis - c) / s) ** 2) for c, s in
+                     zip(rng.uniform(100, e - 100, 4),
+                         rng.uniform(20, 80, 4))]).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    maps = np.stack([np.sin(2 * np.pi * (a * yy + b * xx)) + 1.2
+                     for a, b in rng.uniform(0.5, 2, (4, 2))], -1)
+    maps = (maps / maps.sum(-1, keepdims=True)).astype(np.float32)
+    cube = maps.reshape(-1, 4) @ ends
+    cube += 0.01 * np.abs(rng.randn(*cube.shape)).astype(np.float32)
+    return cube.reshape(h, w, e)
+
+
+def phase_stat_path(device, trained_net):
+    """The stat layer at users' sizes: phase 10's Unet on the 64 x 512²
+    lattice stack -> Locator -> imlocal(32) -> GMM, PCA, ICA, NMF and
+    transitions; SpectralUnmixer on a 256 x 256 x 1024 cube; SlidingFFTNMF
+    on a 2048² frame; each timed with its busy share, and held against the
+    same call of the port on the CPU (on the first windows, a corner)."""
+    import torch
+    from atomai_tpu_torch import stat
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack, remove_edge_coord
+    imgs, _, _ = make_lattice_stack(**LATTICE)
+    pred = SegPredictor(trained_net, nb_classes=1, verbose=False)
+    pred.run(imgs)                            # warm-up
+    cc_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    maps, coords = pred.run(imgs)
+    torch.cuda.synchronize(device)
+    predict_s = time.perf_counter() - t0
+    launches = cc_kernel.LAUNCHES
+    check(launches == 1, f"predict launched the labeller {launches} times")
+    lab = labeller_on(pred.predict_device(imgs), device)
+    size = LATTICE["size"]
+    coords = {k: remove_edge_coord(c, (size, size), STAT_EDGE)
+              for k, c in coords.items()}
+    n_atoms = int(sum(len(c) for c in coords.values()))
+    check(n_atoms > 50000, f"only {n_atoms} atoms after edge removal")
+    times, busy, agree = {}, {}, {}
+
+    def run(name, fn):
+        out, times[name], busy[name] = stat_call(fn, device)
+        return out
+
+    loc = run("imlocal", lambda: stat.imlocal(maps, coords, STAT_WINDOW,
+                                              device=device))
+    n = loc.d0
+    check(loc.imgstack.shape == (n, STAT_WINDOW, STAT_WINDOW, 1) and
+          n > 50000, f"stack {loc.imgstack.shape}")
+    X = loc.imgstack.reshape(n, -1)
+    gmm = run("gmm", lambda: loc.gmm(4, "diag"))
+    pca = run("pca", lambda: loc.pca(8))
+    ica = run("ica", lambda: loc.ica(4))
+    nmf = run("nmf", lambda: loc.nmf(4))
+    tm = run("transition_matrix", lambda: loc.transition_matrix(
+        4, rmax=4, sum_all_transitions=True))
+    for name, res in (("gmm", gmm[0]), ("pca", pca[1]), ("ica", ica[1]),
+                      ("nmf", nmf[1])):
+        check(bool(np.isfinite(res).all()), f"{name}: non-finite output")
+    check(len(tm["trajectories"]) > 500 and
+          bool(np.isfinite(tm["all_transitions"]).all()), "transitions")
+
+    # the same calls on the first STAT_CPU_N windows, card against CPU
+    t_cpu = time.perf_counter()
+    sub = X[:STAT_CPU_N]
+    res = {}
+    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        res[key] = {
+            "pca": stat.PCA(8, device=dev).fit(sub),
+            "km": stat.KMeans(4, device=dev).fit_predict(sub),
+            "gmm": stat.GaussianMixture(4, "diag", device=dev
+                                        ).fit_predict(sub),
+            "ica": stat.FastICA(4, device=dev),
+            "nmf": stat.NMF(4, device=dev)}
+        res[key]["ica_s"] = res[key]["ica"].fit_transform(sub)
+        res[key]["nmf_w"] = res[key]["nmf"].fit_transform(sub)
+    c, h = res["card"], res["cpu"]
+    agree["pca_components_max_abs"] = float(np.abs(
+        c["pca"].components_ - h["pca"].components_).max())
+    agree["pca_variance_rel"] = float(np.abs(
+        c["pca"].explained_variance_ratio_ /
+        h["pca"].explained_variance_ratio_ - 1).max())
+    agree["kmeans_label_share"] = float((c["km"] == h["km"]).mean())
+    agree["gmm_label_share"] = float((c["gmm"] == h["gmm"]).mean())
+    rec = {d: (rel_rec_err(sub, r["nmf_w"], r["nmf"].components_),
+               span_rec_err(sub, r["ica"].components_))
+           for d, r in res.items()}
+    agree["nmf_rec_err"] = [rec["card"][0], rec["cpu"][0]]
+    agree["ica_rec_err"] = [rec["card"][1], rec["cpu"][1]]
+    agree["nmf_rec_rel"] = abs(rec["card"][0] / rec["cpu"][0] - 1)
+    agree["ica_rec_rel"] = abs(rec["card"][1] / rec["cpu"][1] - 1)
+    check(agree["pca_components_max_abs"] <= TOL_STAT_PCA and
+          agree["pca_variance_rel"] <= TOL_STAT_VAR_REL,
+          f"PCA card vs CPU: {agree}")
+    check(min(agree["kmeans_label_share"], agree["gmm_label_share"]) >=
+          STAT_LABEL_SHARE, f"labels card vs CPU: {agree}")
+    check(max(agree["nmf_rec_rel"], agree["ica_rec_rel"]) <=
+          TOL_STAT_REC_REL, f"reconstructions card vs CPU: {agree}")
+    times["card_vs_cpu_windows"] = time.perf_counter() - t_cpu
+
+    # hyperspectral unmixing of a 256 MB cube
+    cube = spectral_cube(CUBE)
+    comps, abund = run("spectral_unmixer", lambda: stat.SpectralUnmixer(
+        "nmf", 4, device=device).fit(cube))
+    flat = cube.reshape(-1, CUBE[2])
+    cube_err = rel_rec_err(flat, abund.reshape(-1, 4), comps)
+    check(cube_err <= TOL_CUBE_FIT, f"cube NMF error {cube_err}")
+    t_cpu = time.perf_counter()
+    corner = np.ascontiguousarray(cube[:CUBE_CPU, :CUBE_CPU])
+    cerr = [rel_rec_err(corner.reshape(-1, CUBE[2]), a.reshape(-1, 4), cc)
+            for cc, a in (stat.SpectralUnmixer("nmf", 4, device=d).fit(
+                corner) for d in (device, "cpu"))]
+    agree["unmixer_corner_rec_err"] = cerr
+    check(abs(cerr[0] / cerr[1] - 1) <= TOL_STAT_REC_REL,
+          f"unmixer card vs CPU: {cerr}")
+    times["card_vs_cpu_cube"] = time.perf_counter() - t_cpu
+
+    # sliding FFT + NMF on one 2048² frame
+    frame = make_lattice_stack(n_images=1, size=FFT_FRAME, spacing=16,
+                               seed=0)[0][0]
+    fc, fa = run("sliding_fft_nmf", lambda: stat.SlidingFFTNMF(
+        device=device).analyze_image(frame, output_path=""))
+    check(bool(np.isfinite(fc).all() and np.isfinite(fa).all()),
+          "FFT-NMF non-finite")
+    ferr = []
+    t_cpu = time.perf_counter()
+    for d in (device, "cpu"):
+        an = stat.SlidingFFTNMF(device=d)
+        spectra = an.process_fft(an.make_windows(frame[:FFT_CPU, :FFT_CPU]))
+        comp, ab = an.run_nmf(spectra)
+        ferr.append(rel_rec_err(spectra.reshape(len(spectra), -1),
+                                ab.reshape(-1, comp.shape[0]),
+                                comp.reshape(comp.shape[0], -1)))
+    agree["fft_nmf_corner_rec_err"] = ferr
+    check(abs(ferr[0] / ferr[1] - 1) <= TOL_STAT_REC_REL,
+          f"FFT-NMF card vs CPU: {ferr}")
+    times["card_vs_cpu_fft"] = time.perf_counter() - t_cpu
+    emit("stat_path", frames=list(imgs.shape), launches=launches,
+         predict_s=predict_s, atoms=n_atoms, windows=n,
+         stack_mb=loc.imgstack.nbytes / 2 ** 20, seconds=times,
+         busy_share=busy, card_vs_cpu=agree, labeller=lab,
+         gmm_class_sizes=[int(len(v)) for v in gmm[1]],
+         pca_variance_ratio=c["pca"].explained_variance_ratio_.tolist(),
+         trajectories=len(tm["trajectories"]), cube=list(CUBE),
+         cube_rec_err=cube_err, fft_frame=FFT_FRAME,
+         fft_windows=int(fa.shape[1] * fa.shape[2]),
+         tolerances={"pca": TOL_STAT_PCA, "variance": TOL_STAT_VAR_REL,
+                     "label_share": STAT_LABEL_SHARE,
+                     "rec_rel": TOL_STAT_REC_REL, "cube": TOL_CUBE_FIT})
+    return {"launches": launches, "max_abs_err": lab["max_abs_err"],
+            "ms": lab["kernel_ms"], "plain_ms": lab["kernel_plain_ms"],
+            "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2698,6 +3144,10 @@ def main():
     phase_jvae_fixture(device)
     for record, jrvae in zip(kernels[1:], phase_jvae_path(device, mlp_errs)):
         record["jrvae_path"] = jrvae
+    phase_aoi_fixture(device)
+    kernels[0]["served_from_jax"], kernels[1]["served_from_jax"] = \
+        phase_served_from_jax(device)
+    kernels[0]["stat_path"] = phase_stat_path(device, trained_net)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,8 +122,31 @@ way up their ramps), both priors 0.1:
   ``<model>_adam/...``: the params after one ``optax.adam(1e-4)`` step
   on -ELBO.
 
+``tests/fixtures/torch_port_unet.aoi`` and ``torch_port_rvae.aoi`` are
+checkpoints written by the JAX package itself (``save_model``, msgpack
+payload), for the port's ``load_model`` and ``resume_training`` to read;
+``tests/fixtures/torch_port_aoi.npz`` holds the JAX numbers beside them
+(:func:`make_aoi_fixture`):
+- ``torch_port_unet.aoi``: the JAX ``Segmentor`` of the seg-train fixture
+  after its 5 cycles (config A's width, the same data and schedule),
+  saved with ``include_optimizer=True`` (the optax Adam state and
+  ``completed_cycles``);
+- ``unet/y``: the saved net's float32 eval output of the Unet fixture's
+  ``x``;
+- ``unet/resume_schedule``, ``unet/resume_train_loss``,
+  ``unet/resume_test_loss``: ``resume_training`` of that file for
+  :data:`AOI_RESUME_CYCLES` more cycles, float32 at the highest matmul
+  precision;
+- ``torch_port_rvae.aoi``: ``rVAE((32, 32), latent_dim=2)`` (config C's)
+  after :data:`AOI_RVAE_EPOCHS` epoch of ``fit`` on config C's 1,024
+  patches, batch 128 (its ``num_iter`` and ``num_epochs`` in the meta);
+- ``rvae/x``, ``rvae/z_mean``, ``rvae/z_logsd``: ``encode`` of 16 of the
+  patches; ``rvae/z``, ``rvae/decoded``: ``decode`` of a 3 x 3 latent
+  grid; ``rvae/manifold``: ``manifold2d(d=4)``.
+
 Run on the CPU: ``python scripts/make_torch_port_fixtures.py``.
-``tests/test_torch_nets.py``, ``tests/test_torch_vae.py``,
+``tests/test_torch_aoi_fixture.py``, ``tests/test_torch_nets.py``,
+``tests/test_torch_vae.py``,
 ``tests/test_torch_seg_train_fixture.py``,
 ``tests/test_torch_imspec_fixture.py``, ``tests/test_torch_ensemble.py``,
 ``tests/test_torch_zoo_fixture.py`` and ``tests/test_torch_jvae_fixture.py``
@@ -199,6 +222,12 @@ JVAE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_jvae.npz")
 JVAE_MODELS = {"jvae": "jVAE", "jrvae": "jrVAE"}
 JVAE_SEEDS = {"jvae": 0, "jrvae": 1}
 JVAE_NUM_ITER = 5000
+AOI_UNET = os.path.join(ROOT, "tests", "fixtures", "torch_port_unet.aoi")
+AOI_RVAE = os.path.join(ROOT, "tests", "fixtures", "torch_port_rvae.aoi")
+AOI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aoi.npz")
+AOI_RESUME_CYCLES = 3
+AOI_RVAE_EPOCHS = 1
+AOI_RVAE_BATCH = 128
 
 
 def flatten(tree, prefix):
@@ -763,6 +792,58 @@ def make_jvae_fixture():
     return out
 
 
+def make_aoi_fixture(unet_path=AOI_UNET, rvae_path=AOI_RVAE):
+    """Writes the JAX package's own checkpoints of a config A Unet (with
+    its optimizer state) and a config C rVAE to ``unet_path`` and
+    ``rvae_path``, and returns the JAX numbers beside them; on the CPU in
+    float32."""
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from atomai_tpu.models import Segmentor, rVAE
+    from atomai_tpu.utils import make_lattice_stack
+
+    imgs, masks, _ = make_lattice_stack(n_images=10, size=64, spacing=12,
+                                        seed=0)
+    base = dict(np.load(FIXTURE))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            jax.default_matmul_precision("highest"):
+        m = Segmentor("Unet", 1, nb_filters=16, layers=(1, 2, 2, 3))
+        m.params = unflatten(base, "params")
+        m.batch_stats = unflatten(base, "batch_stats")
+        m.fit(imgs[:8], masks[:8], imgs[8:], masks[8:],
+              training_cycles=SEG_CYCLES, batch_size=SEG_BATCH,
+              print_loss=SEG_CYCLES, filename=os.path.join(tmp, "seg"),
+              mesh=False)
+        m.save_model(unet_path[:-len(".aoi")], include_optimizer=True)
+        y = m.net.apply({"params": m.params, "batch_stats": m.batch_stats},
+                        base["x"], False)
+        out["unet/y"] = np.asarray(y, np.float32)
+        m.resume_training(unet_path, additional_cycles=AOI_RESUME_CYCLES)
+        out["unet/resume_schedule"] = np.asarray(m.batch_idx_train,
+                                                 np.int64)
+        for k in ("train_loss", "test_loss"):
+            out[f"unet/resume_{k}"] = np.asarray(
+                m.loss_acc[k][-AOI_RESUME_CYCLES:], np.float32)
+
+        X = config_c_patches()
+        v = rVAE((32, 32), latent_dim=2)
+        v.fit(X, training_cycles=AOI_RVAE_EPOCHS, batch_size=AOI_RVAE_BATCH,
+              filename=os.path.join(tmp, "rvae"))
+        v.save_model(rvae_path[:-len(".aoi")])
+        out["rvae/x"] = X[:16].astype(np.float32)
+        out["rvae/z_mean"], out["rvae/z_logsd"] = (
+            np.asarray(a, np.float32) for a in v.encode(X[:16]))
+        g = np.linspace(-1.5, 1.5, 3, dtype=np.float32)
+        out["rvae/z"] = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+        out["rvae/decoded"] = np.asarray(v.decode(out["rvae/z"]),
+                                         np.float32)
+        out["rvae/manifold"] = np.asarray(v.manifold2d(d=4), np.float32)
+    return out
+
+
 def main():
     for path, make in ((FIXTURE, make_fixture),
                        (RVAE_FIXTURE, make_rvae_fixture),
@@ -771,7 +852,8 @@ def main():
                        (ENSEMBLE_FIXTURE, make_ensemble_fixture),
                        (DKLGP_FIXTURE, make_dklgp_fixture),
                        (ZOO_FIXTURE, make_zoo_fixture),
-                       (JVAE_FIXTURE, make_jvae_fixture)):
+                       (JVAE_FIXTURE, make_jvae_fixture),
+                       (AOI_FIXTURE, make_aoi_fixture)):
         arrays = make()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         np.savez(path, **arrays)

@@ -1,5 +1,7 @@
 """The PyTorch port imports without JAX, and none of its sources import the
-JAX package or its stack."""
+JAX package or its stack (flax and msgpack included: the port reads the
+JAX package's ``.aoi`` files with its own msgpack reader), nor
+scikit-learn (the stat layer's decompositions are the port's own)."""
 
 import ast
 import os
@@ -13,7 +15,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "atomai_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "atomai_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "atomai_tpu",
+             "sklearn"}
 
 SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
@@ -57,6 +60,8 @@ def test_import_with_jax_blocked():
         "    importlib.import_module(mod)\n"
         "assert aoi.models.Segmentor and aoi.predictors.Locator\n"
         "assert aoi.utils.make_lattice_stack and aoi.ops.label_components\n"
+        "assert aoi.stat.imlocal and aoi.export_model and aoi.load_ensemble\n"
+        "assert aoi.models.load_torch_checkpoint\n"
         "# no kernel is built at import: only at the first CUDA launch\n"
         "assert aoi.ops.cc_kernel._lib is None\n"
         "print('ok', len(sys.modules))\n")

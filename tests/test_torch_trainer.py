@@ -22,6 +22,7 @@ Stated tolerances, all float32 on the CPU:
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -348,8 +349,11 @@ def test_load_model_vae_and_unported(tmp_path):
     assert type(v2) is rVAE and v2.num_iter == v.num_iter == 4
     np.testing.assert_allclose(v2.encode(X[:4])[0], v.encode(X[:4])[0],
                                atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 #20"):
-        load_model(str(tmp_path / "model.aoi"))
+    # the JAX package's own .aoi checkpoint of an rVAE loads too
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "torch_port_rvae.aoi")
+    r = load_model(fixture, device="cpu")
+    assert type(r) is rVAE and r.num_iter == 8 and r.in_dim == (32, 32)
     # joint VAEs are ported: a jVAE's checkpoint loads as a jVAE
     from atomai_tpu_torch.core import save_checkpoint
     from atomai_tpu_torch.models import jVAE
