@@ -23,6 +23,11 @@ Ported so far:
   serve ``torch.export`` artifacts;
 - ``stat``: local-descriptor statistics (``imlocal``: GMM, PCA, ICA, NMF,
   transitions), ``SpectralUnmixer`` and ``SlidingFFTNMF``, on the card.
+- ``utils``: lattice-graph analysis (``graphx``: bonds, rings on a C++
+  search, defect-ring clusters), atoms and blobs from masks on the
+  labeller (``find_com``, ``filter_cells``, ``get_contours``,
+  ``get_blob_params``), and the image, mask, weight, profiling and
+  plotting helpers of the JAX package's ``utils``.
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``atomai_tpu_torch/csrc``: the labeller (``cc_label.cu``) and the rVAE's
 fused spatial-decoder MLP (rVAE, jrVAE), forward and backward

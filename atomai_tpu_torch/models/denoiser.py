@@ -20,6 +20,7 @@ from ..nets.blocks import ConvBlock, UpsampleBlock, init_weights_, max_pool
 from ..predictors import BasePredictor
 from ..trainers import BaseTrainer
 from ..utils import preproc
+from ..utils.preproc import preprocess_denoiser_data
 from .conversion import denoiser_from_jax
 
 
@@ -62,18 +63,6 @@ class DenoiserNet(nn.Module):
                 x = self.upsample[i - 1](x)
             x = block(x)
         return head_f32(self.out, x)
-
-
-def preprocess_denoiser_data(X_train, y_train, X_test, y_test
-                             ) -> Tuple[np.ndarray, ...]:
-    """Noisy/clean image pairs as NHWC float32; a single 2-D image gets a
-    batch axis and a channel axis."""
-    out = []
-    for a in (X_train, y_train, X_test, y_test):
-        a = np.asarray(a, np.float32)
-        out.append(a[None, ..., None] if a.ndim == 2
-                   else preproc.as_channel_last_images(a))
-    return tuple(out)
 
 
 def _net_and_meta(encoder_filters=(8, 16, 32, 64),

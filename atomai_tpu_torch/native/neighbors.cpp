@@ -1,6 +1,7 @@
 // Neighbour queries on a uniform grid hash, for the host-side analytics of
-// atom coordinates: the clustering of ensemble_locate's cluster_coord and
-// the trajectory chaining of encode_trajectories.
+// atom coordinates: the clustering of ensemble_locate's cluster_coord, the
+// trajectory chaining of encode_trajectories, the bonds of the lattice graph
+// (utils/graphx.py) and find_coord_clusters.
 //
 // Atom coordinates are near-uniform lattices, the best case for bucketing:
 // points are hashed into cells (of edge eps for DBSCAN, sized for O(1)
@@ -8,17 +9,22 @@
 // around it. Exposed through a C ABI and loaded with ctypes (no pybind11):
 //
 //   nn_knn        k nearest neighbours with an optional upper bound
+//   nn_ball_csr   all points within r of each query, CSR output
+//   nn_pairs      all unique point pairs within r
 //   nn_dbscan     DBSCAN labels (noise = -1), sklearn's semantics
+//   nn_free       releases a buffer that nn_ball_csr or nn_pairs allocated
 //
-// The grid hash, nn_knn and nn_dbscan are those of the JAX package's
+// The grid hash and the queries are those of the JAX package's
 // atomai_tpu/native/neighbors.cpp; this package keeps its own copy, since
-// it loads nothing of that package. tests/test_torch_dbscan.py and
-// tests/test_torch_vae_tools.py hold them against plain scipy cKDTree
-// versions and the JAX package's.
+// it loads nothing of that package. tests/test_torch_dbscan.py,
+// tests/test_torch_vae_tools.py and tests/test_torch_graphx.py hold them
+// against plain scipy cKDTree versions and the JAX package's.
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
+#include <cstring>
 #include <limits>
 #include <queue>
 #include <vector>
@@ -240,6 +246,58 @@ void nn_knn(int n, int dim, const double* pts, int nq, const double* q,
     }
 }
 
+// All data points within r of each query. CSR output: indptr has nq+1
+// entries (allocated by the caller), indices is malloc'd here (release it
+// with nn_free). The ids of each query are in ascending order.
+void nn_ball_csr(int n, int dim, const double* pts, int nq, const double* q,
+                 double r, int64_t* indptr, int32_t** indices_out) {
+    Grid g = build_grid(n, dim, pts, r > 0 ? r : 0.0);
+    const double r2 = r * r;
+    std::vector<int32_t> all;
+    all.reserve(static_cast<size_t>(nq) * 8);
+    std::vector<int32_t> buf;
+    indptr[0] = 0;
+    for (int iq = 0; iq < nq; ++iq) {
+        const double* qp = q + iq * dim;
+        buf.clear();
+        visit_box(g, qp, r, [&](int32_t j) {
+            if (sqdist(qp, pts + j * dim, dim) <= r2) buf.push_back(j);
+        });
+        std::sort(buf.begin(), buf.end());
+        all.insert(all.end(), buf.begin(), buf.end());
+        indptr[iq + 1] = static_cast<int64_t>(all.size());
+    }
+    auto* out = static_cast<int32_t*>(
+        std::malloc(std::max(all.size(), size_t(1)) * sizeof(int32_t)));
+    std::memcpy(out, all.data(), all.size() * sizeof(int32_t));
+    *indices_out = out;
+}
+
+// All unique pairs (i < j) within r, as cKDTree.query_pairs gives them.
+// Returns the pair count; *pairs_out is a malloc'd flat [i0,j0,i1,j1,...]
+// buffer (release it with nn_free), ascending in i, each i's partners in
+// the grid's visiting order.
+int64_t nn_pairs(int n, int dim, const double* pts, double r,
+                 int32_t** pairs_out) {
+    Grid g = build_grid(n, dim, pts, r > 0 ? r : 0.0);
+    const double r2 = r * r;
+    std::vector<int32_t> pairs;
+    for (int i = 0; i < n; ++i) {
+        const double* p = pts + i * dim;
+        visit_box(g, p, r, [&](int32_t j) {
+            if (j > i && sqdist(p, pts + j * dim, dim) <= r2) {
+                pairs.push_back(i);
+                pairs.push_back(j);
+            }
+        });
+    }
+    auto* out = static_cast<int32_t*>(
+        std::malloc(std::max(pairs.size(), size_t(1)) * sizeof(int32_t)));
+    std::memcpy(out, pairs.data(), pairs.size() * sizeof(int32_t));
+    *pairs_out = out;
+    return static_cast<int64_t>(pairs.size() / 2);
+}
+
 // DBSCAN with sklearn's semantics: a core point has >= min_samples
 // neighbors within eps (itself included); clusters are BFS components of
 // core points; border points adopt the cluster of the first core point
@@ -287,5 +345,7 @@ void nn_dbscan(int n, int dim, const double* pts, double eps,
         ++next;
     }
 }
+
+void nn_free(int32_t* buf) { std::free(buf); }
 
 }  // extern "C"

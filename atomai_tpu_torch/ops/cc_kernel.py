@@ -173,17 +173,24 @@ def label_components_cuda(mask: torch.Tensor) -> torch.Tensor:
     return launch(mask, moments=False).labels
 
 
-def blob_sums_cuda(mask: torch.Tensor, band: int = 0
-                   ) -> Tuple[torch.Tensor, ...]:
-    """(roots, counts, row_sums, col_sums), int64, one entry a component in
-    ascending root order, from one launch of the kernel with the sums fused
-    in; ``band`` as in :func:`launch`. Reads the number of components back
-    to the host (one synchronisation)."""
+def labels_and_sums_cuda(mask: torch.Tensor, band: int = 0
+                         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """(labels, (roots, counts, row_sums, col_sums)) from one launch of the
+    kernel with the sums fused in: the int32 labels, and int64 sums, one
+    entry a component in ascending root order; ``band`` as in
+    :func:`launch`. Reads the number of components back to the host (one
+    synchronisation)."""
     out = launch(mask, band, moments=True)
     slots = out.blob_slot[:int(out.n_blobs)].long()
     roots, order = torch.sort(out.roots[slots])   # int32 keys: 4 passes
     sums = out.sums[:, slots[order]]
-    return roots.long(), sums[0], sums[1], sums[2]
+    return out.labels, (roots.long(), sums[0], sums[1], sums[2])
+
+
+def blob_sums_cuda(mask: torch.Tensor, band: int = 0
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The sums of :func:`labels_and_sums_cuda`, one launch."""
+    return labels_and_sums_cuda(mask, band)[1]
 
 
 def label_components_reference(mask: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,8 @@ from typing import Tuple
 
 import torch
 
-from .cc_kernel import blob_sums_cuda, label_components_reference
+from .cc_kernel import (blob_sums_cuda, label_components_reference,
+                        labels_and_sums_cuda)
 
 # largest tiled image run as one labelling: labels are int32 flat indices,
 # with headroom below 2^31 for the background value
@@ -77,6 +78,20 @@ def blob_sums_reference(mask: torch.Tensor, band: int = 0
     """The plain version of :func:`blob_sums`, on any device."""
     lab = label_components_reference(mask)
     return _blob_extract(*_blob_moments(lab, band))
+
+
+def labels_and_sums(mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """(int32 labels, :func:`blob_sums`) of a (H, W) bool/uint8 mask: the
+    plain labeller and sums for a CPU tensor, one launch of the fused
+    kernel for a CUDA tensor."""
+    if mask.device.type == "cpu":
+        lab = label_components_reference(mask)
+        return lab, _blob_extract(*_blob_moments(lab))
+    if mask.device.type == "cuda":
+        return labels_and_sums_cuda(mask.contiguous())
+    raise ValueError(f"labels_and_sums runs on 'cpu' or 'cuda' tensors, "
+                     f"got device {mask.device}")
 
 
 def blob_sums(mask: torch.Tensor, band: int = 0

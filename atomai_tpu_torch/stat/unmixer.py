@@ -99,7 +99,14 @@ class SpectralUnmixer:
         self.abundance_maps_ = abundances.reshape((h, w, self.n_components))
         return self.components_, self.abundance_maps_
 
-    def plot_results(self, **kwargs) -> None:
-        """Not ported yet (the rest of ``utils.viz``, ROADMAP #19)."""
-        raise NotImplementedError(
-            "plotting unmixing results is not ported yet (ROADMAP #19)")
+    def plot_results(self, x_axis_vals=None, x_axis_units=None,
+                     **kwargs) -> None:
+        """Each component's spectrum above its abundance map
+        (``utils.viz.visualize_unmixing_results``; ``savefig``: a file to
+        write); before ``fit``, prints a reminder instead."""
+        if self.components_ is None:
+            print("You must run .fit() first.")
+            return
+        from ..utils.viz import visualize_unmixing_results
+        visualize_unmixing_results(self.components_, self.abundance_maps_,
+                                   savefig=kwargs.get("savefig"))

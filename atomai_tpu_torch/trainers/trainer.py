@@ -27,9 +27,10 @@ keeps:
 
 Every random draw of a run (augmentation, dropout, perturbation) comes
 from one generator on the model's device, seeded from the trainer's
-:class:`GeneratorSeq`. Not ported: device meshes (ROADMAP Queue 1 #21),
-rematerialisation (Queue 1 #22), ``plot_training_history`` (plotting,
-Queue 1 #19), and the XLA cost-analysis helpers.
+:class:`GeneratorSeq`. ``plot_training_history`` writes
+``<filename>_losses.png`` after a run. Not ported: device meshes (ROADMAP
+Queue 1 #21), rematerialisation (Queue 1 #22), and the XLA cost-analysis
+helpers.
 """
 
 import math
@@ -102,6 +103,7 @@ class BaseTrainer:
         self.filename = "model"
         self.print_loss = 1
         self.lr_scheduler = None
+        self.plot_training_history = False
         self.meta_state_dict: Dict[str, Any] = {}
         self.accuracy_metrics = None
         self.metrics_log = None
@@ -152,15 +154,14 @@ class BaseTrainer:
         if kwargs.get("remat"):
             raise NotImplementedError(
                 "remat is not ported yet (ROADMAP Queue 1 #22)")
-        if kwargs.get("plot_training_history"):
-            raise NotImplementedError(
-                "plotting is not ported yet (ROADMAP Queue 1 #19)")
         self.full_epoch = full_epoch
         self.training_cycles = training_cycles
         self.batch_size = batch_size
         self.compute_accuracy = compute_accuracy
         self.swa = swa
         self.lr_scheduler = kwargs.get("lr_scheduler")
+        self.plot_training_history = kwargs.get("plot_training_history",
+                                                False)
         if self.data_is_set:
             if kwargs.get("overwrite_train_data", True) and \
                     train_data is not None:
@@ -348,6 +349,11 @@ class BaseTrainer:
         self.net.eval()
         self.eval_model()
         self.save_model(self.filename + "_metadict_final")
+        if self.plot_training_history:
+            from ..utils.viz import plot_losses
+            plot_losses(self.loss_acc["train_loss"],
+                        self.loss_acc["test_loss"],
+                        savefig=self.filename + "_losses.png")
         return self.net
 
     def _record(self, e0: int, rows: List[List], mlog) -> None:

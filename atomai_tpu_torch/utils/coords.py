@@ -1,7 +1,11 @@
-"""Pixel-coordinate grids of the rVAE, atom-position refinement, the
-clustering of an ensemble's coordinates and the tracking of atoms through
-a stack (counterpart of `atomai_tpu/utils/coords.py:51-81, 123-146,
-208-269, 292-341`)."""
+"""Atoms from masks, pixel-coordinate grids of the rVAE, nearest-neighbour
+distances and bond maps, atom-position refinement, the clustering of an
+ensemble's coordinates and the tracking of atoms through a stack
+(counterpart of `atomai_tpu/utils/coords.py`).
+
+:func:`find_com` runs the connected-component labeller of
+``csrc/cc_label.cu`` on the card (its plain version on the CPU); the
+neighbour queries run the host's grid hash (:mod:`..native`)."""
 
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -10,8 +14,36 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..native import dbscan, knn
+from ..native import ball_query, dbscan, knn
+from ..ops.cc_label import blob_centers
 from ..ops.peakfit import refine_peaks
+
+
+def as_device_tensor(data: Union[np.ndarray, torch.Tensor],
+                     device: Union[str, torch.device],
+                     dtype=np.float32) -> torch.Tensor:
+    """A tensor stays on its device; numpy data goes to ``device``
+    (``resolve_device``: a CUDA device raises where torch sees none)."""
+    if isinstance(data, torch.Tensor):
+        return data
+    return torch.from_numpy(np.ascontiguousarray(data, dtype)).to(
+        resolve_device(device))
+
+
+def find_com(image_data: Union[np.ndarray, torch.Tensor],
+             max_blobs: Optional[int] = None,
+             device: Union[str, torch.device] = "cuda") -> np.ndarray:
+    """Centres of mass (N, 2) float32 [row, col] of the 4-connected
+    components of ``image_data > 0`` (H, W), in scipy's label order (the
+    raster order of each component's first pixel): one launch of the
+    labeller with its fused sums on the card, the plain version on the
+    CPU. A tensor is labelled on its device, numpy data on ``device``.
+    The means are exact int64 sums divided in float64 and rounded once
+    (the JAX package divides float32 sums: within one float32 ulp).
+    ``max_blobs`` (the JAX package's padding bound) is not needed."""
+    mask = as_device_tensor(image_data, device) > 0
+    coords, _ = blob_centers(mask)
+    return coords.cpu().numpy()
 
 
 def grid2xy(X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
@@ -58,6 +90,49 @@ def mean_nn_distance(coordinates: np.ndarray, nn: int = 2) -> float:
     d, _ = cKDTree(xy).query(xy, k=nn + 1)
     d = d[:, 1:]
     return float(np.mean(d[np.isfinite(d).all(axis=1)]))
+
+
+def get_nn_distances_(coordinates: np.ndarray, nn: int = 2,
+                      upper_bound: Optional[float] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Distances (m, nn) from each atom of one frame to its ``nn`` nearest
+    neighbours, and the atoms with those neighbours (m, nn + 1, width),
+    for the atoms whose ``nn`` neighbours all lie within ``upper_bound``
+    (included); one :func:`native.knn` query."""
+    d, nn_idx = knn(coordinates[:, :2], coordinates[:, :2], nn + 1,
+                    upper_bound)
+    hit = ~np.isinf(d).any(axis=1)
+    return d[hit, 1:], coordinates[nn_idx[hit]]
+
+
+def get_nn_distances(coordinates: Union[Dict[int, np.ndarray], np.ndarray],
+                     nn: int = 2, upper_bound: Optional[float] = None
+                     ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
+    """:func:`get_nn_distances_` of each frame of {frame: (n, 3)} (or of
+    one array): (distances, atom groups), one a frame."""
+    if isinstance(coordinates, np.ndarray):
+        coordinates = {0: coordinates}
+    distances_all, atom_pairs_all = [], []
+    for coord in coordinates.values():
+        distances, atom_pairs = get_nn_distances_(coord, nn, upper_bound)
+        distances_all.append(distances)
+        atom_pairs_all.append(atom_pairs)
+    return distances_all, atom_pairs_all
+
+
+def gaussian_2d(xy, amp, xo, yo, sigma_x, sigma_y, theta, offset
+                ) -> np.ndarray:
+    """A rotated anisotropic 2D Gaussian on the grid ``xy`` = (x, y),
+    flattened: ``offset + amp * exp(-(u²/σx² + v²/σy²) / 2)`` with (u, v)
+    the offsets from (xo, yo) rotated by ``theta``."""
+    x, y = xy
+    dx, dy = x - xo, y - yo
+    ct, st = np.cos(theta), np.sin(theta)
+    u = dx * ct - dy * st
+    v = dx * st + dy * ct
+    g = offset + amp * np.exp(
+        -0.5 * ((u / sigma_x) ** 2 + (v / sigma_y) ** 2))
+    return g.flatten()
 
 
 def peak_refinement(imgdata: Union[np.ndarray, torch.Tensor],
@@ -234,16 +309,62 @@ def compare_coordinates(coordinates1: np.ndarray, coordinates2: np.ndarray,
     """Each coordinate of set 1 paired with its nearest in set 2 (one
     :func:`native.knn` query), the pairs closer than ``d_max`` kept:
     (set 1's kept, their partners, their distances) (JAX
-    `coords.py:182-203`). ``plot_results`` is not ported (ROADMAP #19)."""
-    if plot_results:
-        raise NotImplementedError(
-            "plotting the comparison is not ported yet (ROADMAP #19)")
+    `coords.py:182-203`). ``plot_results`` scatters the kept ones over the
+    image ``expdata`` (a keyword, required then), coloured by distance
+    (``fsize``; matplotlib is imported then)."""
     coordinates1 = np.asarray(coordinates1, float)
     coordinates2 = np.asarray(coordinates2, float)
     dist, idx = knn(coordinates2, coordinates1, 1)
     dist, idx = dist[:, 0], idx[:, 0]
     keep = dist < d_max
-    return coordinates1[keep], coordinates2[idx[keep]], dist[keep]
+    coordinates1_, delta_r = coordinates1[keep], dist[keep]
+    if plot_results:
+        from .viz import plot_coordinates_comparison
+        plot_coordinates_comparison(coordinates1_, delta_r,
+                                    kwargs.get("expdata"),
+                                    kwargs.get("fsize", 20))
+    return coordinates1_, coordinates2[idx[keep]], delta_r
+
+
+def find_coord_clusters(coord_class_dict_1: Dict[int, np.ndarray],
+                        coord_class_dict_2: Dict[int, np.ndarray],
+                        rmax: int) -> Tuple[np.ndarray, np.ndarray, List]:
+    """For each atom of frame 0 of ``coord_class_dict_1``, the rows of all
+    frames of ``coord_class_dict_2`` within ``rmax`` of it (one
+    :func:`native.ball_query` for all of them, rows in stack order): (their
+    mean [row, col], their standard deviation, the rows)."""
+    coordinates_all = np.concatenate(
+        [coord_class_dict_2[k] for k in range(len(coord_class_dict_2))])
+    centers = np.asarray(coord_class_dict_1[0])[:, :2]
+    clusters, clusters_mean, clusters_std = [], [], []
+    for idx in ball_query(coordinates_all[:, :2], centers, rmax):
+        cl = coordinates_all[idx]
+        clusters_mean.append(cl[:, :2].mean(axis=0))
+        clusters_std.append(cl[:, :2].std(axis=0))
+        clusters.append(cl)
+    return np.array(clusters_mean), np.array(clusters_std), clusters
+
+
+def map_bonds(coordinates: Dict[int, np.ndarray], nn: int = 2,
+              upper_bound: Optional[float] = None,
+              distance_ideal: Optional[float] = None,
+              plot_results: bool = True, **kwargs) -> np.ndarray:
+    """The distances of every frame's atoms to their ``nn`` nearest
+    neighbours (:func:`get_nn_distances`), concatenated. With
+    ``plot_results``, each frame's bonds are drawn coloured by their
+    deviation from ``distance_ideal`` (default: the mean distance) by
+    :func:`viz.plot_lattice_bonds` (``savedir``, ``h``, ``w``). Without
+    it nothing is drawn and matplotlib is not imported (the JAX package
+    then writes ``frame_<i>.png`` into the working directory)."""
+    distances_all, atom_pairs_all = get_nn_distances(
+        coordinates, nn, upper_bound)
+    if plot_results:
+        from .viz import plot_lattice_bonds
+        if distance_ideal is None:
+            distance_ideal = np.mean(np.concatenate(distances_all))
+        for i, (dist, at) in enumerate(zip(distances_all, atom_pairs_all)):
+            plot_lattice_bonds(dist, at, distance_ideal, i, True, **kwargs)
+    return np.concatenate(distances_all)
 
 
 def remove_edge_coord(coordinates: np.ndarray, dim: Tuple[int, int],

@@ -1,10 +1,10 @@
 """Synthetic lattices: 2D-Gaussian atoms and their ground-truth masks.
 
-A numpy copy of `atomai_tpu/utils/imgen.py:18-91, 148-182`: the same seed
-gives the same images and masks bit for bit.
+A numpy copy of `atomai_tpu/utils/imgen.py`: the same seed gives the same
+images and masks bit for bit.
 """
 
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -82,6 +82,66 @@ def create_lattice_mask(lattice: np.ndarray, xy_atoms: np.ndarray,
             continue
         lattice_mask[x - r_m1:x + r_m2, y - r_m1:y + r_m2] = mask
     return lattice_mask
+
+
+def create_multiclass_lattice_mask_(lattice: np.ndarray,
+                                    xyz_atoms: np.ndarray,
+                                    *args: Callable,
+                                    **kwargs: int) -> np.ndarray:
+    """(h, w, classes + 1) ground truth of one image from (n, 3) [x, y,
+    class] atoms: a channel a class in ascending class order (class 0 is
+    shifted to 1 with the rest), then the background channel; a class's
+    value is the atom mask of ``create_mask_func(scale, rmask, class)``
+    (``args[0]``, default :func:`create_atom_mask_pair`; ``scale`` 7,
+    ``rmask`` 7)."""
+    create_mask_func = args[0] if len(args) == 1 else create_atom_mask_pair
+    scale = kwargs.get("scale", 7)
+    rmask = kwargs.get("rmask", 7)
+    xyz_atoms = np.array(xyz_atoms, dtype=float)
+    classes = np.unique(xyz_atoms[:, -1])
+    lattice_mask = np.zeros(
+        (lattice.shape[0], lattice.shape[1], len(classes)))
+    if 0 in classes:
+        xyz_atoms[:, -1] = xyz_atoms[:, -1] + 1
+        classes = np.unique(xyz_atoms[:, -1])
+    atom_ch_d = {s: i for i, s in enumerate(classes)}
+    H, W = lattice.shape[:2]
+    for atom in xyz_atoms:
+        x, y, z = atom
+        x = int(np.around(x))
+        y = int(np.around(y))
+        _, mask = create_mask_func(scale, rmask, z)
+        r_m = mask.shape[0] / 2
+        r_m1 = int(r_m + .5)
+        r_m2 = int(r_m - .5)
+        if x - r_m1 < 0 or y - r_m1 < 0 or x + r_m2 > H or y + r_m2 > W:
+            continue
+        lattice_mask[x - r_m1:x + r_m2, y - r_m1:y + r_m2,
+                     atom_ch_d[z]] = mask
+    bg = 1 - np.sum(lattice_mask, axis=-1)
+    lattice_mask = np.concatenate((lattice_mask, bg[..., None]), axis=-1)
+    lattice_mask[lattice_mask < 0] = 0
+    return lattice_mask
+
+
+def create_multiclass_lattice_mask(imgdata: np.ndarray,
+                                   coord_class_dict: Union[Dict, np.ndarray],
+                                   *args: Callable,
+                                   **kwargs: int
+                                   ) -> Union[List[np.ndarray], np.ndarray]:
+    """:func:`create_multiclass_lattice_mask_` of each frame of a stack
+    (or of one image) with its {frame: (n, 3)} atoms; one array when the
+    masks share a shape, else a list."""
+    if np.ndim(imgdata) == 2:
+        imgdata = imgdata[None, ...]
+    if isinstance(coord_class_dict, np.ndarray):
+        coord_class_dict = {0: coord_class_dict}
+    masks = [create_multiclass_lattice_mask_(
+        img, coord_class_dict[i], *args, **kwargs)
+        for i, img in enumerate(imgdata)]
+    if len({m.shape for m in masks}) <= 1:
+        masks = np.array(masks)
+    return masks
 
 
 def make_lattice_stack(n_images: int = 8, size: int = 256,

@@ -202,3 +202,15 @@ def prepare_gp_input(sparse_image: np.ndarray
         *[np.arange(dim) for dim in sparse_image.shape])).T.reshape(
         -1, sparse_image.ndim)
     return gp_input, targets, full_indices
+
+
+def preprocess_denoiser_data(X_train, y_train, X_test, y_test
+                             ) -> Tuple[np.ndarray, ...]:
+    """Noisy/clean image pairs as NHWC float32; a single 2-D image gets a
+    batch axis and a channel axis."""
+    out = []
+    for a in (X_train, y_train, X_test, y_test):
+        a = np.asarray(a, np.float32)
+        out.append(a[None, ..., None] if a.ndim == 2
+                   else as_channel_last_images(a))
+    return tuple(out)

@@ -5,8 +5,8 @@ and atom finding, the GP family: deep kernel learning and sparse-image
 reconstruction, the rest of the supervised zoo: the other segmentation
 nets, the denoiser, regression and classification, the joint VAEs with
 the VAE family's encoding tools, the JAX package's own checkpoints loaded,
-resumed, exported and served, and the stat layer) and checks every step of
-them.
+resumed, exported and served, the stat layer, and lattice-graph analysis
+with the labeller's image utilities) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -168,10 +168,25 @@ Phases, one JSON line each (all before the last line):
     2048² lattice frame; each call's seconds and the card's busy share,
     and the same calls of the port on the CPU (on the first windows and
     on corners) against the card's: PCA components and variances, KMeans
-    and GMM labels, NMF and ICA reconstruction errors.
+    and GMM labels, NMF and ICA reconstruction errors;
+28. graph_path: the graph-analysis workflow on a 2048² graphene frame at
+    0.104 Å a pixel (about 17,000 atoms, 40 vacancies 12 Å apart) rendered
+    by ``create_lattice_mask``: ``find_com`` (one labeller launch, equal
+    to the plain version's centres, every atom found within 1 px), then
+    ``find_cycles`` and ``find_cycle_clusters(cycles=7..13)``: the native
+    rings equal to the plain search's on the whole frame at depth 8 and on
+    a crop of about 4,000 atoms at depth 12, one 12-member ring and one
+    cluster at each vacancy; ``filter_cells``, ``get_contours`` and
+    ``get_blob_params`` on phase 10's trained 64 x 512² maps (the kernel's
+    labels equal to the plain labeller's, launches counted, the first
+    frames equal to the port's CPU run); ``get_nn_distances``,
+    ``map_bonds`` and ``find_coord_clusters`` of the ~55,000 located atoms,
+    the ball and pair queries equal to cKDTree's; each call's seconds and
+    the card's busy share.
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path`` numbers, the labeller's and the forward's with the
-``served_from_jax`` and ``stat_path`` ones), and as the last line
+``served_from_jax`` ones, the labeller's with the ``stat_path`` and
+``graph_path`` ones), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -412,6 +427,18 @@ CUBE_CPU = 32             # its 32 x 32 corner held against the CPU
 TOL_CUBE_FIT = 5e-2       # the cube's NMF reconstruction error, relative
 FFT_FRAME = 2048
 FFT_CPU = 256             # the frame's 256² corner held against the CPU
+GRAPH_FRAME = 2048        # px: the graphene frame of the graph path
+PX2ANG = 0.104            # angstrom a pixel (the graph-analysis notebook's)
+CC_BOND_ANG = 1.42        # graphene's C-C bond
+GRAPH_VACANCIES = 40
+VACANCY_CLEAR_ANG = 12.0  # vacancies this far from each other and the edge
+GRAPH_EDGE_PX = 10        # atoms kept this far inside the frame
+GRAPH_CROP_PX = 1000      # the crop searched by the plain rings at depth 12
+DEFECT_CYCLES = list(range(7, 14))
+BLOB_THRESH = 10          # px: filter_cells' and get_blob_params' size cut
+GRAPH_CPU_FRAMES = 4      # trained frames held against the port on the CPU
+TOL_BLOB_ANGLE = 1e-9     # degrees, modulo 180
+NN_RMAX = 3               # px: find_coord_clusters across the 64 frames
 
 
 def check(cond, msg):
@@ -3109,6 +3136,250 @@ def phase_stat_path(device, trained_net):
             "bound_ms": lab["bound_ms"], "bound_by": lab["bound_by"]}
 
 
+def graphene_frame(seed=0):
+    """A 2048² frame of graphene at 0.104 Å a pixel, with 40 vacancies at
+    least 12 Å from each other and from the frame's edge: (atoms [row,
+    col] px, vacancies [row, col] px), both float64."""
+    a1 = np.array([1.5, np.sqrt(3) / 2]) * CC_BOND_ANG
+    a2 = np.array([1.5, -np.sqrt(3) / 2]) * CC_BOND_ANG
+    side = GRAPH_FRAME * PX2ANG
+    n = int(side / a1[1]) + 2   # rows i - j and columns i + j span it
+    i, j = np.meshgrid(np.arange(n), np.arange(-n, n), indexing="ij")
+    cells = i.reshape(-1, 1) * a1 + j.reshape(-1, 1) * a2
+    xy = np.concatenate([cells, cells + [CC_BOND_ANG, 0.0]]) / PX2ANG
+    inside = ((xy >= GRAPH_EDGE_PX) &
+              (xy <= GRAPH_FRAME - GRAPH_EDGE_PX)).all(1)
+    xy = xy[inside]
+    xy = xy[np.lexsort((xy[:, 1], xy[:, 0]))]
+    clear = VACANCY_CLEAR_ANG / PX2ANG
+    rng = np.random.RandomState(seed)
+    picked = []
+    for k in rng.permutation(len(xy)):
+        p = xy[k]
+        if (min(p.min(), (GRAPH_FRAME - p).max()) >= clear and
+                all(np.hypot(*(p - xy[q])) >= clear for q in picked)):
+            picked.append(k)
+            if len(picked) == GRAPH_VACANCIES:
+                break
+    check(len(picked) == GRAPH_VACANCIES, "too few vacancy sites")
+    return np.delete(xy, picked, 0), xy[picked]
+
+
+def rings_equal(adjacency, depth):
+    """(the native rings, their seconds, the plain search's seconds) of a
+    graph at ``depth``; the two must give the same rings in order."""
+    from atomai_tpu_torch import native
+    t0 = time.perf_counter()
+    got = native.find_rings_native(adjacency, depth)
+    t1 = time.perf_counter()
+    want = native.find_rings_reference(adjacency, depth)
+    t2 = time.perf_counter()
+    check(got == want, f"native rings differ from the plain search's at "
+          f"depth {depth} ({len(got)} against {len(want)})")
+    return got, t1 - t0, t2 - t1
+
+
+def axis_diff(a, b):
+    """Distance of two axis orientations in degrees (period 180)."""
+    return np.abs((np.asarray(a) - np.asarray(b) + 90) % 180 - 90)
+
+
+def phase_graph_path(device, trained_net):
+    """The graph-analysis workflow and the rest of ``utils`` on the card:
+    ``find_com`` of a rendered 2048² graphene frame with 40 vacancies ->
+    ``find_cycles`` / ``find_cycle_clusters`` (the native ring search,
+    held to its plain version); ``filter_cells``, ``get_contours`` and
+    ``get_blob_params`` on phase 10's trained masks of the 64 x 512²
+    stack (labels against the plain labeller, outputs against the port on
+    the CPU); nearest-neighbour distances, bonds and coordinate clusters
+    of its ~55,000 located atoms (the queries held to cKDTree)."""
+    import torch
+    from atomai_tpu_torch import native, ops
+    from atomai_tpu_torch.ops import cc_kernel, roofline
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import (Graph, create_lattice_mask,
+                                        filter_cells, find_com,
+                                        find_coord_clusters, find_cycles,
+                                        find_cycle_clusters, get_blob_params,
+                                        get_contours, get_nn_distances,
+                                        make_lattice_stack, map_bonds,
+                                        remove_edge_coord)
+    times, busy, launches = {}, {}, {}
+
+    def run(name, fn, count=False):
+        """Times one call from an idle card to an idle card (its labeller
+        launches counted), then profiles a second for the busy share."""
+        torch.cuda.synchronize(device)
+        cc_kernel.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(device)
+        times[name] = time.perf_counter() - t0
+        if count:
+            launches[name] = cc_kernel.LAUNCHES
+        busy[name] = busy_share(fn, device)
+        return out
+
+    # 1-2: a graphene frame, its atoms located by the labeller
+    atoms, vacancies = graphene_frame()
+    t0 = time.perf_counter()
+    mask = create_lattice_mask(
+        np.zeros((GRAPH_FRAME, GRAPH_FRAME), np.float32), atoms)
+    times["render"] = time.perf_counter() - t0
+    com = run("find_com", lambda: find_com(mask), count=True)
+    check(launches["find_com"] == 1,
+          f"find_com launched the labeller {launches['find_com']} times")
+    graphene = torch.from_numpy(mask > 0).to(device)
+    plain = ops.blob_means(*ops.blob_sums_reference(graphene))[0]
+    check(np.array_equal(com, plain.cpu().numpy()),
+          "find_com differs from the plain labeller's centres")
+    check(len(com) == len(atoms), f"{len(com)} atoms found, "
+          f"{len(atoms)} placed")
+    atom_err = float(np.median(atom_errors([com], [atoms], MASK_OFFSET)))
+    check(atom_err < TOL_MEDIAN_PX, f"median atom error {atom_err} px")
+
+    # 3: rings and ring clusters
+    coord = np.concatenate([com.astype(np.float64),
+                            np.zeros((len(com), 1))], 1)
+    carbon = {0: "C"}
+    twelve = run("find_cycles", lambda: find_cycles(
+        coord, 12, carbon, PX2ANG))
+    clusters = run("find_cycle_clusters", lambda: find_cycle_clusters(
+        coord, DEFECT_CYCLES, carbon, PX2ANG))
+    scaled = coord.copy()
+    scaled[:, :2] *= PX2ANG
+    g = Graph(scaled, carbon)
+    t0 = time.perf_counter()
+    g.find_neighbors()
+    times["find_neighbors"] = time.perf_counter() - t0
+    rings8, times["rings_depth8_native"], times["rings_depth8_plain"] = \
+        rings_equal(g.adjacency, 8)
+    t0 = time.perf_counter()
+    rings12 = native.find_rings_native(g.adjacency, 12)
+    times["rings_depth12_native"] = time.perf_counter() - t0
+    crop = scaled[(coord[:, :2] < GRAPH_CROP_PX).all(1)]
+    gc = Graph(crop, carbon)
+    gc.find_neighbors()
+    _, times["crop_depth12_native"], times["crop_depth12_plain"] = \
+        rings_equal(gc.adjacency, 12)
+    sizes, counts = np.unique([len(r) for r in rings12], return_counts=True)
+    histogram = {int(k): int(v) for k, v in zip(sizes, counts)}
+    check(histogram.get(12) == GRAPH_VACANCIES and
+          twelve.shape == (12 * GRAPH_VACANCIES, 3),
+          f"12-member rings {histogram}, find_cycles {twelve.shape}")
+    check(len(clusters) == GRAPH_VACANCIES,
+          f"{len(clusters)} clusters for {GRAPH_VACANCIES} vacancies")
+    centres = np.array([c.mean(0) for c in clusters])
+    d = np.linalg.norm(centres[:, None] - (vacancies + MASK_OFFSET)[None],
+                       axis=-1)
+    nearest = d.argmin(1)
+    cluster_err = float(d.min(1).max())
+    check(len(set(nearest.tolist())) == GRAPH_VACANCIES and
+          cluster_err < TOL_MEDIAN_PX and
+          all(len(c) == 12 for c in clusters),
+          f"clusters off their vacancies by up to {cluster_err} px")
+
+    # 4: the trained masks
+    imgs, _, _ = make_lattice_stack(**LATTICE)
+    pred = SegPredictor(trained_net, nb_classes=1, verbose=False)
+    maps_t = pred.predict_device(imgs)[..., 0].contiguous()
+    maps = maps_t.cpu().numpy()
+    label_err = 0
+    for f in maps_t:
+        m = f > 0.5
+        label_err = max(label_err, int((ops.label_components_cuda(m).long()
+                                        - ops.label_components_reference(
+                                            m).long()).abs().max()))
+    check(label_err == 0, f"kernel labels off by {label_err}")
+    filtered = run("filter_cells", lambda: filter_cells(
+        maps, 0.5, BLOB_THRESH), count=True)
+    contours = run("get_contours", lambda: [
+        get_contours(f) for f in maps > 0.5], count=True)
+    blobs = run("get_blob_params", lambda: get_blob_params(
+        maps, 0.5, BLOB_THRESH), count=True)
+    n = len(maps)
+    check(launches["filter_cells"] == n and launches["get_contours"] == n
+          and launches["get_blob_params"] == 2 * n,
+          f"labeller launches {launches}")
+    t0 = time.perf_counter()
+    k = GRAPH_CPU_FRAMES
+    cpu = dict(device="cpu")
+    f_cpu = filter_cells(maps[:k], 0.5, BLOB_THRESH, **cpu)
+    check(np.array_equal(filtered[:k], f_cpu), "filter_cells: card vs CPU")
+    for i in range(k):
+        c_cpu = get_contours(maps[i] > 0.5, **cpu)
+        check(len(c_cpu) == len(contours[i]) and all(
+            np.array_equal(a, b) for a, b in zip(contours[i], c_cpu)),
+            f"get_contours frame {i}: card vs CPU")
+    b_cpu = get_blob_params(maps[:k], 0.5, BLOB_THRESH, **cpu)
+    angle_err = 0.0
+    for i in range(k):
+        check(np.array_equal(blobs[i]["coordinates"],
+                             b_cpu[i]["coordinates"]),
+              f"get_blob_params frame {i}: centres card vs CPU")
+        angle_err = max(angle_err, float(axis_diff(
+            blobs[i]["angles"], b_cpu[i]["angles"]).max()))
+    check(angle_err <= TOL_BLOB_ANGLE, f"blob angles off by {angle_err}")
+    times["card_vs_cpu_frames"] = time.perf_counter() - t0
+    n_blobs = int(sum(len(b["coordinates"]) for b in blobs.values()))
+    n_contours = int(sum(len(c) for c in contours))
+    check(n_blobs > 50000 and n_contours >= n_blobs,
+          f"{n_blobs} blobs, {n_contours} contours")
+
+    # 5: neighbours of the located atoms
+    _, coords = pred.run(imgs)
+    size = LATTICE["size"]
+    coords = {i: remove_edge_coord(c, (size, size), STAT_EDGE)
+              for i, c in coords.items()}
+    dists, _ = run("get_nn_distances", lambda: get_nn_distances(coords))
+    bonds = run("map_bonds", lambda: map_bonds(coords, plot_results=False))
+    cl_mean, _, cl = run("find_coord_clusters", lambda: find_coord_clusters(
+        coords, coords, NN_RMAX))
+    check(np.array_equal(bonds, np.concatenate(dists)) and
+          bool(np.isfinite(bonds).all()), "map_bonds")
+    pts = np.concatenate(list(coords.values()))[:, :2]
+    t0 = time.perf_counter()
+    balls = native.ball_query(pts, coords[0][:, :2], NN_RMAX)
+    balls_ref = native.ball_query_reference(pts, coords[0][:, :2], NN_RMAX)
+    check(len(balls) == len(balls_ref) and all(
+        np.array_equal(a, b) for a, b in zip(balls, balls_ref)),
+        "ball_query differs from cKDTree's")
+    pairs = native.query_pairs(pts, NN_RMAX)
+    check(np.array_equal(pairs, native.query_pairs_reference(pts, NN_RMAX)),
+          "query_pairs differs from cKDTree's")
+    times["queries_vs_ckdtree"] = time.perf_counter() - t0
+    check(len(cl) == len(coords[0]) == len(cl_mean) and
+          min(len(c) for c in cl) >= 1, "coord clusters")
+
+    # the labeller at this path's shapes
+    kernel_ms = device_ms(lambda: cc_kernel.launch(graphene), 20, device)
+    bound_ms, bound_by = roofline.bound(0, cc_kernel.cc_label_bytes(
+        GRAPH_FRAME, GRAPH_FRAME, len(com)))
+    frame = maps_t[0] > 0.5
+    emit("graph_path", frame=[GRAPH_FRAME, GRAPH_FRAME], atoms=len(atoms),
+         vacancies=GRAPH_VACANCIES, median_atom_err_px=atom_err,
+         ring_histogram=histogram, rings_depth8=len(rings8),
+         crop_atoms=len(crop), clusters=len(clusters),
+         cluster_max_err_px=cluster_err, trained_frames=list(maps.shape),
+         blobs=n_blobs, contours=n_contours, blob_angle_err=angle_err,
+         located_atoms=len(pts), nn_distances=int(len(bonds)),
+         ball_pairs=int(sum(map(len, balls))), pairs=int(len(pairs)),
+         launches=launches, seconds=times, busy_share=busy,
+         kernel_ms=kernel_ms, bound_ms=bound_ms,
+         tolerances={"blob_angle_deg": TOL_BLOB_ANGLE,
+                     "median_px": TOL_MEDIAN_PX})
+    return {"launches": launches, "max_abs_err": label_err,
+            "ms": kernel_ms,
+            "plain_ms": cuda_ms(lambda: ops.blob_sums_reference(graphene),
+                                3, device),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": [GRAPH_FRAME, GRAPH_FRAME], "blobs": len(com),
+            "frame_ms": device_ms(lambda: cc_kernel.launch(frame), 20,
+                                  device),
+            "frame_plain_ms": cuda_ms(
+                lambda: ops.blob_sums_reference(frame), 3, device)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3148,6 +3419,7 @@ def main():
     kernels[0]["served_from_jax"], kernels[1]["served_from_jax"] = \
         phase_served_from_jax(device)
     kernels[0]["stat_path"] = phase_stat_path(device, trained_net)
+    kernels[0]["graph_path"] = phase_graph_path(device, trained_net)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

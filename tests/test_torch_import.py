@@ -72,3 +72,9 @@ def test_import_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 
+
+def test_chip_smoke_imports_no_plotting_or_graph_package():
+    """The card's machine has neither matplotlib nor networkx."""
+    bad = _imported_roots(os.path.join(ROOT, "chip_smoke.py")) & {
+        "matplotlib", "networkx", "PIL"}
+    assert not bad, f"chip_smoke.py imports {sorted(bad)}"

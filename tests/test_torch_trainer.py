@@ -261,8 +261,7 @@ def test_unported_options_raise(tmp_path):
     m = Segmentor("Unet", 1, **SMALL)
     X, y, Xt, yt = _data()
     for kw, match in [({"mesh": object()}, "Queue 1 #21"),
-                      ({"remat": True}, "Queue 1 #22"),
-                      ({"plot_training_history": True}, "Queue 1 #19")]:
+                      ({"remat": True}, "Queue 1 #22")]:
         with pytest.raises(NotImplementedError, match=match):
             m.fit(X, y, Xt, yt, training_cycles=1, batch_size=4,
                   filename=str(tmp_path / "x"), **kw)
@@ -405,6 +404,16 @@ def _default_device_peak_refinement(tmp_path):
                            np.array([[8.0, 8.0, 0.0]]), d=3)
 
 
+def _default_device_find_com(tmp_path):
+    from atomai_tpu_torch.utils import find_com
+    return find_com(np.ones((16, 16), np.float32))
+
+
+def _default_device_blob_params(tmp_path):
+    from atomai_tpu_torch.utils import get_blob_params
+    return get_blob_params(np.ones((1, 16, 16), np.float32), 0.5, 5)
+
+
 def _default_device_dklgpr(tmp_path):
     from atomai_tpu_torch.models import dklGPR
     return dklGPR(4, embedim=2)
@@ -462,6 +471,8 @@ def _default_device_load_reg_model(tmp_path):
                                   _default_device_load_model,
                                   _default_device_locator,
                                   _default_device_peak_refinement,
+                                  _default_device_find_com,
+                                  _default_device_blob_params,
                                   _default_device_dklgpr,
                                   _default_device_gptrainer,
                                   _default_device_reconstructor])
