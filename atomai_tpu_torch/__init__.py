@@ -51,6 +51,7 @@ from . import predictors
 from . import models
 from . import stat
 from .models import load_model, load_ensemble
+from .core.dtypes import enable_fast_matmul
 from .core.export import export_model, load_exported
 from .__version__ import version as __version__
 

@@ -22,9 +22,13 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
-    """Compute dtype and TF32 switch of a forward pass."""
+    """Compute dtype and TF32 switch of a forward pass. Parameters and
+    outputs are float32 under every policy (``param_dtype`` and
+    ``output_dtype``, the JAX package's fields, are fixed so)."""
     compute_dtype: torch.dtype = torch.float32
     allow_tf32: bool = False
+    param_dtype: torch.dtype = torch.float32
+    output_dtype: torch.dtype = torch.float32
 
     @classmethod
     def mixed(cls) -> "Precision":
@@ -86,3 +90,17 @@ def set_default_precision(p: Optional[Precision]) -> None:
     """Pins the policy for every device; ``None`` restores the default."""
     global _OVERRIDE
     _OVERRIDE = p
+
+
+def enable_fast_matmul() -> None:
+    """Lets float32 matmuls run in TF32 on the card
+    (``torch.set_float32_matmul_precision("high")``), the counterpart of
+    the JAX package's single-pass bf16 matmuls. Opt out with
+    ``ATOMAI_TPU_PRECISION=float32``. The port never calls it: its
+    policies set the TF32 switches themselves around every run, so no
+    result of the port's own changes."""
+    import os
+    if os.environ.get("ATOMAI_TPU_PRECISION", "").lower() in (
+            "float32", "f32", "highest"):
+        return
+    torch.set_float32_matmul_precision("high")

@@ -147,7 +147,7 @@ class ExportedModel:
     (channel-last float32, min-max normalisation over the stack,
     chunking) around the raw ``__call__``, as JAX `export.py:130-188`."""
 
-    def __init__(self, header: Dict[str, Any], program, device) -> None:
+    def __init__(self, header: Dict[str, Any], exported, device) -> None:
         self.header = header
         self.meta = header.get("meta", {})
         self.model_type = header.get("model_type")
@@ -157,7 +157,7 @@ class ExportedModel:
         self.precision = Precision(
             _DTYPES[p.get("compute_dtype", "float32")],
             bool(p.get("allow_tf32", False)))
-        self.module = _on_device(program, self.device)
+        self.module = _on_device(exported, self.device)
 
     @torch.no_grad()
     def __call__(self, x) -> torch.Tensor:

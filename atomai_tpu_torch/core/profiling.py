@@ -11,10 +11,12 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, create_perfetto_link: bool = False):
     """Profiles everything run inside (the host's ops, and the card's
     kernels where there is one) and writes ``logdir/trace.json`` (a Chrome
-    trace: chrome://tracing or Perfetto) on exit."""
+    trace: chrome://tracing or Perfetto) on exit; ``create_perfetto_link``
+    prints where the file is, to open in https://ui.perfetto.dev (nothing
+    is served or uploaded)."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -22,7 +24,10 @@ def trace(logdir: str):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    if create_perfetto_link:
+        print(f"Open {os.path.abspath(path)} in https://ui.perfetto.dev")
 
 
 def annotate(name: str):
@@ -47,3 +52,25 @@ def device_memory_stats() -> Dict[str, Dict[str, Any]]:
             "bytes_limit": torch.cuda.mem_get_info(i)[1],
         }
     return stats
+
+
+def block_until_ready(tree: Any) -> Any:
+    """Waits for the card's work on every CUDA tensor of ``tree`` (a
+    tensor, or nested lists, tuples and dicts of them) and returns
+    ``tree``, for wall-clock timing."""
+    devices = set()
+
+    def visit(node):
+        if isinstance(node, torch.Tensor):
+            if node.is_cuda:
+                devices.add(node.device)
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                visit(v)
+    visit(tree)
+    for d in devices:
+        torch.cuda.synchronize(d)
+    return tree

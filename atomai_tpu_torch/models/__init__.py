@@ -9,7 +9,7 @@ from .conversion import (denoiser_from_jax, dkl_fe_from_jax, dkl_from_jax,
                          signal_ed_from_jax, unet_from_jax, vae_from_jax)
 from .denoiser import (DenoisingAutoencoder, denoise_images,
                        init_denoising_autoencoder)
-from .dgm import VAE, jrVAE, jVAE, make_grid, rVAE
+from .dgm import VAE, BaseVAE, jrVAE, jVAE, make_grid, rVAE
 from .dklgp import Reconstructor, dklGPR
 from .imspec import ImSpec
 from .loaders import (load_cls_model, load_denoising_autoencoder,
@@ -20,7 +20,7 @@ from .segmentor import Segmentor
 
 __all__ = ["Segmentor", "ImSpec", "Regressor", "Classifier",
            "DenoisingAutoencoder", "denoise_images",
-           "init_denoising_autoencoder", "VAE", "rVAE", "jVAE", "jrVAE",
+           "init_denoising_autoencoder", "BaseVAE", "VAE", "rVAE", "jVAE", "jrVAE",
            "make_grid", "load_model",
            "load_ensemble", "load_seg_model", "load_imspec_model",
            "load_reg_model", "load_cls_model", "load_vae_model",

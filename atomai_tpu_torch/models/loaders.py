@@ -138,35 +138,35 @@ def _load_typed(source: Source, expected: str, kind: str, device: str):
     return load_model((meta, arrays), device)
 
 
-def load_seg_model(filepath: Source, device: str = "cuda"):
+def load_seg_model(meta_dict: Source, device: str = "cuda"):
     """A Segmentor from its ``.aoit`` or ``.aoi`` file; other model types
     raise."""
-    return _load_typed(filepath, "seg", "segmentation", device)
+    return _load_typed(meta_dict, "seg", "segmentation", device)
 
 
-def load_imspec_model(filepath: Source, device: str = "cuda"):
+def load_imspec_model(meta_dict: Source, device: str = "cuda"):
     """An ImSpec model from its ``.aoit`` or ``.aoi`` file."""
-    return _load_typed(filepath, "imspec", "imspec", device)
+    return _load_typed(meta_dict, "imspec", "imspec", device)
 
 
-def load_reg_model(filepath: Source, device: str = "cuda"):
+def load_reg_model(meta_dict: Source, device: str = "cuda"):
     """A Regressor from its ``.aoit`` or ``.aoi`` file."""
-    return _load_typed(filepath, "reg", "regression", device)
+    return _load_typed(meta_dict, "reg", "regression", device)
 
 
-def load_cls_model(filepath: Source, device: str = "cuda"):
+def load_cls_model(meta_dict: Source, device: str = "cuda"):
     """A Classifier from its ``.aoit`` or ``.aoi`` file."""
-    return _load_typed(filepath, "cls", "classification", device)
+    return _load_typed(meta_dict, "cls", "classification", device)
 
 
-def load_vae_model(filepath: Source, device: str = "cuda"):
+def load_vae_model(meta_dict: Source, device: str = "cuda"):
     """A VAE, rVAE, jVAE or jrVAE from its ``.aoit`` or ``.aoi`` file."""
-    return _load_typed(filepath, "vae", "VAE", device)
+    return _load_typed(meta_dict, "vae", "VAE", device)
 
 
-def load_denoising_autoencoder(filepath: Source, device: str = "cuda"):
+def load_denoising_autoencoder(meta_dict: Source, device: str = "cuda"):
     """A DenoisingAutoencoder from its ``.aoit`` or ``.aoi`` file."""
-    return _load_typed(filepath, "denoising_autoencoder", "denoiser",
+    return _load_typed(meta_dict, "denoising_autoencoder", "denoiser",
                        device)
 
 

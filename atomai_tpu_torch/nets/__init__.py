@@ -1,6 +1,6 @@
 """Segmentation nets, the im2spec nets, the regression and classification
 nets and their backbones, the VAE family's encoders and decoders, their
-blocks, and the GP feature extractors and kernels."""
+blocks, the GP feature extractors and kernels, and rematerialisation."""
 
 from .backbones import (BACKBONE_FEATURES, Bottleneck, InvertedResidual,
                         MobileNetV2Features, ResNet50Features, VGG16Features)
@@ -18,11 +18,13 @@ from .gp import (KERNELS, CustomGPModel, GPRegressionModel,
                  matern52_kernel, rbf_kernel, scale_to_bounds)
 from .reg_cls import (ClassifierNet, MultiTaskClassifierNet, RegressorNet,
                       init_cls_model, init_mtask_cls_model, init_reg_model)
+from .remat import Rematerializable, checkpointed, set_remat
 
 # the original atomai name of the backbone wrapper
 CustomBackbone = ConvBackbone
 
-__all__ = ["CustomBackbone", "ConvBlock", "DilatedBlock", "Dropout", "UpsampleBlock",
+__all__ = ["set_remat", "checkpointed", "Rematerializable",
+           "CustomBackbone", "ConvBlock", "DilatedBlock", "Dropout", "UpsampleBlock",
            "ResBlock", "ResModule", "ConvBackbone", "init_weights_",
            "max_pool", "BACKBONE_FEATURES", "Bottleneck", "InvertedResidual",
            "MobileNetV2Features", "ResNet50Features", "VGG16Features",

@@ -22,6 +22,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from .remat import Rematerializable
+
 
 class _TorchvisionInit:
     """torchvision's init of the backbones, drawn from a generator."""
@@ -44,7 +46,7 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(Rematerializable, nn.Module):
     """torchvision's ResNet Bottleneck (expansion 4, stride on the 3x3)."""
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
@@ -122,7 +124,7 @@ def _conv_bn_relu6(cin: int, cout: int, k: int, stride: int = 1,
                   bias=False), _bn(cout), nn.ReLU6())
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(Rematerializable, nn.Module):
     """torchvision's MobileNetV2 inverted residual: (1x1 expansion) ->
     depthwise 3x3 -> 1x1 projection, with the skip when the shape stays."""
 

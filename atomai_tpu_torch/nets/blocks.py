@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .backbones import BACKBONE_FEATURES
+from .remat import Rematerializable
 
 
 class Dropout(nn.Dropout):
@@ -71,7 +72,7 @@ def _conv_layers(ndim: int, cin: int, cout: int, kernel_size: int,
     return layers
 
 
-class ConvBlock(nn.Module):
+class ConvBlock(Rematerializable, nn.Module):
     """Block of [conv -> (dropout) -> LeakyReLU -> (batchnorm)] x nb_layers,
     1D (NCL) or 2D (NCHW)."""
 
@@ -92,7 +93,7 @@ class ConvBlock(nn.Module):
         return self.block(x)
 
 
-class DilatedBlock(nn.Module):
+class DilatedBlock(Rematerializable, nn.Module):
     """Cascade of dilated (atrous) convolutions, 1D or 2D.
 
     Parity quirk (`atomai_tpu/nets/blocks.py:219-264`, after original
@@ -124,7 +125,7 @@ class DilatedBlock(nn.Module):
         return acc
 
 
-class UpsampleBlock(nn.Module):
+class UpsampleBlock(Rematerializable, nn.Module):
     """Interpolation upsampling (bilinear / nearest) followed by a 1x1 conv.
 
     ``jax.image.resize(..., "linear")`` at an integer upscale samples at
@@ -153,9 +154,12 @@ class UpsampleBlock(nn.Module):
 class ResBlock(nn.Module):
     """1x1 in-projection (also the residual), then [3x3 conv -> (BatchNorm)
     -> LeakyReLU] and [3x3 conv -> (BatchNorm)], the skip add, LeakyReLU
-    (`atomai_tpu/nets/blocks.py:164-199`); 1D or 2D."""
+    (`atomai_tpu/nets/blocks.py:164-199`); 1D or 2D. ``kernel_size``,
+    ``stride`` and ``padding`` are accepted and unused, as in the JAX
+    package and original atomai: the convs are always 1x1 and 3x3/1."""
 
     def __init__(self, ndim: int, input_channels: int, output_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
                  batch_norm: bool = True, lrelu_a: float = 0.01):
         super().__init__()
         if ndim not in _CONV:
@@ -175,7 +179,7 @@ class ResBlock(nn.Module):
         return F.leaky_relu(out + x, self.lrelu_a)
 
 
-class ResModule(nn.Module):
+class ResModule(Rematerializable, nn.Module):
     """A stack of ``res_depth`` residual blocks
     (`atomai_tpu/nets/blocks.py:202-216`)."""
 
@@ -185,7 +189,8 @@ class ResModule(nn.Module):
         super().__init__()
         self.c0 = nn.Sequential(*[
             ResBlock(ndim, input_channels if i == 0 else output_channels,
-                     output_channels, batch_norm, lrelu_a)
+                     output_channels, batch_norm=batch_norm,
+                     lrelu_a=lrelu_a)
             for i in range(res_depth)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ..core.dtypes import head_f32
 from ..ops.spatial_mlp import mlp_shapes_supported, spatial_mlp
 from .blocks import ConvBlock, DilatedBlock
+from .remat import Rematerializable, checkpointed
 
 
 def _signal_dim(signal_dim) -> Tuple[int, ...]:
@@ -137,11 +138,11 @@ class SignalED(nn.Module):
                                      nblayers_decoder, nbfilters_decoder,
                                      batch_norm, decoder_upsampling)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x)
+    def encode(self, features: torch.Tensor) -> torch.Tensor:
+        return self.encoder(features)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(z)
+    def decode(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.decoder(latent)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))
@@ -201,7 +202,7 @@ def _encoded(encoder: nn.Module, x: torch.Tensor
                                     for fc in getattr(encoder, "fc13", ()))
 
 
-class fcEncoderNet(nn.Module):
+class fcEncoderNet(Rematerializable, nn.Module):
     """MLP encoder -> (z_mu, z_logstd) (`ed.py:139-162`)."""
 
     def __init__(self, in_dim: Tuple[int, ...], latent_dim: int = 2,
@@ -232,7 +233,7 @@ class jfcEncoderNet(fcEncoderNet):
                                   for d in discrete_dim)
 
 
-class convEncoderNet(nn.Module):
+class convEncoderNet(Rematerializable, nn.Module):
     """Conv encoder -> (z_mu, z_logstd) (`ed.py:165-186`): images
     (H, W[, C]) through a 2D ConvBlock, spectra (L,) through a 1D one.
 
@@ -284,7 +285,7 @@ def _channel_last(h: torch.Tensor, out_dim: Tuple[int, ...]) -> torch.Tensor:
     return h[..., 0] if c == 1 else h
 
 
-class fcDecoderNet(nn.Module):
+class fcDecoderNet(Rematerializable, nn.Module):
     """MLP decoder (`ed.py:256-276`). The output features are ordered
     (h, w, c), the JAX package's order."""
 
@@ -326,7 +327,7 @@ class _LecunConv2d(_LecunNormalInit, nn.Conv2d):
     pass
 
 
-class convDecoderNet(nn.Module):
+class convDecoderNet(Rematerializable, nn.Module):
     """Conv decoder (`ed.py:279-300`): a bias-free Linear layer to
     ``hidden_dim`` channels on the output grid, a ConvBlock (LeakyReLU
     0.1, no BatchNorm) and a float32 1x1 conv to the output channels.
@@ -390,7 +391,15 @@ class rDecoderNet(nn.Module):
     :func:`spatial_mlp` call (the CUDA kernels for CUDA tensors, the plain
     version for CPU ones); otherwise the layers run one by one, as the JAX
     package's XLA branch does. Both read the same parameters.
+
+    With ``remat`` (set by ``set_remat``), a training call checkpoints the
+    layer-by-layer route whole and the plain version of the fused route;
+    the fused route's CUDA kernels are left as they are, since their
+    backward recomputes the activations on chip already
+    (``nets/remat.py``).
     """
+
+    remat = False
 
     def __init__(self, out_dim: Tuple[int, ...], latent_dim: int,
                  num_layers: int, hidden_dim: int, skip: bool = False):
@@ -409,6 +418,13 @@ class rDecoderNet(nn.Module):
 
     def forward(self, x_coord: torch.Tensor, z: torch.Tensor
                 ) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        if remat and not self.fused():
+            return checkpointed(self, self._forward, x_coord, z, False)
+        return self._forward(x_coord, z, remat)
+
+    def _forward(self, x_coord: torch.Tensor, z: torch.Tensor, remat: bool
+                 ) -> torch.Tensor:
         B = x_coord.shape[0]
         reshape_ = (self.out_dim if self.c == 1
                     else self.out_dim[:2] + (self.c,))
@@ -426,7 +442,7 @@ class rDecoderNet(nn.Module):
             y = spatial_mlp(
                 x_coord.float().transpose(1, 2), head_f32(cl.fc_latent, z),
                 cl.fc_coord.weight.T, cl.fc_coord.bias[None], Ws, bs,
-                self.out.weight.T, self.out.bias[None])
+                self.out.weight.T, self.out.bias[None], remat=remat)
             return y[:, 0].reshape((B,) + reshape_)
         h = self.coord_latent(x_coord, z)
         if self.skip:

@@ -117,6 +117,8 @@ def refine_peaks(imgdata: torch.Tensor, coords: torch.Tensor, d: int,
         imgdata = imgdata[None]
     n_frames, H, W = imgdata.shape
     coords = coords.float()
+    if len(coords) == 0:        # no atoms: nothing to fit
+        return coords.reshape(0, 2)
     if frames is None:
         frames = torch.zeros(len(coords), dtype=torch.long,
                              device=coords.device)

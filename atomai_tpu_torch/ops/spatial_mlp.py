@@ -34,6 +34,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import _build
 
@@ -232,7 +233,8 @@ class _SpatialMLP(torch.autograd.Function):
                                          gy.float().contiguous())
 
 
-def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
+def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo, remat: bool = False
+                ) -> torch.Tensor:
     """Fused tanh-MLP over pixel rows.
 
     Args:
@@ -241,12 +243,21 @@ def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
         Wc: (2, H), bc: (1, H) coordinate embedding.
         Ws: (L, H, H) in (in, out) layout, bs: (L, H) hidden layers.
         Wo: (H, 1), bo: (1, 1) output head.
+        remat: recompute the activations in the backward instead of
+            keeping them. The CUDA kernels always do (their backward
+            recomputes on chip, once a step, with no second forward
+            launch); the plain version is then run under
+            ``torch.utils.checkpoint``.
     Returns:
         (B, 1, n) float32: the plain version for CPU tensors, the CUDA
         kernels (differentiable) for CUDA tensors.
     """
     if xT.device.type == "cpu":
-        return spatial_mlp_reference(xT, zb, Wc, bc, Ws, bs, Wo, bo)
+        args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
+        if remat:
+            return checkpoint(spatial_mlp_reference, *args,
+                              use_reentrant=False)
+        return spatial_mlp_reference(*args)
     if xT.device.type == "cuda":
         return _SpatialMLP.apply(xT, zb, Wc, bc, Ws, bs, Wo, bo)
     raise ValueError(f"spatial_mlp runs on 'cpu' or 'cuda' tensors, got "

@@ -208,6 +208,13 @@ class EnsemblePredictor(BasePredictor):
             preds = preds.reshape((self.n_models, *out_shape))
         return preds
 
+    def ensemble_forward_(self, data, out_shape=None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+        """Mean and variance over the members of :meth:`ensemble_forward`
+        (population variance, as numpy's)."""
+        eprediction = self.ensemble_forward(data, out_shape)
+        return np.mean(eprediction, axis=0), np.var(eprediction, axis=0)
+
     @torch.inference_mode()
     def ensemble_batch_predict(self, data: torch.Tensor,
                                num_batches: int = 10

@@ -48,6 +48,11 @@ class BasePredictor:
         self.precision = default_precision(self.device)
         self.verbose = kwargs.get("verbose", False)
 
+    def preprocess(self, data) -> torch.Tensor:
+        """``data`` as a float32 tensor on the model's device."""
+        return torch.as_tensor(np.asarray(data, np.float32),
+                               device=self.device)
+
     def forward_(self, x: torch.Tensor) -> torch.Tensor:
         """One forward pass of an NCHW batch."""
         with self.precision.scope(self.device):
@@ -72,6 +77,22 @@ class BasePredictor:
             if num_batches * batch_size < len(x):
                 outs.append(self.forward_(x[num_batches * batch_size:]))
         return torch.cat(outs)
+
+    def batch_predict(self, data: torch.Tensor, out_shape: Tuple[int, ...],
+                      num_batches: int) -> np.ndarray:
+        """:meth:`batch_forward` copied to the host in one transfer, as
+        float32 numpy of ``out_shape``."""
+        out = self.batch_forward(data, num_batches)
+        return out.float().cpu().numpy().reshape(out_shape)
+
+    def predict(self, data, out_shape: Optional[Tuple[int, ...]] = None,
+                num_batches: int = 1) -> np.ndarray:
+        """The model's output for ``data`` as it is given (no layout
+        change), of ``data``'s shape or (n, *out_shape)."""
+        out_shape = tuple(np.shape(data)) if out_shape is None \
+            else (len(data), *out_shape)
+        return self.batch_predict(self.preprocess(data), out_shape,
+                                  num_batches)
 
 
 class SegPredictor(BasePredictor):
@@ -331,7 +352,7 @@ class Locator:
         coords, frames, _ = blob_centers_tiled(masks)
         # one copy to the host: [row, col, mask], masks ascending (frame,
         # then class); each frame's rows are then one slice of the table
-        table = self._rem_edge(torch.cat(
+        table = self.rem_edge_coord(torch.cat(
             [coords.double(), frames.double()[:, None]], dim=1).cpu().numpy(),
             h, w)
         mask_idx = table[:, 2].astype(np.int64)
@@ -369,11 +390,12 @@ class Locator:
                 out[i] = np.concatenate([part, d_coord[i][:, 2:3]], axis=1)
         return out
 
-    def _rem_edge(self, table: np.ndarray, h: int, w: int) -> np.ndarray:
+    def rem_edge_coord(self, coordinates: np.ndarray, h: int, w: int
+                       ) -> np.ndarray:
         """Drops the rows of a [row, col, ...] table whose blob lies within
         ``dist_edge`` of the (padded) frame's edges
         (`atomai_tpu/predictors/predictor.py:554-563`)."""
         e = self.dist_edge
-        row, col = table[:, 0], table[:, 1]
+        row, col = coordinates[:, 0], coordinates[:, 1]
         bad = (row > h - e) | (row < e) | (col > w - e) | (col < e)
-        return table[~bad]
+        return coordinates[~bad]

@@ -75,14 +75,12 @@ class BaseEnsembleTrainer(BaseTrainer):
 
     def compile_ensemble_trainer(self, **kwargs: Any) -> None:
         """Stores the training kwargs (``fit``'s, plus ``member_layout``:
-        "auto", "map" or "vmap"). Device meshes and rematerialisation are
+        "auto", "map" or "vmap"; ``remat`` as the single-model trainer's,
+        each member a copy of the rematerialised net). Device meshes are
         not ported and raise."""
         if kwargs.pop("mesh", None):
             raise NotImplementedError(
                 "device meshes are not ported yet (ROADMAP Queue 1 #21)")
-        if kwargs.get("remat"):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue 1 #22)")
         self.kdict = kwargs
         self.full_epoch = self.kdict.get("full_epoch", False)
         self.batch_size = self.kdict.get("batch_size", 32)

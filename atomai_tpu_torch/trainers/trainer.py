@@ -28,9 +28,10 @@ keeps:
 Every random draw of a run (augmentation, dropout, perturbation) comes
 from one generator on the model's device, seeded from the trainer's
 :class:`GeneratorSeq`. ``plot_training_history`` writes
-``<filename>_losses.png`` after a run. Not ported: device meshes (ROADMAP
-Queue 1 #21), rematerialisation (Queue 1 #22), and the XLA cost-analysis
-helpers.
+``<filename>_losses.png`` after a run. ``remat=True`` recomputes each
+block's activations in the backward (``nets/remat.py``): bit for bit the
+plain fit wherever the kernels are deterministic. Not ported: device
+meshes (ROADMAP Queue 1 #21) and the XLA cost-analysis helpers.
 """
 
 import math
@@ -48,7 +49,8 @@ from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
 from ..losses_metrics import iou_score, select_loss
 from ..nets import (Dropout, init_cls_model, init_fcnn_model,
-                    init_imspec_model, init_reg_model, init_weights_)
+                    init_imspec_model, init_reg_model, init_weights_,
+                    set_remat)
 from ..utils import preproc
 
 
@@ -108,6 +110,7 @@ class BaseTrainer:
         self.accuracy_metrics = None
         self.metrics_log = None
         self.running_weights_stats = None
+        self.remat = False
         self._reset_training_history()
 
     def _reset_training_history(self) -> None:
@@ -135,7 +138,17 @@ class BaseTrainer:
         self.Xb_test, self.yb_test = stage(X_test), stage(y_test)
         self.data_is_set = True
 
+    def data_augmentation(self, augment_fn: Callable) -> None:
+        """Sets the augmentation, ``augment_fn(generator, X, y) -> (X,
+        y)`` on the device's batches."""
+        self.augment_fn = augment_fn
+
     # ----------------------------------------------------------- compile
+    def get_loss_fn(self, loss: Union[str, Callable], nb_classes=None
+                    ) -> Callable:
+        """The loss function of ``loss`` (a name or a callable)."""
+        return select_loss(loss, nb_classes)
+
     def compile_trainer(self, train_data: Optional[Tuple] = None,
                         loss: Union[str, Callable] = "ce",
                         optimizer: Optional[Any] = None,
@@ -151,9 +164,10 @@ class BaseTrainer:
         if kwargs.get("mesh"):
             raise NotImplementedError(
                 "device meshes are not ported yet (ROADMAP Queue 1 #21)")
-        if kwargs.get("remat"):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue 1 #22)")
+        # kept across compile calls, as in the JAX package
+        self.remat = bool(kwargs.get("remat", self.remat))
+        if self.net is not None:
+            set_remat(self.net, self.remat)
         self.full_epoch = full_epoch
         self.training_cycles = training_cycles
         self.batch_size = batch_size
@@ -356,6 +370,14 @@ class BaseTrainer:
                         savefig=self.filename + "_losses.png")
         return self.net
 
+    def fit(self) -> nn.Module:
+        """:meth:`run` (the JAX package's alias)."""
+        return self.run()
+
+    def select_lr(self, e: int) -> None:
+        """Nothing: the per-step schedule is set at compile time (kept for
+        the JAX package's and the original atomai's API)."""
+
     def _record(self, e0: int, rows: List[List], mlog) -> None:
         """Copies a chunk's device scalars to the host in one transfer,
         appends them to ``loss_acc`` and the log, and prints."""
@@ -403,7 +425,7 @@ class BaseTrainer:
             print("Model (final state) accuracy:",
                   np.around(np.mean(accs), 4))
 
-    def print_statistics(self, e: int) -> None:
+    def print_statistics(self, e: int, **kwargs) -> None:
         accuracy_metrics = self.accuracy_metrics or "Accuracy"
         msg = "Epoch {}/{} ...".format(e + 1, self.training_cycles)
         msg += " Training loss: {} ...".format(

@@ -38,6 +38,7 @@ from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.prng import GeneratorSeq
 from ..nets.blocks import init_weights_
+from ..nets.remat import set_remat
 
 
 class viBaseTrainer:
@@ -64,11 +65,21 @@ class viBaseTrainer:
         self.filename = "model"
         self.training_cycles = 1
         self.batch_size = 1
+        self.remat = False
 
     # ------------------------------------------------------------ models
     def set_model(self, encoder_net: nn.Module, decoder_net: nn.Module
                   ) -> None:
         self.encoder_net = encoder_net
+        self.decoder_net = decoder_net
+
+    def set_encoder(self, encoder_net: nn.Module) -> None:
+        """Replaces the encoder (a user's net; weights drawn at compile
+        time unless the trainer is initialised already)."""
+        self.encoder_net = encoder_net
+
+    def set_decoder(self, decoder_net: nn.Module) -> None:
+        """Replaces the decoder, as :meth:`set_encoder`."""
         self.decoder_net = decoder_net
 
     def parameters(self) -> List[nn.Parameter]:
@@ -95,9 +106,11 @@ class viBaseTrainer:
                                 device=self.device)
         return X, y
 
-    def set_data(self, X_train, y_train=None, X_test=None, y_test=None
-                 ) -> None:
-        """Stages the train (and test) data on the device once."""
+    def set_data(self, X_train, y_train=None, X_test=None, y_test=None,
+                 memory_alloc: float = 4) -> None:
+        """Stages the train (and test) data on the device once
+        (``memory_alloc`` is accepted and unused: the data always go to
+        the device)."""
         if X_train is None:
             raise AssertionError("You must provide input train/test data")
         self.X_train, self.y_train = self._to_device(X_train, y_train)
@@ -110,24 +123,31 @@ class viBaseTrainer:
     def compile_trainer(self, train_data: Tuple,
                         test_data: Optional[Tuple] = None,
                         training_cycles: int = 100, batch_size: int = 32,
-                        optimizer: Any = None, **kwargs) -> None:
+                        optimizer: Any = None, elbo_fn: Any = None,
+                        **kwargs) -> None:
         """Stages the data and initialises the weights and the optimizer:
         ``optimizer`` "adam" (the default) or "sgd" at lr 1e-4, or a
-        callable ``params -> torch.optim.Optimizer``. Device meshes and
-        rematerialisation are not ported and raise."""
+        callable ``params -> torch.optim.Optimizer``. ``remat=True``
+        recomputes the encoder's and the decoder's activations in the
+        backward (``nets/remat.py``; kept across compile calls); the noise
+        is drawn between them, outside any recompute. Device meshes are
+        not ported and raise."""
         if kwargs.get("mesh"):
             raise NotImplementedError(
                 "device meshes are not ported yet (ROADMAP Queue 1 #21)")
-        if kwargs.get("remat"):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue 1 #22)")
+        self.remat = bool(kwargs.get("remat", self.remat))
         self.training_cycles = training_cycles
         self.batch_size = batch_size
+        if elbo_fn is not None:
+            # shadows the model's elbo_fn method, as in the JAX package
+            self.elbo_fn = elbo_fn
         if test_data is not None and test_data[0] is not None:
             self.set_data(*train_data, *test_data)
         else:
             self.set_data(*train_data)
         self._init_params()
+        set_remat(self.encoder_net, self.remat)
+        set_remat(self.decoder_net, self.remat)
         if self.optimizer is None:
             self.optimizer = self._make_optimizer(optimizer)
         self.filename = kwargs.get("filename", "./model")
@@ -324,6 +344,10 @@ class viBaseTrainer:
     def load_weights(self, filepath: str) -> None:
         """Loads weights saved by :meth:`save_model` or
         :meth:`save_weights`, or by the JAX package's (a ``.aoi`` file)."""
-        _, arrays = load_checkpoint(filepath)
+        self.load_weights_from_arrays(load_checkpoint(filepath)[1])
+
+    def load_weights_from_arrays(self, arrays) -> None:
+        """Loads the weights of a loaded checkpoint's arrays (the port's or
+        the JAX package's), initialising the nets first if need be."""
         self._init_params()
         self.load_arrays(arrays)

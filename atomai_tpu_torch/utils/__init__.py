@@ -2,9 +2,27 @@
 staging, atoms from masks, nearest-neighbour distances and bond maps,
 atom-position refinement, clustering and tracking, lattice graphs and
 their rings, blob filtering and ellipses, weight and class utilities, the
-GP inputs of a sparse image, and plotting."""
+GP inputs of a sparse image, plotting, POSCAR files, the Zenodo data
+sets, and the original atomai's utils surface (``compat``)."""
 
-from . import graphx, viz
+from . import compat, datasets, graphx, viz
+from .aseutils import ase_obj_adv, ase_obj_basic
+from .compat import (Hook, array2list, array2list_, channels2indices,
+                     combine_classes_, dummy_optimizer, get_array_memsize,
+                     init_cls_dataloaders, init_dataloader,
+                     init_dataloaders, init_fcnn_dataloaders,
+                     init_imspec_dataloaders, init_reg_dataloaders,
+                     init_vae_dataloaders, load_weights, nb_filters_classes,
+                     preprocess_training_cls_data,
+                     preprocess_training_cls_data_,
+                     preprocess_training_image_data,
+                     preprocess_training_image_data_,
+                     preprocess_training_imspec_data,
+                     preprocess_training_imspec_data_,
+                     preprocess_training_reg_data,
+                     preprocess_training_reg_data_, set_seed_and_precision,
+                     torch_format, torch_format_image, torch_format_spectra,
+                     train_test_split)
 from .coords import (chain_tracks, cluster_coord, compare_coordinates,
                      find_com, find_coord_clusters, gaussian_2d,
                      get_intensities, get_intensities_,
@@ -71,4 +89,17 @@ __all__ = [
     "visualize_unmixing_results", "graphx", "Graph", "Node",
     "get_interatomic_r", "find_cycles", "find_cycle_clusters",
     "filter_subgraphs", "plot_graph",
+    # aseutils, datasets and compat
+    "ase_obj_basic", "ase_obj_adv", "datasets", "compat",
+    "torch_format_image", "torch_format_spectra", "torch_format",
+    "train_test_split", "array2list", "array2list_", "get_array_memsize",
+    "init_dataloader", "init_dataloaders", "init_fcnn_dataloaders",
+    "init_imspec_dataloaders", "init_reg_dataloaders",
+    "init_cls_dataloaders", "init_vae_dataloaders",
+    "preprocess_training_image_data", "preprocess_training_imspec_data",
+    "preprocess_training_reg_data", "preprocess_training_cls_data",
+    "preprocess_training_image_data_", "preprocess_training_imspec_data_",
+    "preprocess_training_reg_data_", "preprocess_training_cls_data_",
+    "load_weights", "Hook", "set_seed_and_precision", "dummy_optimizer",
+    "nb_filters_classes", "channels2indices", "combine_classes_",
 ]

@@ -5,9 +5,10 @@ here runs on the host; the trainers move the stacked batches to the device
 once.
 """
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def num_classes_from_labels(labels: np.ndarray) -> int:
@@ -136,11 +137,14 @@ def format_image(image_data: np.ndarray, norm: bool = True) -> np.ndarray:
 
 
 def data_split(X_train, y_train, test_size: float = 0.15,
-               random_state: int = 1, channel: Optional[str] = None
-               ) -> Tuple[np.ndarray, ...]:
+               random_state: int = 1, channel: Optional[str] = None,
+               format_out: str = "numpy") -> Tuple[Any, ...]:
     """Shuffled train/test split: the first ``round(n * test_size)`` (at
     least 1) of a ``RandomState(random_state)`` permutation are held out,
-    as in the JAX package, so both split a data set the same way."""
+    as in the JAX package, so both split a data set the same way.
+    ``format_out``: "numpy" (as given), "float" (float32 numpy),
+    "torch_float" (float32 CPU tensors) or "torch_float_long" (float32
+    features, int64 labels, as CPU tensors)."""
     X_train = np.asarray(X_train)
     y_train = np.asarray(y_train)
     if channel == "first":
@@ -157,8 +161,20 @@ def data_split(X_train, y_train, test_size: float = 0.15,
     n_test = max(int(round(n * test_size)), 1)
     perm = np.random.RandomState(random_state).permutation(n)
     test_idx, train_idx = perm[:n_test], perm[n_test:]
-    return (X_train[train_idx], y_train[train_idx],
-            X_train[test_idx], y_train[test_idx])
+    out = (X_train[train_idx], y_train[train_idx],
+           X_train[test_idx], y_train[test_idx])
+    if format_out == "numpy":
+        return out
+    if format_out == "float":
+        return tuple(a.astype(np.float32) for a in out)
+    ydtype = {"torch_float": torch.float32,
+              "torch_float_long": torch.int64}.get(format_out)
+    if ydtype is None:
+        raise NotImplementedError(
+            f"{format_out} output format is not implemented")
+    return tuple(torch.as_tensor(a).to(torch.float32 if i % 2 == 0
+                                       else ydtype)
+                 for i, a in enumerate(out))
 
 
 def to_onehot(idx: np.ndarray, n: int) -> np.ndarray:

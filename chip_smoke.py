@@ -5,8 +5,9 @@ and atom finding, the GP family: deep kernel learning and sparse-image
 reconstruction, the rest of the supervised zoo: the other segmentation
 nets, the denoiser, regression and classification, the joint VAEs with
 the VAE family's encoding tools, the JAX package's own checkpoints loaded,
-resumed, exported and served, the stat layer, and lattice-graph analysis
-with the labeller's image utilities) and checks every step of them.
+resumed, exported and served, the stat layer, lattice-graph analysis
+with the labeller's image utilities, and training with rematerialisation)
+and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -182,11 +183,24 @@ Phases, one JSON line each (all before the last line):
     frames equal to the port's CPU run); ``get_nn_distances``,
     ``map_bonds`` and ``find_coord_clusters`` of the ~55,000 located atoms,
     the ball and pair queries equal to cKDTree's; each call's seconds and
-    the card's busy share.
+    the card's busy share;
+29. remat_path: ``fit(remat=True)`` (each block's activations recomputed
+    in the backward, ``nets/remat.py``) against the plain fit from the
+    same weights, generators and batch order: config A's Unet for one
+    cycle and for 10 (losses, weights and BatchNorm statistics; whether
+    they are bit for bit equal with cuDNN's deterministic algorithms and
+    without, plain against plain too; then within the stated bounds, or
+    within 3 times two plain fits' distance), the peak
+    memory of one training step both ways at batch 32 and 256 of 256²,
+    training steps/s both ways in turns, ``predict`` after the remat fit
+    (one labeller launch, exact); config C's rVAE and the jrVAE pin for 3
+    epochs (ELBOs against the plain fit's, the spatial-MLP launches: one
+    forward and one backward a step, the peak memory of an epoch).
 Then one JSON line on the kernels (the spatial-MLP records with their
-``jrvae_path`` numbers, the labeller's and the forward's with the
-``served_from_jax`` ones, the labeller's with the ``stat_path`` and
-``graph_path`` ones), and as the last line
+``jrvae_path`` and ``remat_path`` numbers, the labeller's and the
+forward's with the ``served_from_jax`` ones, the labeller's with the
+``stat_path``, ``graph_path`` and ``remat_path`` ones), and as the last
+line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -439,6 +453,20 @@ BLOB_THRESH = 10          # px: filter_cells' and get_blob_params' size cut
 GRAPH_CPU_FRAMES = 4      # trained frames held against the port on the CPU
 TOL_BLOB_ANGLE = 1e-9     # degrees, modulo 180
 NN_RMAX = 3               # px: find_coord_clusters across the 64 frames
+# phase 29: fit(remat=True) against the plain fit from the same weights,
+# generators and batch order (config A's Unet, config C's rVAE, the jrVAE)
+REMAT_CYCLES = 10
+REMAT_MEMORY_BATCHES = (32, 256)   # frames of 256² a measured step
+REMAT_STEP_REPS = 20               # timed training steps a turn
+REMAT_VAE_EPOCHS = 3
+TOL_REMAT_LOSS_REL = 1e-3          # the seg-train fixture's loss bound
+TOL_REMAT_W = 2 * 1e-3 * REMAT_CYCLES   # 2 * Adam's lr a step
+TOL_REMAT_STATS_REL = 1e-2         # running statistics, of their scale
+# ... or, where the card's own nondeterminism (the bilinear upsampling's
+# backward adds with atomics) moves two plain fits further apart, this
+# many times the plain fits' distance
+REMAT_NOISE_FACTOR = 3
+TOL_REMAT_ELBO_REL = 1e-4
 
 
 def check(cond, msg):
@@ -2861,7 +2889,8 @@ def phase_served_from_jax(device):
     check(mlp_launches == 2, f"decode and manifold2d launched the forward "
           f"kernel {mlp_launches} times")
     fused = ed.spatial_mlp
-    ed.spatial_mlp = sm.spatial_mlp_reference
+    ed.spatial_mlp = lambda *args, remat=False: sm.spatial_mlp_reference(
+        *args)
     try:
         plain = v.manifold2d(), v.decode(z)
     finally:
@@ -3380,6 +3409,209 @@ def phase_graph_path(device, trained_net):
                 lambda: ops.blob_sums_reference(frame), 3, device)}
 
 
+def _seg_remat_runs(device, imgs, masks, deterministic, cycles):
+    """Config A's Unet fitted for ``cycles`` cycles three times from seed
+    1 (the same weights, generators and batch order): plain, plain again,
+    and with ``remat=True``; cuDNN's deterministic algorithms on or
+    off."""
+    import torch
+    from atomai_tpu_torch import models
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp, quiet():
+            for i, remat in enumerate((False, False, True)):
+                m = models.Segmentor("Unet", 1, seed=1, device=device)
+                m.fit(imgs, masks, training_cycles=cycles,
+                      batch_size=SEG_BATCH, print_loss=cycles,
+                      remat=remat, filename=os.path.join(tmp, f"r{i}"))
+                runs.append(m)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return runs
+
+
+def _seg_run_diff(a, b):
+    """How far two fits of the same Unet are apart: losses (relative),
+    parameters (absolute), BatchNorm running statistics (of their scale),
+    and whether all of it is bit for bit equal."""
+    import torch
+    losses = [(np.asarray(a.loss_acc[k]), np.asarray(b.loss_acc[k]))
+              for k in ("train_loss", "test_loss")]
+    loss_rel = max(float(np.abs(x / y - 1).max()) for x, y in losses)
+    sa, sb = a.net.state_dict(), b.net.state_dict()
+    params = dict(a.net.named_parameters())
+    w = max(float((sa[k] - sb[k]).abs().max()) for k in params)
+    stats = max(float((sa[k] - sb[k]).abs().max() / sb[k].abs().max())
+                for k in sa if k.endswith(("running_mean", "running_var")))
+    bitwise = all(np.array_equal(x, y) for x, y in losses) and all(
+        torch.equal(sa[k], sb[k]) for k in sa)
+    return {"loss_rel": loss_rel, "param_abs": w, "stats_rel": stats,
+            "bitwise": bitwise,
+            "first_loss_bitwise": bool(losses[0][0][0] == losses[0][1][0]),
+            "stats_bitwise": all(torch.equal(sa[k], sb[k]) for k in sa
+                                 if k.startswith("running")
+                                 or ".running" in k)}
+
+
+def _peak_step(m, X, y, device):
+    """(peak bytes, peak bytes above what was allocated before, ms) of one
+    training step of ``m`` on the batch, after a warm-up step."""
+    import torch
+    m._train_batch(X, y)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _, ms = timed(lambda: m._train_batch(X, y), device)
+    peak = torch.cuda.max_memory_allocated(device)
+    return peak, peak - base, ms
+
+
+def _vae_remat_pair(cls, kw, X, device):
+    """A VAE of ``cls`` fitted plain and with ``remat=True`` from the same
+    seed for ``REMAT_VAE_EPOCHS`` epochs: the ELBO histories, each fit's
+    spatial-MLP launches, and the peak bytes above the resting allocation
+    of one more epoch."""
+    import torch
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for remat in (False, True):
+            m = cls((32, 32), device=device, **kw)
+            check(m.decoder_net.fused(), f"{cls.__name__}'s decoder does "
+                  "not route to the kernels")
+            sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+            m.fit(X, training_cycles=REMAT_VAE_EPOCHS, batch_size=RVAE_BATCH,
+                  remat=remat, verbose=False,
+                  filename=os.path.join(tmp, f"v{remat}"))
+            torch.cuda.synchronize(device)
+            launches = [sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES]
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            m.train_epoch()
+            peak = torch.cuda.max_memory_allocated(device) - base
+            out["remat" if remat else "plain"] = {
+                "elbo": list(m.loss_history["train_loss"]),
+                "launches": launches, "epoch_peak_bytes": peak}
+    steps = REMAT_VAE_EPOCHS * (len(X) // RVAE_BATCH)
+    plain, remat = out["plain"], out["remat"]
+    rel = float(np.abs(np.asarray(remat["elbo"]) /
+                       np.asarray(plain["elbo"]) - 1).max())
+    check(bool(np.isfinite(remat["elbo"]).all()) and
+          rel <= TOL_REMAT_ELBO_REL, f"{cls.__name__}: remat ELBOs "
+          f"{rel} off the plain fit's")
+    for way in (plain, remat):
+        check(way["launches"] == [steps, steps], f"{cls.__name__}: "
+              f"{steps} steps launched the kernels {way['launches']} times")
+    out.update(steps=steps, elbo_rel=rel,
+               elbo_bitwise=remat["elbo"] == plain["elbo"],
+               launches_per_step=[v / steps for v in remat["launches"]])
+    return out
+
+
+def phase_remat_path(device):
+    """``fit(remat=True)`` on the card (``nets/remat.py``): config A's Unet
+    against the plain fit (bitwise, with cuDNN's deterministic algorithms
+    and without, then within the stated bounds), the peak memory of one
+    training step both ways at batch 32 and 256, training steps/s both
+    ways in turns, and ``predict`` after the remat fit (one labeller
+    launch, held exactly to the plain labeller); config C's rVAE and the
+    jrVAE pin against their plain fits, with the spatial-MLP launches a
+    step (one forward, one backward: the kernels stay outside the
+    checkpoints) and the peak memory of an epoch both ways."""
+    import torch
+    from atomai_tpu_torch.models import jrVAE, rVAE
+    from atomai_tpu_torch.nets import set_remat
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**MAIN)
+    t0 = time.perf_counter()
+    # one cycle with cuDNN's deterministic algorithms: the forward (the
+    # first loss, the running statistics it sets) against the plain one,
+    # the weights within one Adam step of each other
+    plain, again, remat = _seg_remat_runs(device, imgs, masks, True, 1)
+    first = {"plain_vs_plain": _seg_run_diff(again, plain),
+             "remat_vs_plain": _seg_run_diff(remat, plain)}
+    d = first["remat_vs_plain"]
+    check(d["loss_rel"] <= TOL_REMAT_LOSS_REL and
+          d["param_abs"] <= TOL_REMAT_W / REMAT_CYCLES and
+          d["stats_rel"] <= TOL_REMAT_STATS_REL,
+          f"remat's first cycle off the plain one: {d}")
+    compare = {"first_cycle_deterministic": first}
+    bounds = {"loss_rel": TOL_REMAT_LOSS_REL, "param_abs": TOL_REMAT_W,
+              "stats_rel": TOL_REMAT_STATS_REL}
+    for mode, det in (("deterministic", True), ("default", False)):
+        plain, again, remat = _seg_remat_runs(device, imgs, masks, det,
+                                              REMAT_CYCLES)
+        check(remat.remat and remat.net.c1.remat, "remat was not set")
+        compare[mode] = {"plain_vs_plain": _seg_run_diff(again, plain),
+                         "remat_vs_plain": _seg_run_diff(remat, plain)}
+        d, noise = (compare[mode][k] for k in ("remat_vs_plain",
+                                               "plain_vs_plain"))
+        check(all(d[k] <= max(b, REMAT_NOISE_FACTOR * noise[k])
+                  for k, b in bounds.items()),
+              f"remat fit ({mode} cuDNN) off the plain fit: {d}; two "
+              f"plain fits: {noise}")
+
+    # predict after the remat fit: one labeller launch, exact labels
+    cc_kernel.LAUNCHES = 0
+    maps, coords = remat.predict(imgs, verbose=False)
+    torch.cuda.synchronize(device)
+    launches = cc_kernel.LAUNCHES
+    check(launches == 1, f"predict launched the labeller {launches} times")
+    check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
+          "bad predict output")
+    lab = labeller_on(SegPredictor(remat.net, nb_classes=1, verbose=False)
+                      .predict_device(imgs), device, timed=False)
+
+    # peak memory of one step, and steps/s at config A's batch, both ways
+    m = plain
+    memory = {}
+    g = torch.Generator(device).manual_seed(0)
+    for bs in REMAT_MEMORY_BATCHES:
+        X = torch.rand((bs, 256, 256, 1), generator=g, device=device)
+        y = (torch.rand((bs, 256, 256), generator=g, device=device)
+             > 0.8).float()
+        for on in (False, True):
+            set_remat(m.net, on)
+            peak, above, ms = _peak_step(m, X, y, device)
+            memory[f"batch{bs}_{'remat' if on else 'plain'}"] = {
+                "peak_bytes": peak, "step_peak_bytes": above, "step_ms": ms}
+        del X, y
+    for bs in REMAT_MEMORY_BATCHES:
+        check(memory[f"batch{bs}_remat"]["step_peak_bytes"] <
+              memory[f"batch{bs}_plain"]["step_peak_bytes"],
+              f"remat did not lower a step's peak at batch {bs}: {memory}")
+    X32, y32 = m.Xb_train[0], m.yb_train[0]
+    rates = {"plain": [], "remat": []}
+    for on in (False, True, True, False):
+        set_remat(m.net, on)
+        rates["remat" if on else "plain"].append(1e3 / cuda_ms(
+            lambda: m._train_batch(X32, y32), REMAT_STEP_REPS, device))
+    set_remat(m.net, False)
+    seg_s = time.perf_counter() - t0
+
+    # the VAEs: rVAE (config C) and the jrVAE pin
+    X = config_c_patches()
+    vaes = {"rvae": _vae_remat_pair(rVAE, {"latent_dim": 2}, X, device),
+            "jrvae": _vae_remat_pair(jrVAE, JVAE_KW, X, device)}
+    emit("remat_path", frames=list(imgs.shape), cycles=REMAT_CYCLES,
+         batch=SEG_BATCH, unet=compare, predict_launches=launches,
+         labeller=lab, memory=memory, train_steps_per_s=rates,
+         unet_seconds=seg_s, vaes=vaes,
+         tolerances={**bounds, "noise_factor": REMAT_NOISE_FACTOR,
+                     "first_cycle_param_abs": TOL_REMAT_W / REMAT_CYCLES,
+                     "elbo_rel": TOL_REMAT_ELBO_REL})
+    mlp = [{"launches": sum(v["remat"]["launches"][i] for v in vaes.values()),
+            "steps": sum(v["steps"] for v in vaes.values()),
+            "launches_per_step": vaes["rvae"]["launches_per_step"][i]}
+           for i in range(2)]
+    return ({"launches": launches, "max_abs_err": lab["max_abs_err"],
+             "blobs": lab["blobs"]}, mlp[0], mlp[1])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3420,6 +3652,8 @@ def main():
         phase_served_from_jax(device)
     kernels[0]["stat_path"] = phase_stat_path(device, trained_net)
     kernels[0]["graph_path"] = phase_graph_path(device, trained_net)
+    (kernels[0]["remat_path"], kernels[1]["remat_path"],
+     kernels[2]["remat_path"]) = phase_remat_path(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

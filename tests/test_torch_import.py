@@ -1,7 +1,8 @@
 """The PyTorch port imports without JAX, and none of its sources import the
 JAX package or its stack (flax and msgpack included: the port reads the
 JAX package's ``.aoi`` files with its own msgpack reader), nor
-scikit-learn (the stat layer's decompositions are the port's own)."""
+scikit-learn (the stat layer's decompositions are the port's own); nor
+do the examples of ``examples_torch/``."""
 
 import ast
 import os
@@ -22,6 +23,8 @@ SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")
 ) + ["chip_smoke.py"]
+EXAMPLES = sorted(os.path.join("examples_torch", f) for f in os.listdir(
+    os.path.join(ROOT, "examples_torch")) if f.endswith(".py"))
 
 MODULES = sorted(
     "atomai_tpu_torch" + "".join(
@@ -41,7 +44,7 @@ def _imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize("source", SOURCES)
+@pytest.mark.parametrize("source", SOURCES + EXAMPLES)
 def test_source_imports_no_jax(source):
     bad = _imported_roots(os.path.join(ROOT, source)) & FORBIDDEN
     assert not bad, f"{source} imports {sorted(bad)}"
@@ -62,6 +65,9 @@ def test_import_with_jax_blocked():
         "assert aoi.utils.make_lattice_stack and aoi.ops.label_components\n"
         "assert aoi.stat.imlocal and aoi.export_model and aoi.load_ensemble\n"
         "assert aoi.models.load_torch_checkpoint\n"
+        "import runpy\n"
+        f"for path in {[os.path.join(ROOT, e) for e in EXAMPLES]!r}:\n"
+        "    runpy.run_path(path)   # its imports; main() is not run\n"
         "# no kernel is built at import: only at the first CUDA launch\n"
         "assert aoi.ops.cc_kernel._lib is None\n"
         "print('ok', len(sys.modules))\n")

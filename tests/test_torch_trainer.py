@@ -258,13 +258,19 @@ def test_nb_classes_mismatch_raises(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
+    """``mesh`` raises (ROADMAP #21); ``remat=True`` trains, with the
+    Unet's blocks checkpointed (its exactness: ``test_torch_remat.py``)."""
     m = Segmentor("Unet", 1, **SMALL)
     X, y, Xt, yt = _data()
-    for kw, match in [({"mesh": object()}, "Queue 1 #21"),
-                      ({"remat": True}, "Queue 1 #22")]:
-        with pytest.raises(NotImplementedError, match=match):
-            m.fit(X, y, Xt, yt, training_cycles=1, batch_size=4,
-                  filename=str(tmp_path / "x"), **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 #21"):
+        m.fit(X, y, Xt, yt, training_cycles=1, batch_size=4,
+              filename=str(tmp_path / "x"), mesh=object())
+    r = Segmentor("Unet", 1, **SMALL)
+    r.fit(X, y, Xt, yt, training_cycles=2, batch_size=4,
+          filename=str(tmp_path / "r"), remat=True)
+    assert r.remat and r.net.c1.remat and r.net.upsample_block1.remat
+    assert len(r.loss_acc["train_loss"]) == 2 and \
+        np.isfinite(r.loss_acc["train_loss"]).all()
     with pytest.raises(ValueError, match="Unknown optimizer"):
         m.fit(X, y, Xt, yt, training_cycles=1, batch_size=4,
               optimizer="rmsprop", filename=str(tmp_path / "x"))
@@ -460,6 +466,19 @@ def _default_device_load_reg_model(tmp_path):
     return load_model(path)
 
 
+def _default_device_example(name):
+    """The ``main`` of an ``examples_torch/`` script, run without
+    ``--device``."""
+    def make(tmp_path):
+        import runpy
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples_torch", name + ".py")
+        return runpy.run_path(path)["main"](["--smoke", "--out",
+                                             str(tmp_path)])
+    make.__name__ = f"_default_device_example_{name}"
+    return make
+
+
 @pytest.mark.parametrize("make", [_default_device_segmentor,
                                   _default_device_zoo_segmentor,
                                   _default_device_regressor,
@@ -475,7 +494,10 @@ def _default_device_load_reg_model(tmp_path):
                                   _default_device_blob_params,
                                   _default_device_dklgpr,
                                   _default_device_gptrainer,
-                                  _default_device_reconstructor])
+                                  _default_device_reconstructor] + [
+    _default_device_example(n) for n in (
+        "segmentation_workflow", "rvae_workflow", "ensemble_uncertainty",
+        "dkl_active_learning", "graph_analysis_notebook")])
 def test_entry_points_default_to_the_card(make, tmp_path):
     """Without ``device``, an entry point runs on the card: with no card it
     raises instead of returning a model, or coordinates of numpy input,
