@@ -35,9 +35,14 @@ fused spatial-decoder MLP (rVAE, jrVAE), forward and backward
 every other op is stock PyTorch. The package imports ``torch`` and never
 JAX.
 
+Every fit and predictor also runs over a device mesh (``core.mesh``): one
+process a card (``parallel.launch``), the batch split over the ranks of
+the data axis, ensemble members and independent GP outputs over those of
+the model axis, held to the numbers of one process.
+
 Public layout follows ``atomai_tpu``: ``models``, ``predictors``,
 ``trainers``, ``transforms``, ``losses_metrics``, ``utils``, ``stat``,
-``ops`` (plus ``core`` and ``nets``).
+``ops``, ``parallel`` (plus ``core`` and ``nets``).
 """
 
 from . import core
@@ -50,6 +55,7 @@ from . import trainers
 from . import predictors
 from . import models
 from . import stat
+from . import parallel
 from .models import load_model, load_ensemble
 from .core.dtypes import enable_fast_matmul
 from .core.export import export_model, load_exported

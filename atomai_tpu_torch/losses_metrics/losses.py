@@ -6,12 +6,21 @@ what its JAX counterpart takes; the trainer permutes the Unet's NCHW
 output once. Segmentation targets are float masks (N, H, W) for one class
 and integer masks (N, H, W) for several; regression targets are float
 tensors.
+
+Under a data mesh a rank holds its block of the batch. A loss that is a
+mean of per-element terms is then the mean of the ranks' losses, which
+the trainers take; the two that are not (``dice_loss`` sums over the
+batch, ``focal_loss`` modulates the mean cross-entropy) reduce over the
+global batch themselves (``core.mesh.batch_sum``) and say so with
+``batch_global = True``.
 """
 
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+
+from ..core.mesh import batch_sum, split_mean
 
 
 def _bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
@@ -33,11 +42,12 @@ def focal_loss(prediction: torch.Tensor, labels: torch.Tensor,
     if prediction.ndim == labels.ndim + 1:
         prediction = prediction[..., 0]
     if with_logits:
-        ce = _bce_with_logits(prediction, labels)
+        per_el = _bce_with_logits(prediction, labels, reduction="none")
     else:
         eps = 1e-12
-        ce = -torch.mean(labels * torch.log(prediction + eps) +
-                         (1 - labels) * torch.log(1 - prediction + eps))
+        per_el = -(labels * torch.log(prediction + eps) +
+                   (1 - labels) * torch.log(1 - prediction + eps))
+    ce = split_mean(per_el.mean())
     pt = torch.exp(-ce)
     return alpha * (1 - pt) ** gamma * ce
 
@@ -56,10 +66,13 @@ def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
         true_1_hot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
         probas = torch.softmax(logits, dim=-1)
     reduce_dims = tuple(range(probas.ndim - 1))
-    intersection = torch.sum(probas * true_1_hot, dim=reduce_dims)
-    cardinality = torch.sum(probas + true_1_hot, dim=reduce_dims)
+    intersection = batch_sum(probas * true_1_hot, reduce_dims)
+    cardinality = batch_sum(probas + true_1_hot, reduce_dims)
     dice = torch.mean(2.0 * intersection / (cardinality + eps))
     return 1.0 - dice
+
+
+focal_loss.batch_global = dice_loss.batch_global = True
 
 
 def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

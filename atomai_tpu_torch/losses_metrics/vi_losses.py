@@ -5,12 +5,17 @@ sum-reduced reconstruction loss, the closed-form normal KL, the discrete
 (Gumbel-Softmax against a uniform categorical) KL, the rotation-prior KL,
 the four ELBOs and Burgess-style information-capacity annealing. Each ELBO
 is returned as a value to maximise. ``num_iter`` is a Python number.
+Every mean over the batch is ``core.mesh.batch_mean``: in a step split
+over a data mesh it is the global batch's, so each rank's ELBO is the one
+of the whole batch (the capacity terms are not linear in it).
 """
 
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..core.mesh import batch_mean
 
 
 def reconstruction_loss(loss_type: str, in_dim: Tuple[int, ...],
@@ -58,7 +63,7 @@ def kld_discrete(alpha: torch.Tensor) -> torch.Tensor:
     eps = 1e-12
     h1 = torch.log(alpha + eps)
     h2 = float(np.log(1.0 / alpha.shape[-1] + eps))
-    return torch.mean(torch.sum(alpha * (h1 - h2), 1), 0).reshape(1)
+    return batch_mean(torch.sum(alpha * (h1 - h2), 1), 0).reshape(1)
 
 
 def kld_rot(phi_prior: float, phi_logsd: torch.Tensor) -> torch.Tensor:
@@ -69,7 +74,7 @@ def kld_rot(phi_prior: float, phi_logsd: torch.Tensor) -> torch.Tensor:
 
 
 def _likelihood(recon_loss, in_dim, x, x_reconstr) -> torch.Tensor:
-    return -torch.mean(reconstruction_loss(recon_loss, in_dim, x,
+    return -batch_mean(reconstruction_loss(recon_loss, in_dim, x,
                                            x_reconstr))
 
 
@@ -79,7 +84,7 @@ def vae_loss(recon_loss: str, in_dim, x, x_reconstr, *args, **kwargs):
         raise ValueError(
             "Pass mean and SD values of encoded distribution as args")
     capacity = kwargs.get("capacity")
-    kl_div = torch.mean(kld_normal(args))
+    kl_div = batch_mean(kld_normal(args))
     if capacity is not None:
         kl_div = infocapacity(kl_div, capacity,
                               num_iter=kwargs.get("num_iter", 0))
@@ -88,8 +93,8 @@ def vae_loss(recon_loss: str, in_dim, x, x_reconstr, *args, **kwargs):
 
 def _kl_rot_z(z_mean, z_logsd, phi_prior) -> torch.Tensor:
     """Rotation-prior KL of latent 0 plus the unit-normal KL of the rest."""
-    kl_rot = torch.mean(kld_rot(phi_prior, z_logsd[:, 0]))
-    return torch.mean(kld_normal([z_mean[:, 1:], z_logsd[:, 1:]])) + kl_rot
+    kl_rot = batch_mean(kld_rot(phi_prior, z_logsd[:, 0]))
+    return batch_mean(kld_normal([z_mean[:, 1:], z_logsd[:, 1:]])) + kl_rot
 
 
 def rvae_loss(recon_loss: str, in_dim, x, x_reconstr, *args, **kwargs):
@@ -124,7 +129,7 @@ def joint_vae_loss(recon_loss: str, in_dim, x, x_reconstr, *args, **kwargs):
             "of encoded distributions as args")
     z_mean, z_logsd, alphas = args
     return _joint(_likelihood(recon_loss, in_dim, x, x_reconstr),
-                  torch.mean(kld_normal([z_mean, z_logsd])), alphas, kwargs)
+                  batch_mean(kld_normal([z_mean, z_logsd])), alphas, kwargs)
 
 
 def joint_rvae_loss(recon_loss: str, in_dim, x, x_reconstr, *args,

@@ -431,6 +431,7 @@ class BaseVAE(viBaseTrainer):
             flush_async_checkpoints()
             if mlog is not None:
                 mlog.close()
+        self._sync_replicas()
         self.save_model(self.filename)
         if record:
             self.visualize_manifold_learning("./vae_learning")

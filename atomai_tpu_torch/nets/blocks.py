@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.mesh import draw_rows
 from .backbones import BACKBONE_FEATURES
 from .remat import Rematerializable
 
@@ -38,15 +39,17 @@ from .remat import Rematerializable
 class Dropout(nn.Dropout):
     """``nn.Dropout`` whose mask is drawn from ``self.generator`` when one
     is set (the trainers set it for each step, so no draw touches torch's
-    global generator); without one it is ``nn.Dropout``."""
+    global generator); without one it is ``nn.Dropout``. In a step split
+    over a data mesh the mask is the global batch's, sliced to the rank's
+    rows (``core.mesh.draw_rows``)."""
 
     generator = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0 or self.generator is None:
             return super().forward(x)
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        keep = draw_rows(torch.rand, x.shape, generator=self.generator,
+                         device=x.device) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 

@@ -84,26 +84,30 @@ class StackedFeatureExtractor(nn.Module):
                 b.copy_(torch.stack([m.layers[i].bias for m in members]))
         return out
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, members: slice = slice(None)
+                ) -> torch.Tensor:
+        """(N, in) -> (b, N, out), or the outputs of the ``members`` slice
+        of the stack alone."""
         with _no_autocast(x):
-            x = x.expand(self.kernels[0].shape[0], *x.shape)
+            x = x.expand(self.kernels[0][members].shape[0], *x.shape)
             for i, (k, b) in enumerate(zip(self.kernels, self.biases)):
                 if i:
                     x = torch.relu(x)
-                x = torch.baddbmm(b[:, None, :], x, k)
+                x = torch.baddbmm(b[members, None, :], x, k[members])
         return x
 
 
 class MemberStack(nn.Module):
     """A user-given extractor in ``n`` copies: (N, in) -> (n, N, out), one
-    member after another."""
+    member after another (or those of the ``members`` slice alone)."""
 
     def __init__(self, members: Sequence[nn.Module]):
         super().__init__()
         self.members = nn.ModuleList(members)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.stack([m(x) for m in self.members])
+    def forward(self, x: torch.Tensor, members: slice = slice(None)
+                ) -> torch.Tensor:
+        return torch.stack([m(x) for m in self.members[members]])
 
 
 def compute_bounds_stats(x: torch.Tensor

@@ -18,6 +18,14 @@ Counterpart of `atomai_tpu/predictors/epredictor.py:26-337`:
 
 Segmentation nets take NCHW input and give NCHW output (permuted to and
 from the NHWC data); SignalED takes the data as it is.
+
+Members over the model axis (`atomai_tpu/predictors/epredictor.py:88-99,
+195-212`): in a world of several ranks ``mesh=None`` spreads the members
+over an ``ensemble_mesh`` (``mesh=False``: every rank runs every member; a
+``DeviceMesh`` is used as given). A rank builds and forwards its
+contiguous block of members, the blocks' outputs are all-gathered over the
+model axis, and every rank reduces the mean and variance over all members
+as one process does (a rank outside the mesh runs every member).
 """
 
 import copy
@@ -27,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core.mesh import (MODEL_AXIS, block, gather_blocks,
+                         resolve_model_mesh)
 from ..nets.ed import SignalED
 from ..utils.coords import cluster_coord
 from ..utils.preproc import format_image, format_spectra
@@ -84,7 +94,9 @@ class EnsemblePredictor(BasePredictor):
     spectra needs ``in_dim`` and ``out_dim``. Keyword args: ``logits``
     (default True: sigmoid for one class, softmax for several),
     ``member_layout`` ("auto", "map", "vmap"), ``output_shape``,
-    ``verbose``. The predictor runs on the skeleton's device.
+    ``verbose``, ``mesh`` (the members' mesh: None for the automatic one,
+    False for none, or a ``DeviceMesh``). The predictor runs on the
+    skeleton's device.
     """
 
     def __init__(self, skeleton: nn.Module,
@@ -109,12 +121,15 @@ class EnsemblePredictor(BasePredictor):
             raise ValueError("member_layout must be 'auto'|'map'|'vmap'")
         self.member_layout = layout
         base = skeleton.state_dict()
-        self.members = []
-        for k in sorted(ensemble, key=_member_order):
+        keys = sorted(ensemble, key=_member_order)
+        self.n_models = len(keys)
+        self._mesh = resolve_model_mesh(kwargs.get("mesh", None),
+                                        self.n_models)
+        self.members = []          # this rank's block of them
+        for k in keys[block(self.n_models, self._mesh, MODEL_AXIS)]:
             net = copy.deepcopy(skeleton)
             net.load_state_dict({**base, **ensemble[k]})
             self.members.append(net.eval())
-        self.n_models = len(self.members)
         if layout == "vmap":
             from torch.func import stack_module_state
             params, buffers = stack_module_state(self.members)
@@ -166,7 +181,7 @@ class EnsemblePredictor(BasePredictor):
 
     def _member_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """(n_models, n, ...) float32 outputs of a chunk, channel-last,
-        after the logits' activation."""
+        after the logits' activation (every rank's block of members)."""
         image_in = self.data_type == "image" and self._channels_first
         if image_in:
             x = x.permute(0, 3, 1, 2)
@@ -178,7 +193,7 @@ class EnsemblePredictor(BasePredictor):
                         *self._stacked, x)
             else:
                 out = torch.stack([m(x) for m in self.members])
-        out = out.float()
+        out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)
         if self._channels_first and out.ndim == 5:
             out = out.permute(0, 1, 3, 4, 2)
         nb = self.nb_classes or 0

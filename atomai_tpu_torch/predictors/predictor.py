@@ -17,8 +17,18 @@ Counterpart of `atomai_tpu/predictors/predictor.py:57-452, 455-563`:
 
 ``SegPredictor.run`` keeps the maps on the device: thresholds, labels and
 moments are taken there, and only the coordinates and the NHWC maps that
-the caller gets back are copied to the host. Not ported: the JAX package's
-reduced-precision ``fetch_dtype`` wire and device mesh.
+the caller gets back are copied to the host.
+
+Every predictor takes ``mesh`` (`atomai_tpu/predictors/predictor.py:95-131,
+171-181`): in a world of several ranks ``None`` builds a data mesh over
+all of them, ``False`` gives none, a ``DeviceMesh`` is used as given. Each
+forward chunk is then padded along its frame axis to a multiple of the
+data axis, each rank forwards its block, the blocks are all-gathered and
+the padding trimmed, so every rank holds the whole output. The input is
+preprocessed (and min-max normalised) whole before it is split, as one
+process normalises it; ``SegPredictor.run`` then locates atoms on every
+rank (one labeller launch a rank on the card). Not ported: the JAX
+package's reduced-precision ``fetch_dtype`` wire.
 """
 
 import time
@@ -30,6 +40,8 @@ import torch.nn as nn
 
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
+from ..core.mesh import (DATA_AXIS, axis_size, gather_blocks,
+                         resolve_data_mesh, shard_batch, splits)
 from ..nets.fcnn import DOWNSAMPLE_FACTORS
 from ..ops.cc_label import blob_centers_tiled
 from ..ops.peakfit import refine_peaks
@@ -40,13 +52,16 @@ from ..utils.preproc import format_image, format_spectra
 
 class BasePredictor:
     """Eval-mode forward of ``model`` in chunks, on the model's device,
-    under that device's precision policy. Keyword arg: ``verbose``."""
+    under that device's precision policy. Keyword args: ``verbose``,
+    ``mesh`` (the data mesh the frames split over: None for the automatic
+    one, False for none, or a ``DeviceMesh``)."""
 
     def __init__(self, model: nn.Module, **kwargs):
         self.model = model
         self.device = next(model.parameters()).device
         self.precision = default_precision(self.device)
         self.verbose = kwargs.get("verbose", False)
+        self.mesh = resolve_data_mesh(kwargs.get("mesh", None))
 
     def preprocess(self, data) -> torch.Tensor:
         """``data`` as a float32 tensor on the model's device."""
@@ -54,9 +69,19 @@ class BasePredictor:
                                device=self.device)
 
     def forward_(self, x: torch.Tensor) -> torch.Tensor:
-        """One forward pass of an NCHW batch."""
+        """One forward pass of a batch (NCHW for images); under a data mesh
+        each rank forwards its block of the frames, padded to the data
+        axis, and every rank gets the whole output."""
+        if not splits(self.mesh, DATA_AXIS):
+            with self.precision.scope(self.device):
+                return self.model(x)
+        n = len(x)
+        pad = (-n) % axis_size(self.mesh, DATA_AXIS)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
         with self.precision.scope(self.device):
-            return self.model(x)
+            out = self.model(shard_batch(self.mesh, x))
+        return gather_blocks(out, self.mesh, DATA_AXIS)[:n]
 
     def batch_forward(self, x: torch.Tensor, num_batches: int
                       ) -> torch.Tensor:

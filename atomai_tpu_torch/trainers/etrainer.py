@@ -26,6 +26,18 @@ weights of members from scratch come from ``init_weights_`` with one
 generator a member off the trainer's :class:`GeneratorSeq`; every random
 draw of member i's training (augmentation, dropout) from a generator of
 its own on the device.
+
+Members over the model axis (`:112-141, 205-230`): in a world of several
+ranks, ``compile_ensemble_trainer(mesh=None)`` spreads the members over an
+:func:`~atomai_tpu_torch.core.mesh.ensemble_mesh` (``mesh=False``: every
+rank trains every member; a ``DeviceMesh`` is used as given). Each rank
+trains its contiguous block of members in the loop above; every rank
+still draws all ``n_models`` initial and run generators, so member i is
+the same net whichever rank trains it. The members' ``state_dict``s and
+losses are then broadcast from their owners, so that every rank returns
+the whole ensemble (a rank outside the mesh trains none). The baseline and
+SWAG fits have no member axis and take the automatic data mesh unless
+``mesh=False`` (`:398-428`).
 """
 
 import copy
@@ -37,6 +49,9 @@ import torch
 import torch.nn as nn
 
 from ..core.checkpoint import save_checkpoint
+from ..core.mesh import (MODEL_AXIS, axis_size, block, block_owner,
+                         broadcast_tensors, in_mesh, replicas,
+                         resolve_model_mesh)
 from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
 from ..losses_metrics import iou_score
@@ -72,20 +87,26 @@ class BaseEnsembleTrainer(BaseTrainer):
         self.ensemble_state_dict: Dict[int, State] = {}
         self.kdict: Dict[str, Any] = {}
         self.member_schedules: Optional[np.ndarray] = None
+        # the caller's member mesh (None: automatic, False: none, or a
+        # DeviceMesh); apart from BaseTrainer.mesh, the baseline's
+        self.member_mesh = None
 
     def compile_ensemble_trainer(self, **kwargs: Any) -> None:
         """Stores the training kwargs (``fit``'s, plus ``member_layout``:
         "auto", "map" or "vmap"; ``remat`` as the single-model trainer's,
-        each member a copy of the rematerialised net). Device meshes are
-        not ported and raise."""
-        if kwargs.pop("mesh", None):
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1 #21)")
+        each member a copy of the rematerialised net; ``mesh``: the member
+        mesh, None for the automatic one, False for none, which also keeps
+        the baseline fit off the automatic data mesh)."""
+        self.member_mesh = kwargs.pop("mesh", None)
         self.kdict = kwargs
         self.full_epoch = self.kdict.get("full_epoch", False)
         self.batch_size = self.kdict.get("batch_size", 32)
         self.kdict["overwrite_train_data"] = False
         self._member_layout()
+
+    def _resolve_mesh(self, n_models: int):
+        """The mesh the members spread over (or None)."""
+        return resolve_model_mesh(self.member_mesh, n_models)
 
     def _member_layout(self) -> str:
         layout = self.kdict.get("member_layout", "auto")
@@ -100,9 +121,11 @@ class BaseEnsembleTrainer(BaseTrainer):
                        from_state: Optional[State] = None,
                        augment_fn=None, seed_offset: int = 0,
                        swa: bool = False) -> List[State]:
-        """Trains ``n_models`` members, one after another; returns their
-        ``state_dict``s and appends the members' mean loss of each cycle
-        to ``loss_acc["train_loss"]``."""
+        """Trains ``n_models`` members, this rank's block of them over the
+        member mesh, one after another; returns every member's
+        ``state_dict`` (each from the rank that trained it) and appends
+        the members' mean loss of each cycle to
+        ``loss_acc["train_loss"]``."""
         self._member_layout()
         nb = len(self.Xb_train)
         self.member_schedules = np.stack([
@@ -111,13 +134,17 @@ class BaseEnsembleTrainer(BaseTrainer):
         init_gens = self.keys.next(n_models) if from_state is None else None
         run_gens = self.keys.next(n_models, device=self.device)
         swa_start = cycles - min(30, cycles)
+        mesh = self._resolve_mesh(n_models)
+        owned = range(n_models)[block(n_models, mesh, MODEL_AXIS)] \
+            if mesh is None or in_mesh(mesh) else range(0)
         saved = (self.net, self.optimizer, self.num_steps, self.augment_fn,
-                 self.compute_accuracy)
-        states, losses = [], []
+                 self.compute_accuracy, self.mesh)
+        states, losses = {}, {}
         try:
             self.augment_fn = augment_fn
             self.compute_accuracy = False
-            for i in range(n_models):
+            self.mesh = None          # members see whole batches
+            for i in owned:
                 net = copy.deepcopy(saved[0])
                 if from_state is None:
                     init_weights_(net, init_gens[i])
@@ -141,28 +168,51 @@ class BaseEnsembleTrainer(BaseTrainer):
                     with torch.no_grad():
                         for k, p in avg.mean().items():
                             net.get_parameter(k).copy_(p)
-                states.append(_clone(net.state_dict()))
-                losses.append(torch.stack(member_losses))
+                states[i] = _clone(net.state_dict())
+                losses[i] = torch.stack(member_losses)
         finally:
             (self.net, self.optimizer, self.num_steps, self.augment_fn,
-             self.compute_accuracy) = saved
-        self.loss_acc["train_loss"].extend(
-            torch.stack(losses).mean(0).cpu().tolist())
+             self.compute_accuracy, self.mesh) = saved
+        if mesh is not None or replicas(None, self.member_mesh):
+            self._gather_members(mesh, n_models, cycles, states, losses)
+        states = [states[i] for i in range(n_models)]
+        self.loss_acc["train_loss"].extend(torch.stack(
+            [losses[i] for i in range(n_models)]).mean(0).cpu().tolist())
         return states
+
+    def _gather_members(self, mesh, n_models: int, cycles: int,
+                        states: Dict[int, State],
+                        losses: Dict[int, torch.Tensor]) -> None:
+        """Fills ``states`` and ``losses`` with every member, each
+        broadcast over the world from the rank that owns its block (rank
+        0 without a mesh, where every rank trained replicas of them
+        all)."""
+        per_rank = n_models // axis_size(mesh, MODEL_AXIS)
+        skeleton = self.net.state_dict()
+        for i in range(n_models):
+            if i not in states:
+                states[i] = {k: torch.empty_like(v)
+                             for k, v in skeleton.items()}
+                losses[i] = torch.empty(cycles, device=self.device)
+            owner = 0 if mesh is None else \
+                block_owner(mesh, MODEL_AXIS, i // per_rank)
+            broadcast_tensors([*states[i].values(), losses[i]], owner)
 
     # -------------------------------------------------------- strategies
     def train_baseline(self, X_train, y_train, X_test=None, y_test=None,
                        seed: int = 1, augment_fn=None) -> nn.Module:
         """Trains one model from fresh weights drawn from ``seed``, with
-        the compiled kwargs (`etrainer.py:398-428`)."""
+        the compiled kwargs (`etrainer.py:398-428`), on the automatic data
+        mesh unless the trainer was compiled with ``mesh=False``."""
         if self.net is None:
             raise AssertionError("You need to set a model first")
         self.keys = GeneratorSeq(seed)
         self._reset_training_history()
         self.optimizer = None
         init_weights_(self.net, self.keys.next())
-        self.compile_trainer((X_train, y_train, X_test, y_test),
-                             **self.kdict)
+        kd = dict(self.kdict)
+        kd["mesh"] = False if self.member_mesh is False else None
+        self.compile_trainer((X_train, y_train, X_test, y_test), **kd)
         self.augment_fn = augment_fn
         self.run()
         return self.net
@@ -252,9 +302,10 @@ class BaseEnsembleTrainer(BaseTrainer):
 
     def _prepare(self, X_train, y_train, X_test, y_test) -> None:
         """Stages the data, the loss and the optimizer spec for member
-        training (no fit)."""
+        training (no fit; no data mesh: members see whole batches)."""
         kd = dict(self.kdict)
         kd["training_cycles"] = 1
+        kd["mesh"] = False
         self.compile_trainer((X_train, y_train, X_test, y_test), **kd)
 
     def update_training_parameters(self, kwargs: Dict[str, Any]) -> None:

@@ -23,7 +23,19 @@ backward; the feature extractor runs in float32 under the policy's TF32
 switch (a two-stage backward: the GP part to the embedding, then the
 extractor). Losses are fetched once per ``print_loss`` chunk.
 
-Not ported: device meshes (``mesh`` raises, ROADMAP Queue 1 #21). The
+Independent outputs over the model axis (`:488-527`): in a world of
+several ranks, ``compile_multi_model_trainer(mesh=None)`` spreads the b
+(extractor, GP) pairs over an ``ensemble_mesh`` (``mesh=False``: every
+rank trains all of them; a ``DeviceMesh`` is used as given; where no
+mesh spreads them, every rank trains all of them and takes rank 0's at
+the end). Every rank
+holds all b pairs, drawn as one process draws them, and trains its
+contiguous block: the forward runs its block's extractors, the gradient
+is that of the summed loss over all b outputs (the block's own part of
+it), and the reported loss is that sum, all-reduced. After a run every
+block is broadcast from its owner, so each rank predicts with every
+pair. The shared-embedding ``compile_trainer`` and the exact
+``GPTrainer`` take ``mesh`` and ignore it, as the JAX package's do. The
 JAX package's ``engine`` attribute (scan or loop) has no counterpart: the
 port has one eager loop.
 """
@@ -38,6 +50,9 @@ import torch
 from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import Precision, default_precision
+from ..core.mesh import (MODEL_AXIS, all_sum, axis_size, block, block_owner,
+                         broadcast_tensors, resolve_model_mesh,
+                         sync_from_rank0)
 from ..core.prng import GeneratorSeq
 from ..nets.blocks import init_weights_
 from ..nets.gp import (KERNELS, MemberStack, StackedFeatureExtractor,
@@ -246,12 +261,6 @@ def posterior(params, X, y, Xs, kernel: Callable,
     return posterior_from_cache(cache, X, Xs, kernel, full_cov)
 
 
-def _check_mesh(kwargs) -> None:
-    if kwargs.get("mesh"):
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP Queue 1 #21)")
-
-
 class GPTrainer:
     """Exact (or SGPR) GP regression trainer (counterpart of
     `atomai_tpu/trainers/gptrainer.py:215-406`).
@@ -284,6 +293,11 @@ class GPTrainer:
         self.lr = None
         self.optimizer = None
         self._post_cache = None
+        # the outputs' mesh (multi-output DKL) and this rank's block of
+        # the outputs (None: all of them)
+        self.model_mesh = None
+        self._mesh_pref = None
+        self._block: Optional[slice] = None
 
     def set_data(self, x, y=None, device=None):
         """Tensors of the trainer's dtype on its device; a 1D y becomes
@@ -308,8 +322,7 @@ class GPTrainer:
         with ``RandomState(seed)``) or 'kissgp' (SGPR on a regular grid
         sized by ``grid_points_ratio``). ``base_kernel``: 'rbf', 'matern'
         or a callable; ``lengthscale_constraints``: [lower, upper];
-        ``lr`` (0.1)."""
-        _check_mesh(kwargs)
+        ``lr`` (0.1). ``mesh`` is taken and not used (one GP)."""
         self.X, self.y = self.set_data(X, y)
         base_kernel = kwargs.get("base_kernel", "rbf")
         self.kernel = KERNELS[base_kernel] if isinstance(base_kernel, str) \
@@ -350,9 +363,10 @@ class GPTrainer:
         """y without its output axis for parameters without one."""
         return self.y[0] if gp["raw_lengthscale"].ndim == 1 else self.y
 
-    def _gp_loss(self, gp, X) -> torch.Tensor:
-        """The summed negative MLL (or SGPR bound) of ``gp`` at inputs X."""
-        y = self._targets(gp)
+    def _gp_loss(self, gp, X, y=None) -> torch.Tensor:
+        """The summed negative MLL (or SGPR bound) of ``gp`` at inputs X
+        (targets ``y``, by default the trainer's)."""
+        y = self._targets(gp) if y is None else y
         if self.inducing_points is not None:
             losses = neg_mll_sparse(gp, X, y, self.inducing_points,
                                     self.kernel, self.lengthscale_constraints)
@@ -372,10 +386,12 @@ class GPTrainer:
         return loss
 
     def _step(self) -> torch.Tensor:
+        """One Adam step; the loss summed over every rank's block of the
+        outputs."""
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss_backward()
         self.optimizer.step()
-        return loss.detach()
+        return all_sum(loss.detach(), self.model_mesh, MODEL_AXIS)
 
     def _run_chunk(self, n: int) -> None:
         losses = [self._step() for _ in range(n)]
@@ -488,8 +504,12 @@ class dklGPTrainer(GPTrainer):
             self.scale_stats = compute_bounds_stats(self.fe(self.X))
 
     def _compile(self, X, y, training_cycles, n_copies, identical, kwargs):
-        _check_mesh(kwargs)
         self.X, self.y = self.set_data(X, y)
+        self._mesh_pref = kwargs.get("mesh")
+        self.model_mesh = resolve_model_mesh(self._mesh_pref, n_copies) \
+            if n_copies > 1 else None
+        self._block = None if self.model_mesh is None else \
+            block(n_copies, self.model_mesh, MODEL_AXIS)
         self.fe = self._init_fe(kwargs.get("feature_extractor"), n_copies,
                                 identical)
         self.freeze_weights = kwargs.get("freeze_weights", False)
@@ -511,7 +531,7 @@ class dklGPTrainer(GPTrainer):
     def compile_trainer(self, X, y, training_cycles: int = 1, **kwargs):
         """Shared-embedding DKL. kwargs: ``feature_extractor`` (an
         ``nn.Module`` class taking (indim, embedim)), ``freeze_weights``,
-        ``lr`` (0.01)."""
+        ``lr`` (0.01); ``mesh`` is taken and not used."""
         if not self.correlated_output:
             raise NotImplementedError(
                 "To compile a DKL-GP trainer for independent outputs "
@@ -521,7 +541,9 @@ class dklGPTrainer(GPTrainer):
     def compile_multi_model_trainer(self, X, y, training_cycles: int = 1,
                                     **kwargs):
         """Independent outputs: one extractor and GP per output, stacked
-        on a leading axis (kwargs as :meth:`compile_trainer`)."""
+        on a leading axis (kwargs as :meth:`compile_trainer`; ``mesh``: the
+        outputs' mesh, None for the automatic one, False for none, or a
+        ``DeviceMesh``)."""
         if self.correlated_output:
             raise NotImplementedError(
                 "To compile a DKL-GP trainer for correlated outputs "
@@ -549,18 +571,33 @@ class dklGPTrainer(GPTrainer):
         self._compute_scale_stats()
         self._post_cache = None
 
+    def _block_fe(self, X) -> torch.Tensor:
+        """The extractor's output of this rank's block of outputs."""
+        return self.fe(X) if self._block is None else \
+            self.fe(X, self._block)
+
+    def _block_gp(self):
+        """(GP parameters, targets) of this rank's block of outputs."""
+        if self._block is None:
+            return self.gp_params, None
+        return ({k: v[self._block] for k, v in self.gp_params.items()},
+                self.y[self._block])
+
     def _loss_fn(self) -> torch.Tensor:
-        z = self._embed(self.X)
+        gp, y = self._block_gp()
+        with self.precision.tf32_scope():
+            z = self._block_fe(self.X)
         with _FULL.tf32_scope():
-            return self._gp_loss(self.gp_params, z)
+            return self._gp_loss(gp, scale_to_bounds(z), y)
 
     def _loss_backward(self) -> torch.Tensor:
         with self.precision.tf32_scope(), \
                 torch.set_grad_enabled(not self.freeze_weights):
-            z = self.fe(self.X)
+            z = self._block_fe(self.X)
         zd = z.detach().requires_grad_(not self.freeze_weights)
+        gp, y = self._block_gp()
         with _FULL.tf32_scope():
-            loss = self._gp_loss(self.gp_params, scale_to_bounds(zd))
+            loss = self._gp_loss(gp, scale_to_bounds(zd), y)
             loss.backward()
         if not self.freeze_weights:
             with self.precision.tf32_scope():
@@ -575,8 +612,40 @@ class dklGPTrainer(GPTrainer):
                 self.compile_multi_model_trainer(X, y, training_cycles,
                                                  **kwargs)
         super().run(training_cycles=training_cycles, **kwargs)
+        self._gather_outputs()
         self._compute_scale_stats()
         return self
+
+    @torch.no_grad()
+    def _gather_outputs(self) -> None:
+        """Broadcasts every block of outputs (extractor and GP parameters)
+        from the rank that trained it, and rank 0's loss history where the
+        mesh leaves ranks out; where independent outputs found no mesh
+        (and the caller did not ask for ``mesh=False``), every rank
+        trained a replica of them all and takes rank 0's."""
+        mesh = self.model_mesh
+        if mesh is None:
+            if not self.correlated_output:
+                tensors = [v.data for v in self.gp_params.values()] + \
+                    [p.data for p in self.fe.parameters()] + \
+                    list(self.fe.buffers())
+                self.train_loss = sync_from_rank0(None, tensors,
+                                                  self.train_loss,
+                                                  self._mesh_pref)
+            return
+        n_blocks = axis_size(mesh, MODEL_AXIS)
+        per = self.y.shape[0] // n_blocks
+        for j in range(n_blocks):
+            rows = slice(j * per, (j + 1) * per)
+            if isinstance(self.fe, StackedFeatureExtractor):
+                fe = [p.data[rows] for p in self.fe.parameters()]
+            else:
+                fe = [t for m in self.fe.members[rows]
+                      for t in m.state_dict().values()]
+            broadcast_tensors(
+                [v.data[rows] for v in self.gp_params.values()] + fe,
+                block_owner(mesh, MODEL_AXIS, j))
+        self.train_loss = sync_from_rank0(mesh, [], self.train_loss)
 
     @torch.no_grad()
     def predict(self, Xs, **kwargs) -> Tuple[np.ndarray, np.ndarray]:

@@ -30,8 +30,22 @@ from one generator on the model's device, seeded from the trainer's
 :class:`GeneratorSeq`. ``plot_training_history`` writes
 ``<filename>_losses.png`` after a run. ``remat=True`` recomputes each
 block's activations in the backward (``nets/remat.py``): bit for bit the
-plain fit wherever the kernels are deterministic. Not ported: device
-meshes (ROADMAP Queue 1 #21) and the XLA cost-analysis helpers.
+plain fit wherever the kernels are deterministic.
+
+Data parallelism (`atomai_tpu/trainers/trainer.py:158-221`): in a world of
+several ranks (``parallel.launch``) ``compile_trainer(mesh=None)`` builds
+a data mesh sized to the largest rank count that divides the batch
+(``core.mesh.resolve_data_mesh``; ``mesh=False`` opts out, a
+``DeviceMesh`` is used as given, and the choice is kept across compile
+calls). Every rank stages the whole data set, and in each step takes its
+block of the (augmented) global batch: augmentation, dropout masks and
+weight perturbations are drawn for the global batch on every rank from the
+same generator; BatchNorm and the losses reduce over the global batch;
+the gradients are averaged over the data axis before the optimizer step.
+So every rank holds the same weights throughout, and the losses of
+``loss_acc`` are the global batch's, the same on every rank. A batch the
+data axis does not divide is computed whole on every rank. Not ported: the
+XLA cost-analysis helpers.
 """
 
 import math
@@ -44,6 +58,9 @@ import torch.nn as nn
 from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
+from ..core.mesh import (DATA_AXIS, axis_size, gather_blocks, mean_gradients,
+                         resolve_data_mesh, shard_batch,
+                         split_batch, split_mean, splits, sync_from_rank0)
 from ..core.mlog import open_metrics_log
 from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
@@ -51,6 +68,7 @@ from ..losses_metrics import iou_score, select_loss
 from ..nets import (Dropout, init_cls_model, init_fcnn_model,
                     init_imspec_model, init_reg_model, init_weights_,
                     set_remat)
+from ..parallel.sync_bn import global_batch_norm
 from ..utils import preproc
 
 
@@ -111,6 +129,11 @@ class BaseTrainer:
         self.metrics_log = None
         self.running_weights_stats = None
         self.remat = False
+        # the data mesh of the fit (resolved), and the caller's choice
+        # (None: automatic, False: none, or a DeviceMesh), kept across
+        # compile calls
+        self.mesh = None
+        self._mesh_pref = None
         self._reset_training_history()
 
     def _reset_training_history(self) -> None:
@@ -160,10 +183,12 @@ class BaseTrainer:
                         perturb_weights: Union[bool, Dict] = False,
                         **kwargs) -> None:
         """Stages the data and sets up the optimizer, the loss, the batch
-        schedule and the logging (the JAX package's contract)."""
-        if kwargs.get("mesh"):
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1 #21)")
+        schedule, the logging and the data mesh (``mesh``: None for the
+        automatic one, False for none, or a ``DeviceMesh``; the JAX
+        package's contract)."""
+        pref = kwargs.get("mesh", self._mesh_pref)
+        self.mesh = resolve_data_mesh(pref, batch_size)
+        self._mesh_pref = pref
         # kept across compile calls, as in the JAX package
         self.remat = bool(kwargs.get("remat", self.remat))
         if self.net is not None:
@@ -259,31 +284,64 @@ class BaseTrainer:
             if isinstance(m, Dropout):
                 m.generator = g
 
+    def _splits(self, X) -> bool:
+        """Whether this rank computes its block of the batch ``X``."""
+        return splits(self.mesh, DATA_AXIS) and \
+            len(X) % axis_size(self.mesh, DATA_AXIS) == 0
+
+    def _loss(self, out, y, split: bool) -> torch.Tensor:
+        """The criterion over the global batch: a loss that is a mean of
+        per-element terms is averaged over the ranks, one that reduces
+        over the global batch itself (``batch_global``) is taken as it
+        is."""
+        loss = self.criterion(out, y)
+        if split and not getattr(self.criterion, "batch_global", False):
+            loss = split_mean(loss)
+        return loss
+
+    def _step_outputs(self, X, y, split: bool):
+        """(the net's output of this rank's rows, their targets)."""
+        if split:
+            X, y = shard_batch(self.mesh, X, y)
+        return self.forward(X), y
+
     def _train_batch(self, X, y):
-        """One optimizer step; (loss, accuracy or None), on the device."""
+        """One optimizer step on the global batch (X, y), of which this
+        rank computes its block under a data mesh; (loss, accuracy or
+        None), on the device."""
         self.net.train()
         self.optimizer.zero_grad(set_to_none=True)
-        with self.precision.tf32_scope():     # the backward's convs too
-            out = self.forward(X)
-            loss = self.criterion(out, y)
-            loss.backward()
+        split = self._splits(X)
+        with self.precision.tf32_scope(), split_batch(
+                self.mesh if split else None), global_batch_norm(self.net):
+            out, y_rows = self._step_outputs(X, y, split)
+            loss = self._loss(out, y_rows, split)
+            loss.backward()    # the backward's convs under TF32 too
+        mean_gradients(self.net.parameters(), self.mesh)
         if self.lrs is not None:
             lr = self.lrs[min(self.num_steps, len(self.lrs) - 1)]
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
         self.optimizer.step()
         self.num_steps += 1
-        acc = self.accuracy_fn(y, out.detach()) if self._has_accuracy() \
-            else None
+        acc = self._accuracy(y, out.detach(), split)
         return loss.detach(), acc
+
+    def _accuracy(self, y, out, split: bool):
+        """The accuracy of the global batch (the ranks' outputs gathered)."""
+        if not self._has_accuracy():
+            return None
+        return self.accuracy_fn(y, gather_blocks(out, self.mesh, DATA_AXIS)
+                                if split else out)
 
     @torch.no_grad()
     def _eval_batch(self, X, y):
         self.net.eval()
-        out = self.forward(X)
-        loss = self.criterion(out, y)
-        acc = self.accuracy_fn(y, out) if self._has_accuracy() else None
-        return loss, acc
+        split = self._splits(X)
+        with split_batch(self.mesh if split else None):
+            out, y_rows = self._step_outputs(X, y, split)
+            loss = self._loss(out, y_rows, split)
+        return loss, self._accuracy(y, out, split)
 
     def _augmented(self, X, y, g):
         if self.augment_fn is None:
@@ -360,6 +418,7 @@ class BaseTrainer:
                 for k, p in self.net.named_parameters():
                     p.copy_(mean[k])
             self.running_weights_stats = (mean, swa.variance())
+        self._sync_replicas()
         self.net.eval()
         self.eval_model()
         self.save_model(self.filename + "_metadict_final")
@@ -373,6 +432,18 @@ class BaseTrainer:
     def fit(self) -> nn.Module:
         """:meth:`run` (the JAX package's alias)."""
         return self.run()
+
+    def _sync_replicas(self) -> None:
+        """Where ranks of the world trained a replica on the whole
+        batches (the data mesh leaves them out, or there is none and the
+        caller did not ask for ``mesh=False``), gives every rank rank 0's
+        weights, BatchNorm statistics, SWA moments and history."""
+        tensors = list(self.net.state_dict().values())
+        if self.running_weights_stats is not None:
+            tensors += [t for part in self.running_weights_stats
+                        for t in part.values()]
+        self.loss_acc = sync_from_rank0(self.mesh, tensors, self.loss_acc,
+                                        self._mesh_pref)
 
     def select_lr(self, e: int) -> None:
         """Nothing: the per-step schedule is set at compile time (kept for

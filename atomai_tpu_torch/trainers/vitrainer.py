@@ -2,8 +2,8 @@
 
 Counterpart of `atomai_tpu/trainers/vitrainer.py` with one engine: a
 Python loop of eager steps, in place of the JAX package's scan/loop pair
-(which exists because XLA:CPU runs scan bodies single-threaded) and its
-mesh code. What it keeps:
+(which exists because XLA:CPU runs scan bodies single-threaded). What it
+keeps:
 - the encoder/decoder pair and their initialisation from a seed
   (`:83-101`);
 - ``compile_trainer`` with Adam(1e-4) (`:161-203`): torch's Adam with
@@ -19,7 +19,19 @@ mesh code. What it keeps:
   semantics of the JAX package's multi-epoch dispatch (`:406-465`);
 - the Gaussian and Gumbel-softmax reparameterisations and the log-pdfs
   (`:206-234`);
-- per-epoch checkpoints written by a background thread.
+- per-epoch checkpoints written by a background thread;
+- data parallelism (`:139-175, 250-305`): in a world of several ranks
+  ``compile_trainer(mesh=None)`` builds a data mesh sized to the largest
+  rank count that divides the batch (``mesh=False`` opts out, a
+  ``DeviceMesh`` is used as given; kept across compile calls). Each
+  minibatch the data axis divides is split: every rank draws the global
+  permutation and the global batch's noise (reparameterisation, Gumbel)
+  from the same generator and keeps its rows, computes the ELBO of the
+  global batch (the losses' batch means are all-reduced, BatchNorm takes
+  the global statistics) on its rows, and the gradients are averaged over
+  the data axis. The spatial-MLP kernels run on each rank's rows. Every
+  rank holds the same weights and ELBO history; the test set is scored
+  whole on every rank.
 
 Random numbers come from a :class:`GeneratorSeq` seeded once: one
 generator per epoch draws the permutation and every batch's noise, on the
@@ -36,9 +48,13 @@ from ..core.checkpoint import (is_jax_tree, load_checkpoint,
                                save_checkpoint, save_checkpoint_async)
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
+from ..core.mesh import (DATA_AXIS, axis_size, draw_rows, mean_gradients,
+                         resolve_data_mesh, shard_batch, split_batch,
+                         split_mean, splits, sync_from_rank0)
 from ..core.prng import GeneratorSeq
 from ..nets.blocks import init_weights_
 from ..nets.remat import set_remat
+from ..parallel.sync_bn import global_batch_norm
 
 
 class viBaseTrainer:
@@ -66,6 +82,12 @@ class viBaseTrainer:
         self.training_cycles = 1
         self.batch_size = 1
         self.remat = False
+        # the data mesh (resolved), the caller's choice (None, False or a
+        # DeviceMesh, kept across compile calls), and whether the ELBO is
+        # a user's (a mean over the rows it is given)
+        self.mesh = None
+        self._mesh_pref = None
+        self._local_elbo = False
 
     # ------------------------------------------------------------ models
     def set_model(self, encoder_net: nn.Module, decoder_net: nn.Module
@@ -130,17 +152,18 @@ class viBaseTrainer:
         callable ``params -> torch.optim.Optimizer``. ``remat=True``
         recomputes the encoder's and the decoder's activations in the
         backward (``nets/remat.py``; kept across compile calls); the noise
-        is drawn between them, outside any recompute. Device meshes are
-        not ported and raise."""
-        if kwargs.get("mesh"):
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP Queue 1 #21)")
+        is drawn between them, outside any recompute. ``mesh``: None for
+        the automatic data mesh, False for none, or a ``DeviceMesh``."""
+        pref = kwargs.get("mesh", self._mesh_pref)
+        self.mesh = resolve_data_mesh(pref, batch_size)
+        self._mesh_pref = pref
         self.remat = bool(kwargs.get("remat", self.remat))
         self.training_cycles = training_cycles
         self.batch_size = batch_size
         if elbo_fn is not None:
             # shadows the model's elbo_fn method, as in the JAX package
             self.elbo_fn = elbo_fn
+            self._local_elbo = True
         if test_data is not None and test_data[0] is not None:
             self.set_data(*train_data, *test_data)
         else:
@@ -171,8 +194,8 @@ class viBaseTrainer:
         """z_mean + z_sd * eps, with eps ~ N(0, 1) drawn from ``generator``
         unless given."""
         if eps is None:
-            eps = torch.randn(z_mean.shape, generator=generator,
-                              device=z_mean.device, dtype=z_mean.dtype)
+            eps = draw_rows(torch.randn, z_mean.shape, generator=generator,
+                            device=z_mean.device, dtype=z_mean.dtype)
         return z_mean + z_sd * eps
 
     @staticmethod
@@ -188,8 +211,8 @@ class viBaseTrainer:
         with torch.autocast(alpha.device.type, enabled=False):
             alpha = alpha.float()
             if u is None:
-                u = torch.rand(alpha.shape, generator=generator,
-                               device=alpha.device)
+                u = draw_rows(torch.rand, alpha.shape, generator=generator,
+                              device=alpha.device)
             gumbel = -torch.log(-torch.log(u.float() + eps) + eps)
             logit = (torch.log(alpha + eps) + gumbel) / tau
             return torch.softmax(logit, 1)
@@ -234,15 +257,23 @@ class viBaseTrainer:
         perm = perm[:nb * bs].view(nb, bs)
         self.encoder_net.train()
         self.decoder_net.train()
+        split = splits(self.mesh, DATA_AXIS) and \
+            bs % axis_size(self.mesh, DATA_AXIS) == 0
+        mesh = self.mesh if split else None
         elbo_sum = torch.zeros((), device=self.device)
         for i in range(nb):
-            idx = perm[i]
+            idx = shard_batch(mesh, perm[i])
             y_i = self.y_train[idx] if self.y_train is not None else None
             self.optimizer.zero_grad(set_to_none=True)
-            with self.precision.tf32_scope():   # the backward's GEMMs too
+            with self.precision.tf32_scope(), split_batch(mesh), \
+                    global_batch_norm(self.encoder_net), \
+                    global_batch_norm(self.decoder_net):
                 elbo = self._elbo(self.X_train[idx], y_i, self.num_iter + i,
                                   g)
-                (-elbo).backward()
+                if self._local_elbo:
+                    elbo = split_mean(elbo)
+                (-elbo).backward()     # the backward's GEMMs under TF32 too
+            mean_gradients(self.parameters(), self.mesh)
             self.optimizer.step()
             elbo_sum = elbo_sum + elbo.detach()
         self.num_iter += nb
@@ -294,6 +325,17 @@ class viBaseTrainer:
         for k, vals in self.loss_history.items():
             if vals and isinstance(vals[0], torch.Tensor):
                 self.loss_history[k] = torch.stack(vals).cpu().tolist()
+
+    def _sync_replicas(self) -> None:
+        """Where ranks of the world trained a replica (the data mesh
+        leaves them out, or there is none and the caller did not ask for
+        ``mesh=False``), gives every rank rank 0's weights and ELBO
+        history."""
+        tensors = [t for part in self._state().values()
+                   for t in part.values()]
+        self.loss_history = sync_from_rank0(self.mesh, tensors,
+                                            self.loss_history,
+                                            self._mesh_pref)
 
     def print_statistics(self, e: int, train=None, test=None) -> None:
         """Prints epoch ``e``'s ELBOs (by default the last recorded)."""

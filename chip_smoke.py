@@ -6,8 +6,8 @@ reconstruction, the rest of the supervised zoo: the other segmentation
 nets, the denoiser, regression and classification, the joint VAEs with
 the VAE family's encoding tools, the JAX package's own checkpoints loaded,
 resumed, exported and served, the stat layer, lattice-graph analysis
-with the labeller's image utilities, and training with rematerialisation)
-and checks every step of them.
+with the labeller's image utilities, training with rematerialisation,
+and the device mesh) and checks every step of them.
 
     python3 chip_smoke.py
 
@@ -189,18 +189,34 @@ Phases, one JSON line each (all before the last line):
     same weights, generators and batch order: config A's Unet for one
     cycle and for 10 (losses, weights and BatchNorm statistics; whether
     they are bit for bit equal with cuDNN's deterministic algorithms and
-    without, plain against plain too; then within the stated bounds, or
-    within 3 times two plain fits' distance), the peak
+    without, plain against plain too; then within the stated bounds
+    against every plain fit, or the nearest of three plain fits within 3
+    times their largest distance from each other), the peak
     memory of one training step both ways at batch 32 and 256 of 256²,
     training steps/s both ways in turns, ``predict`` after the remat fit
     (one labeller launch, exact); config C's rVAE and the jrVAE pin for 3
     epochs (ELBOs against the plain fit's, the spatial-MLP launches: one
-    forward and one backward a step, the peak memory of an epoch).
+    forward and one backward a step, the peak memory of an epoch);
+30. mesh_path: the device mesh (``core.mesh``, ``parallel``), in ranks
+    started by ``parallel.launch``, each path on explicit meshes: a world
+    of two on the one card over gloo at full width (config A's Unet for
+    one float32 cycle against the plain one and 10 cycles against three
+    plain fits, config C's rVAE for 3 epochs on 64
+    rows a rank, config D's 4 members for 10 cycles, config E's 4 x 2,048
+    independent outputs, each held against ``mesh=False`` in rank 0; the
+    sharded ``SegPredictor`` with one labeller launch a rank and the
+    ``EnsemblePredictor``; the dryrun's four paths against one
+    process's), every rank ending with rank 0's model, and each rank's
+    spatial-MLP kernels held against their plain versions on the inputs
+    of its first step; a world of one on NCCL (the sharded predict and
+    the rVAE: NCCL and the rank's card start up); the labeller's and the
+    spatial-MLP kernels' launches a rank, each path's seconds, the busy
+    share of the card during the split config A fit.
 Then one JSON line on the kernels (the spatial-MLP records with their
-``jrvae_path`` and ``remat_path`` numbers, the labeller's and the
-forward's with the ``served_from_jax`` ones, the labeller's with the
-``stat_path``, ``graph_path`` and ``remat_path`` ones), and as the last
-line
+``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
+and the forward's with the ``served_from_jax`` ones, the labeller's with
+the ``stat_path``, ``graph_path``, ``remat_path`` and ``mesh_path``
+ones), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -463,10 +479,54 @@ TOL_REMAT_LOSS_REL = 1e-3          # the seg-train fixture's loss bound
 TOL_REMAT_W = 2 * 1e-3 * REMAT_CYCLES   # 2 * Adam's lr a step
 TOL_REMAT_STATS_REL = 1e-2         # running statistics, of their scale
 # ... or, where the card's own nondeterminism (the bilinear upsampling's
-# backward adds with atomics) moves two plain fits further apart, this
-# many times the plain fits' distance
+# backward adds with atomics) moves plain fits further apart, the nearest
+# plain fit within this many times the largest distance between two of
+# SPREAD_FITS plain fits (``hold_to_spread``). One pair is too few: on an
+# H100 the running statistics of two plain 10-cycle fits lay from 1.4e-3
+# to 3.5e-2 of scale apart over eight pairs
 REMAT_NOISE_FACTOR = 3
+SPREAD_FITS = 3
 TOL_REMAT_ELBO_REL = 1e-4
+# phase 30: the device mesh, in ranks started by parallel.launch. World 2
+# with both ranks on the one card (gloo: NCCL refuses two ranks on one
+# card) at full width, each path split over the two ranks and held against
+# mesh=False fits in rank 0: config A's Unet for one float32 cycle (a
+# priori bounds) and 10 cycles (as phase 29: ten Adam steps let the card's
+# own nondeterminism show among three plain fits), config C's rVAE for 3
+# epochs (24 steps: each kernel launched once a step and rank, on 64
+# rows), config D's 4 members for 10 cycles (a
+# third of its 30: the member axis computes member for member what one
+# process does, so a few cycles hold it as well as many), config E's
+# 4 x 2,048 independent outputs for 5 cycles; then the sharded predictors
+# and the dryrun's four paths. World 1 on NCCL checks that NCCL and the
+# rank's card start up: the sharded predict and the rVAE (a world of one
+# splits nothing, so it holds nothing the world of 2 does not).
+MESH_SEG_CYCLES = 10
+MESH_VAE_EPOCHS = 3
+MESH_ENS_CYCLES = 10
+MESH_DKL_CYCLES = 5
+MESH_LAUNCH_S = 300       # a launch's deadline: a hung rank fails the run
+MESH_COLLECTIVE_S = 120   # a collective's: a hung one raises in its rank
+# config A's first split step in float32 against the plain step from the
+# same weights: the loss and the running statistics reorder float32 sums
+# over 2^21 values a channel (measured: the first loss bit for bit), and
+# Adam's first step moves a weight by lr either way, whatever its
+# gradient's rounding: 2 * lr
+TOL_MESH_SEG_STEP = {"first_loss_rel": 1e-5, "stats_rel": 1e-4,
+                     "param_abs": 2 * 1e-3}
+TOL_MESH_MAPS = 2e-2      # probabilities: bf16 convs of blocks of frames
+TOL_MESH_MEMBERS = 1e-5   # the same members' forwards, gathered
+TOL_MESH_DKL_REL = 1e-3   # losses: cuBLAS's batched GEMMs of a block
+# the dryrun's four paths at world 2 against one process, (first loss,
+# every loss), relative. The DKL's extractor runs its GEMMs in TF32 on the
+# card (a 10-bit mantissa: 4.9e-4 a rounding), and a rank's batched GEMM
+# over its one output is another cuBLAS call than one process's over two:
+# the first loss (the same weights) within 1e-3 (measured on an H100:
+# 1.9e-4); Adam then moves a weight whose gradient is rounding noise by lr
+# (1e-2) either way a step, and the GP's loss follows (3.3e-3 after two
+# steps): 1e-2
+TOL_MESH_DRYRUN_REL = {"seg_loss": (1e-3, 1e-3), "rvae_loss": (1e-4, 1e-4),
+                       "ens_loss": (1e-5, 1e-5), "dkl_loss": (1e-3, 1e-2)}
 
 
 def check(cond, msg):
@@ -942,37 +1002,47 @@ def scaled_err(got, want):
                                                  1e-3)
 
 
-def phase_spatial_mlp(device):
+def mlp_kernels_on(args, gy, device):
+    """Both spatial-MLP kernels against their plain versions (float32
+    without TF32) on ``args`` and ``gy``, checked by error over scale:
+    the largest absolute errors of the forward and of the backward, and
+    the scaled ones."""
     import torch
     from atomai_tpu_torch.core import Precision
     from atomai_tpu_torch.ops import spatial_mlp as sm
+    with Precision.full().scope(device):
+        y = sm.spatial_mlp_forward_cuda(*args)
+        grads = sm.spatial_mlp_backward_cuda(*args, gy)
+        torch.cuda.synchronize(device)
+        y_ref = sm.spatial_mlp_reference(*args)
+        g_ref = sm.spatial_mlp_backward_reference(*args, gy)
+    errs = {"y": scaled_err(y, y_ref)}
+    errs.update({name: scaled_err(a, b) for name, a, b in
+                 zip(MLP_NAMES, grads, g_ref) if b.numel()})
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TOL_MLP_SCALED, f"spatial_mlp on inputs "
+          f"{tuple(args[0].shape)}: {worst} off by {errs[worst]} of its "
+          "scale")
+    return {"rows": int(args[0].shape[0]), "scaled_err": errs,
+            "max_abs_err_fwd": float((y - y_ref).abs().max()),
+            "max_abs_err_bwd": max(float((a - b).abs().max()) for a, b in
+                                   zip(grads, g_ref) if b.numel())}
+
+
+def phase_spatial_mlp(device):
+    import torch
+    from atomai_tpu_torch.ops import spatial_mlp as sm
     rows = []
-    with Precision.full().scope(device):   # plain versions without TF32
-        for i, (B, n, H, L) in enumerate(MLP_SHAPES):
-            args, gy = mlp_inputs(B, n, H, L, i, device)
-            y = sm.spatial_mlp_forward_cuda(*args)
-            grads = sm.spatial_mlp_backward_cuda(*args, gy)
-            again = sm.spatial_mlp_backward_cuda(*args, gy)
-            torch.cuda.synchronize(device)
-            y_ref = sm.spatial_mlp_reference(*args)
-            g_ref = sm.spatial_mlp_backward_reference(*args, gy)
-            errs = {"y": scaled_err(y, y_ref)}
-            errs.update({name: scaled_err(a, b) for name, a, b in
-                         zip(MLP_NAMES, grads, g_ref) if b.numel()})
-            abs_fwd = float((y - y_ref).abs().max())
-            abs_bwd = max(float((a - b).abs().max()) for a, b in
-                          zip(grads, g_ref) if b.numel())
-            deterministic = all(torch.equal(a, b)
-                                for a, b in zip(grads, again))
-            worst = max(errs, key=errs.get)
-            check(errs[worst] <= TOL_MLP_SCALED,
-                  f"spatial_mlp {(B, n, H, L)}: {worst} off by "
-                  f"{errs[worst]} of its scale")
-            check(deterministic, f"spatial_mlp {(B, n, H, L)}: two backward "
-                  "runs differ")
-            rows.append({"shape": [B, n, H, L], "scaled_err": errs,
-                         "max_abs_err_fwd": abs_fwd,
-                         "max_abs_err_bwd": abs_bwd})
+    for i, (B, n, H, L) in enumerate(MLP_SHAPES):
+        args, gy = mlp_inputs(B, n, H, L, i, device)
+        row = mlp_kernels_on(args, gy, device)
+        grads = sm.spatial_mlp_backward_cuda(*args, gy)
+        again = sm.spatial_mlp_backward_cuda(*args, gy)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"spatial_mlp {(B, n, H, L)}: two backward runs differ")
+        rows.append({"shape": [B, n, H, L], "scaled_err": row["scaled_err"],
+                     "max_abs_err_fwd": row["max_abs_err_fwd"],
+                     "max_abs_err_bwd": row["max_abs_err_bwd"]})
     emit("spatial_mlp", cases=rows, deterministic=True,
          tolerance_scaled=TOL_MLP_SCALED)
     return rows[0]["max_abs_err_fwd"], rows[0]["max_abs_err_bwd"]
@@ -3410,10 +3480,10 @@ def phase_graph_path(device, trained_net):
 
 
 def _seg_remat_runs(device, imgs, masks, deterministic, cycles):
-    """Config A's Unet fitted for ``cycles`` cycles three times from seed
-    1 (the same weights, generators and batch order): plain, plain again,
-    and with ``remat=True``; cuDNN's deterministic algorithms on or
-    off."""
+    """Config A's Unet fitted for ``cycles`` cycles from seed 1 (the
+    same weights, generators and batch order): ``SPREAD_FITS`` plain fits,
+    then one with ``remat=True``; cuDNN's deterministic algorithms on or
+    off. Returns (the plain fits, the remat fit)."""
     import torch
     from atomai_tpu_torch import models
     saved = torch.backends.cudnn.deterministic
@@ -3421,7 +3491,7 @@ def _seg_remat_runs(device, imgs, masks, deterministic, cycles):
     runs = []
     try:
         with tempfile.TemporaryDirectory() as tmp, quiet():
-            for i, remat in enumerate((False, False, True)):
+            for i, remat in enumerate([False] * SPREAD_FITS + [True]):
                 m = models.Segmentor("Unet", 1, seed=1, device=device)
                 m.fit(imgs, masks, training_cycles=cycles,
                       batch_size=SEG_BATCH, print_loss=cycles,
@@ -3429,7 +3499,30 @@ def _seg_remat_runs(device, imgs, masks, deterministic, cycles):
                 runs.append(m)
     finally:
         torch.backends.cudnn.deterministic = saved
-    return runs
+    return runs[:-1], runs[-1]
+
+
+def hold_to_spread(what, fit, plains, diff, bounds, spread_keys):
+    """Holds ``fit``, which should compute what the plain fits compute,
+    to them: a measure k of ``diff`` passes where ``fit`` lies within
+    ``bounds[k]`` of every plain fit or, for k in ``spread_keys``, where
+    the nearest plain fit lies within ``REMAT_NOISE_FACTOR`` times the
+    largest distance between two plain fits (the card's own spread). A fit
+    that follows the plain fits' distribution is then an outlier only by
+    chance far below one run in a hundred; one that goes its own way lies
+    far from all of them. Returns the distances."""
+    near = [diff(fit, p) for p in plains]
+    pairs = [diff(a, b) for i, a in enumerate(plains) for b in plains[i + 1:]]
+    nearest = {k: min(d[k] for d in near) for k in bounds}
+    farthest = {k: max(d[k] for d in near) for k in bounds}
+    spread = {k: max(d[k] for d in pairs) for k in bounds}
+    check(all(farthest[k] <= b or (k in spread_keys and nearest[k] <=
+                                   REMAT_NOISE_FACTOR * spread[k])
+              for k, b in bounds.items()),
+          f"{what} off the plain fits: nearest {nearest}, farthest "
+          f"{farthest}; the plain fits' spread {spread}")
+    return {"vs_plain": near, "plain_vs_plain": pairs, "nearest": nearest,
+            "spread": spread}
 
 
 def _seg_run_diff(a, b):
@@ -3531,29 +3624,20 @@ def phase_remat_path(device):
     # one cycle with cuDNN's deterministic algorithms: the forward (the
     # first loss, the running statistics it sets) against the plain one,
     # the weights within one Adam step of each other
-    plain, again, remat = _seg_remat_runs(device, imgs, masks, True, 1)
-    first = {"plain_vs_plain": _seg_run_diff(again, plain),
-             "remat_vs_plain": _seg_run_diff(remat, plain)}
-    d = first["remat_vs_plain"]
-    check(d["loss_rel"] <= TOL_REMAT_LOSS_REL and
-          d["param_abs"] <= TOL_REMAT_W / REMAT_CYCLES and
-          d["stats_rel"] <= TOL_REMAT_STATS_REL,
-          f"remat's first cycle off the plain one: {d}")
-    compare = {"first_cycle_deterministic": first}
+    plains, remat = _seg_remat_runs(device, imgs, masks, True, 1)
+    compare = {"first_cycle_deterministic": hold_to_spread(
+        "remat's first cycle", remat, plains, _seg_run_diff,
+        {"loss_rel": TOL_REMAT_LOSS_REL,
+         "param_abs": TOL_REMAT_W / REMAT_CYCLES,
+         "stats_rel": TOL_REMAT_STATS_REL}, ())}
     bounds = {"loss_rel": TOL_REMAT_LOSS_REL, "param_abs": TOL_REMAT_W,
               "stats_rel": TOL_REMAT_STATS_REL}
     for mode, det in (("deterministic", True), ("default", False)):
-        plain, again, remat = _seg_remat_runs(device, imgs, masks, det,
-                                              REMAT_CYCLES)
+        plains, remat = _seg_remat_runs(device, imgs, masks, det,
+                                        REMAT_CYCLES)
         check(remat.remat and remat.net.c1.remat, "remat was not set")
-        compare[mode] = {"plain_vs_plain": _seg_run_diff(again, plain),
-                         "remat_vs_plain": _seg_run_diff(remat, plain)}
-        d, noise = (compare[mode][k] for k in ("remat_vs_plain",
-                                               "plain_vs_plain"))
-        check(all(d[k] <= max(b, REMAT_NOISE_FACTOR * noise[k])
-                  for k, b in bounds.items()),
-              f"remat fit ({mode} cuDNN) off the plain fit: {d}; two "
-              f"plain fits: {noise}")
+        compare[mode] = hold_to_spread(f"remat fit ({mode} cuDNN)", remat,
+                                       plains, _seg_run_diff, bounds, bounds)
 
     # predict after the remat fit: one labeller launch, exact labels
     cc_kernel.LAUNCHES = 0
@@ -3567,7 +3651,7 @@ def phase_remat_path(device):
                       .predict_device(imgs), device, timed=False)
 
     # peak memory of one step, and steps/s at config A's batch, both ways
-    m = plain
+    m = plains[0]
     memory = {}
     g = torch.Generator(device).manual_seed(0)
     for bs in REMAT_MEMORY_BATCHES:
@@ -3612,6 +3696,412 @@ def phase_remat_path(device):
              "blobs": lab["blobs"]}, mlp[0], mlp[1])
 
 
+def _mesh_seg(device, data_mesh, tmp, plain):
+    """Config A's Unet split over the data mesh, against ``mesh=False``
+    fits from the same weights in rank 0 (``plain``):
+
+    - one cycle in float32 without TF32, where the split only reorders
+      float32 sums: the first loss, the running statistics (one update
+      from the same weights) and the weights (Adam's first step moves each
+      by lr either way) within a priori bounds;
+    - 10 cycles under the production (bf16) policy, under the profiler
+      (this rank's busy share of the card): the losses within the
+      seg-train fixture's bound or the card's own spread, and the weights
+      within Adam's 2 * lr a step. The statistics are recorded: the split
+      reorders every layer's sums where the card's atomics reorder only
+      the upsampling's backward, so after 10 cycles they end further
+      apart than two plain fits (measured on an H100), with no bound
+      to hold them to; the ranks hold them bit for bit equal.
+    """
+    import torch
+    from atomai_tpu_torch import models
+    from atomai_tpu_torch.core.dtypes import Precision, set_default_precision
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**MAIN)
+
+    def fit(mesh, name, cycles, full=False):
+        set_default_precision(Precision.full() if full else None)
+        try:
+            m = models.Segmentor("Unet", 1, seed=1, device=device)
+        finally:
+            set_default_precision(None)
+        t0 = time.perf_counter()
+        m.fit(imgs, masks, training_cycles=cycles, batch_size=SEG_BATCH,
+              print_loss=cycles, mesh=mesh,
+              filename=os.path.join(tmp, name))
+        torch.cuda.synchronize(device)
+        return m, time.perf_counter() - t0
+
+    step, _ = fit(data_mesh, "seg_step", 1, full=True)
+    box = []
+    busy = busy_share(lambda: box.append(
+        fit(data_mesh, "seg_mesh", MESH_SEG_CYCLES)), device)
+    meshed, seconds = box[0]
+    out = {"mesh": list(meshed.mesh.shape), "seconds": seconds,
+           "busy_share": busy, "loss": meshed.loss_acc,
+           "step_loss": step.loss_acc,
+           "state": {k: v.cpu() for k, v in meshed.net.state_dict().items()}}
+    if not plain:
+        return meshed, out
+    one_step, _ = fit(False, "seg_step_plain", 1, full=True)
+    d1 = _seg_run_diff(step, one_step)
+    d1["first_loss_rel"] = abs(step.loss_acc["train_loss"][0] /
+                               one_step.loss_acc["train_loss"][0] - 1)
+    check(d1["first_loss_rel"] <= TOL_MESH_SEG_STEP["first_loss_rel"] and
+          d1["stats_rel"] <= TOL_MESH_SEG_STEP["stats_rel"] and
+          d1["param_abs"] <= TOL_MESH_SEG_STEP["param_abs"],
+          f"config A's split float32 step off the plain step: {d1}")
+    plains = [fit(False, f"seg_plain{i}", MESH_SEG_CYCLES)
+              for i in range(SPREAD_FITS)]
+    bounds = {"loss_rel": TOL_REMAT_LOSS_REL,
+              "param_abs": 2 * 1e-3 * MESH_SEG_CYCLES}
+    held = hold_to_spread("config A on the mesh", meshed,
+                          [m for m, _ in plains], _seg_run_diff, bounds,
+                          ("loss_rel",))
+    out.update(plain_seconds=plains[0][1], step_mesh_vs_plain=d1,
+               mesh_vs_plain=held, bounds=bounds,
+               step_bounds=TOL_MESH_SEG_STEP)
+    return meshed, out
+
+
+def _mesh_predict(device, net, data_mesh):
+    """The sharded ``SegPredictor.run`` on config A's frames: one labeller
+    launch a rank, the labeller's labels and fused sums on the sharded
+    maps equal to its plain version's, the maps against one process's."""
+    import torch
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import SegPredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, _, _ = make_lattice_stack(**MAIN)
+    p = SegPredictor(net, nb_classes=1, verbose=False, mesh=data_mesh)
+    cc_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    maps, coords = p.run(imgs)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    launches = cc_kernel.LAUNCHES
+    check(launches == 1, f"the sharded predict launched the labeller "
+          f"{launches} times")
+    check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
+          "bad sharded predict output")
+    lab = labeller_on(p.predict_device(imgs), device, timed=False)
+    plain = SegPredictor(net, nb_classes=1, verbose=False,
+                         mesh=False).predict(imgs)
+    err = float(np.abs(maps - plain).max())
+    check(err <= TOL_MESH_MAPS, f"sharded maps {err} off one process's")
+    return {"mesh": list(p.mesh.shape), "seconds": seconds,
+            "labeller_launches": launches, "labeller": lab,
+            "maps_max_abs_err": err}
+
+
+@contextlib.contextmanager
+def first_backward_inputs(box):
+    """Keeps a copy of the inputs and output gradient of the first launch
+    of the spatial-MLP backward kernel in the block (the forward kernel's
+    inputs of the same step) in ``box``."""
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    launch = sm.spatial_mlp_backward_cuda
+
+    def keep(*args):
+        if not box:
+            box.extend(a.detach().clone() for a in args)
+        return launch(*args)
+
+    sm.spatial_mlp_backward_cuda = keep
+    try:
+        yield
+    finally:
+        sm.spatial_mlp_backward_cuda = launch
+
+
+def _mesh_rvae(device, data_mesh, tmp, plain):
+    """Config C's rVAE on the data mesh and, where ``plain``, with
+    ``mesh=False``: the ELBOs, the spatial-MLP launches of this rank (one
+    forward and one backward a step, on its rows), and both kernels held
+    against their plain versions on the inputs of this rank's first
+    step."""
+    import torch
+    from atomai_tpu_torch.models import rVAE
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    X = config_c_patches()
+    runs, step_inputs = {}, []
+    for name, mesh in (("mesh", data_mesh), ("plain", False))[:1 + plain]:
+        m = rVAE((32, 32), latent_dim=2, device=device)
+        check(m.decoder_net.fused(), "the rVAE's decoder does not route to "
+              "the kernels")
+        sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with first_backward_inputs(step_inputs):
+            m.fit(X, training_cycles=MESH_VAE_EPOCHS, batch_size=RVAE_BATCH,
+                  mesh=mesh, verbose=False, filename=os.path.join(tmp, name))
+        torch.cuda.synchronize(device)
+        runs[name] = {"elbo": list(m.loss_history["train_loss"]),
+                      "launches": [sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES],
+                      "seconds": time.perf_counter() - t0,
+                      "mesh": None if m.mesh is None else list(m.mesh.shape)}
+    steps = MESH_VAE_EPOCHS * (len(X) // RVAE_BATCH)
+    rows = RVAE_BATCH // list(data_mesh.shape)[0]
+    check(bool(np.isfinite(runs["mesh"]["elbo"]).all()),
+          "non-finite ELBOs on the mesh")
+    check(runs["mesh"]["launches"] == [steps, steps],
+          f"{steps} steps launched the kernels {runs['mesh']['launches']} "
+          "times")
+    check(step_inputs[0].shape[0] == rows, f"the kernels saw "
+          f"{step_inputs[0].shape[0]} rows, not this rank's {rows}")
+    out = {"steps": steps, "rows_a_rank": rows, **runs,
+           "kernels": mlp_kernels_on(step_inputs[:8], step_inputs[8],
+                                     device)}
+    if plain:
+        rel = float(np.abs(np.asarray(runs["mesh"]["elbo"]) /
+                           np.asarray(runs["plain"]["elbo"]) - 1).max())
+        check(rel <= TOL_REMAT_ELBO_REL,
+              f"rVAE ELBOs on the mesh {rel} off the plain fit's")
+        out["elbo_rel"] = rel
+    return out
+
+
+def _mesh_ensemble(device, model_mesh, tmp, plain):
+    """Config D's 4 members over the model axis and, where ``plain``, with
+    ``mesh=False`` (``SPREAD_FITS`` times, for the card's own spread);
+    then the ``EnsemblePredictor`` of the members on the model axis
+    against one process's."""
+    import torch
+    from atomai_tpu_torch.predictors import EnsemblePredictor
+    from atomai_tpu_torch.trainers import EnsembleTrainer
+    from atomai_tpu_torch.transforms import seg_augmentor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, _ = make_lattice_stack(**ENS_DATA)
+    aug = seg_augmentor(1, **AUG)
+
+    def fit(mesh, name):
+        et = EnsembleTrainer("Unet", 1, device=device)
+        et.compile_ensemble_trainer(training_cycles=MESH_ENS_CYCLES,
+                                    batch_size=ENS_BATCH, swa=True,
+                                    filename=os.path.join(tmp, name),
+                                    mesh=mesh)
+        t0 = time.perf_counter()
+        net, ens = et.train_ensemble_from_scratch(
+            imgs, masks, n_models=ENS_MODELS, augment_fn=aug)
+        torch.cuda.synchronize(device)
+        return et, net, ens, time.perf_counter() - t0
+
+    def diff(a, b):
+        la, lb = (np.asarray(e.loss_acc["train_loss"]) for e in (a[0], b[0]))
+        w = max(float((a[2][i][k] - b[2][i][k]).abs().max())
+                for i in b[2] for k in b[2][i]
+                if b[2][i][k].is_floating_point())
+        return {"loss_rel": float(np.abs(la / lb - 1).max()), "abs": w}
+
+    meshed = fit(model_mesh, "em")
+    check(len(meshed[2]) == ENS_MODELS, "members missing on this rank")
+    out = {"mesh": list(model_mesh.shape), "seconds": meshed[3],
+           "loss": list(meshed[0].loss_acc["train_loss"]),
+           "members": {i: {k: v.cpu() for k, v in s.items()}
+                       for i, s in meshed[2].items()}}
+    if plain:
+        plains = [fit(False, f"ep{i}") for i in range(SPREAD_FITS)]
+        bounds = {"loss_rel": TOL_REMAT_LOSS_REL,
+                  "abs": 2 * 1e-3 * MESH_ENS_CYCLES}
+        out.update(plain_seconds=plains[0][3], bounds=bounds,
+                   mesh_vs_plain=hold_to_spread(
+                       "config D on the member axis", meshed, plains, diff,
+                       bounds, bounds))
+    net, ens = meshed[1], meshed[2]
+    p = EnsemblePredictor(net, ens, nb_classes=1, verbose=0,
+                          mesh=model_mesh)
+    t0 = time.perf_counter()
+    mean, var = p.predict(imgs, num_batches=4)
+    torch.cuda.synchronize(device)
+    predict_s = time.perf_counter() - t0
+    mean1, var1 = EnsemblePredictor(net, ens, nb_classes=1, verbose=0,
+                                    mesh=False).predict(imgs, num_batches=4)
+    err = max(float(np.abs(mean - mean1).max()),
+              float(np.abs(var - var1).max()))
+    check(err <= TOL_MESH_MEMBERS, f"ensemble predictor on the member axis "
+          f"{err} off one process's")
+    out.update(members_a_rank=len(p.members), predict_s=predict_s,
+               predict_max_abs_err=err)
+    return out
+
+
+def _mesh_dkl(device, model_mesh, plain):
+    """Config E's 4 x 2,048 independent outputs over the model axis and,
+    where ``plain``, with ``mesh=False``: losses and the posterior."""
+    import torch
+    from atomai_tpu_torch.models import dklGPR
+    rng = np.random.RandomState(0)
+    X = rng.randn(GP_N_SMALL, GP_DIM).astype(np.float32)
+    y = (X[:, 0] + 0.1 * rng.randn(GP_N_SMALL)).astype(np.float32)
+    Y = np.stack([y, -y, X[:, 1], X[:, 0] + X[:, 1]])[:GP_OUTPUTS]
+    runs = {}
+    for name, mesh in (("mesh", model_mesh), ("plain", False))[:1 + plain]:
+        m = dklGPR(GP_DIM, embedim=2, shared_embedding_space=False,
+                   device=device)
+        t0 = time.perf_counter()
+        m.fit(X, Y, training_cycles=MESH_DKL_CYCLES,
+              print_loss=MESH_DKL_CYCLES, mesh=mesh)
+        torch.cuda.synchronize(device)
+        mean, var = m.predict(X[:256])
+        runs[name] = {"loss": list(m.train_loss), "mean": mean, "var": var,
+                      "seconds": time.perf_counter() - t0}
+    out = {"mesh": list(model_mesh.shape), "outputs": GP_OUTPUTS,
+           "n": GP_N_SMALL, "loss": runs["mesh"]["loss"],
+           "seconds": runs["mesh"]["seconds"]}
+    check(bool(np.isfinite(runs["mesh"]["loss"]).all()) and
+          bool(np.isfinite(runs["mesh"]["mean"]).all()),
+          "non-finite DKL losses or posterior on the output axis")
+    if plain:
+        rel = float(np.abs(np.asarray(runs["mesh"]["loss"]) /
+                           np.asarray(runs["plain"]["loss"]) - 1).max())
+        post = max(float(np.abs(runs["mesh"][k] - runs["plain"][k]).max())
+                   for k in ("mean", "var"))
+        check(rel <= TOL_MESH_DKL_REL and bool(np.isfinite(post)),
+              f"independent DKL on the output axis: losses {rel} off")
+        out.update(loss_rel=rel, posterior_max_abs=post,
+                   plain_seconds=runs["plain"]["seconds"])
+    return out
+
+
+def mesh_path_rank(rank, world, parts, net_state=None):
+    """Phase 30's work in one rank of a world of ``world`` on the card:
+    ``parts`` of "seg", "predict", "vae", "ens", "dkl", each on an
+    explicit mesh of the whole world (data (world, 1), model (1, world)),
+    rank 0 holding it against ``mesh=False`` in its process, and
+    "dryrun", the dryrun's four paths on their meshes. ``net_state``: the
+    Unet "predict" serves when "seg" is not run."""
+    import torch
+    from atomai_tpu_torch.core.mesh import get_mesh
+    from atomai_tpu_torch.nets import init_fcnn_model
+    from atomai_tpu_torch.parallel.dryrun import paths
+    device = torch.device("cuda", torch.cuda.current_device())
+    data_mesh = get_mesh(n_data=world, n_model=1)
+    model_mesh = get_mesh(n_data=1, n_model=world)
+    plain = rank == 0
+    out = {"rank": rank, "device": str(device)}
+    net = None
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        if "seg" in parts:
+            meshed, out["seg"] = _mesh_seg(device, data_mesh, tmp, plain)
+            net = meshed.net
+        if "predict" in parts:
+            if net is None:
+                net = init_fcnn_model("Unet", 1)[0]
+                net.load_state_dict(net_state)
+                net.to(device).eval()
+            out["predict"] = _mesh_predict(device, net, data_mesh)
+        if "vae" in parts:
+            out["vae"] = _mesh_rvae(device, data_mesh, tmp, plain)
+        if "ens" in parts:
+            out["ens"] = _mesh_ensemble(device, model_mesh, tmp, plain)
+        if "dkl" in parts:
+            out["dkl"] = _mesh_dkl(device, model_mesh, plain)
+    if "dryrun" in parts:
+        out["dryrun"] = paths(world, "cuda")
+    return out
+
+
+def _ranks_agree(ranks):
+    """Every rank ended with rank 0's model on each path: the same losses
+    and ELBOs, Unet weights and statistics, and ensemble members."""
+    import torch
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(r["seg"]["loss"] == r0["seg"]["loss"] and
+              r["seg"]["step_loss"] == r0["seg"]["step_loss"] and
+              all(torch.equal(v, r0["seg"]["state"][k])
+                  for k, v in r["seg"]["state"].items()),
+              f"rank {r['rank']}'s config A fit differs from rank 0's")
+        check(r["vae"]["mesh"]["elbo"] == r0["vae"]["mesh"]["elbo"],
+              f"rank {r['rank']}'s ELBOs differ from rank 0's")
+        check(r["ens"]["loss"] == r0["ens"]["loss"] and
+              all(torch.equal(v, r0["ens"]["members"][i][k])
+                  for i, s in r["ens"]["members"].items()
+                  for k, v in s.items()),
+              f"rank {r['rank']}'s members differ from rank 0's")
+        check(r["dkl"]["loss"] == r0["dkl"]["loss"],
+              f"rank {r['rank']}'s DKL losses differ from rank 0's")
+        check(r["dryrun"] == r0["dryrun"],
+              f"rank {r['rank']}'s dryrun differs from rank 0's")
+    for r in ranks:
+        del r["seg"]["state"], r["ens"]["members"]
+
+
+def phase_mesh_path(device):
+    """The device mesh on the card (``core.mesh``, ``parallel``): ranks
+    started by ``parallel.launch`` run the production paths on explicit
+    meshes. World 2 with both ranks on the one card over gloo (NCCL
+    refuses two ranks on one card: "Duplicate GPU detected"): configs A,
+    C, D, E at full width and both sharded predictors, rank 0 holding
+    each against ``mesh=False``, every rank holding rank 0's model at the
+    end, and the dryrun's four paths held against one process; each
+    rank's spatial-MLP kernels held against their plain versions on its
+    rows. World 1 on NCCL: the sharded predict and the rVAE, to check
+    that NCCL and the rank's card start up. Where the host has several
+    cards, the dryrun at that world size on NCCL. Launches of the
+    labeller and the spatial-MLP kernels a rank."""
+    import torch
+    from atomai_tpu_torch.parallel import launch
+    from atomai_tpu_torch.parallel.dryrun import dryrun_multichip, paths
+    t0 = time.perf_counter()
+    two = launch(mesh_path_rank, 2, "cuda", backend="gloo",
+                 args=(2, ("seg", "predict", "vae", "ens", "dkl", "dryrun")),
+                 timeout=MESH_COLLECTIVE_S, deadline=MESH_LAUNCH_S)
+    world2_s = time.perf_counter() - t0
+    net_state = two[0]["seg"]["state"]
+    _ranks_agree(two)
+    dry = two[0]["dryrun"]
+    ref = paths(2, "cuda", mesh=False)
+    dry_rel = {k: [float(abs(dry[k][0] / ref[k][0] - 1)),
+                   float(np.abs(np.asarray(dry[k]) / np.asarray(ref[k]) - 1)
+                         .max())] for k in TOL_MESH_DRYRUN_REL}
+    for k, (first, every) in TOL_MESH_DRYRUN_REL.items():
+        check(dry_rel[k][0] <= first and dry_rel[k][1] <= every,
+              f"dryrun {k} at world 2 {dry_rel[k]} off one process's")
+    t0 = time.perf_counter()
+    (one,) = launch(mesh_path_rank, 1, "cuda", args=(1, ("predict", "vae"),
+                                                     net_state),
+                    timeout=MESH_COLLECTIVE_S, deadline=MESH_LAUNCH_S)
+    world1_s = time.perf_counter() - t0
+    nccl = None
+    count = torch.cuda.device_count()
+    if count > 1:
+        with quiet():
+            nccl = dryrun_multichip(count, "cuda", deadline=MESH_LAUNCH_S)
+    emit("mesh_path", world2_gloo_one_card=two, world1=one,
+         dryrun_world2=dry, dryrun_one_process=ref, dryrun_rel=dry_rel,
+         dryrun_nccl=nccl, world1_s=world1_s, world2_s=world2_s,
+         busy_share_world2_seg=sum(r["seg"]["busy_share"] for r in two),
+         cycles={"seg": MESH_SEG_CYCLES, "vae_epochs": MESH_VAE_EPOCHS,
+                 "ens": MESH_ENS_CYCLES, "dkl": MESH_DKL_CYCLES},
+         tolerances={"maps": TOL_MESH_MAPS, "members": TOL_MESH_MEMBERS,
+                     "dkl_loss_rel": TOL_MESH_DKL_REL,
+                     "elbo_rel": TOL_REMAT_ELBO_REL,
+                     "mlp_scaled": TOL_MLP_SCALED,
+                     "seg_step": TOL_MESH_SEG_STEP,
+                     "dryrun": TOL_MESH_DRYRUN_REL,
+                     "noise_factor": REMAT_NOISE_FACTOR})
+    ranks = two + [one]
+    lab = {"launches_per_rank": [r["predict"]["labeller_launches"]
+                                 for r in ranks],
+           "world_sizes": [2, 2, 1],
+           "max_abs_err": max(r["predict"]["labeller"]["max_abs_err"]
+                              for r in ranks),
+           "blobs": two[0]["predict"]["labeller"]["blobs"]}
+    mlp = [{"launches_per_rank": [r["vae"]["mesh"]["launches"][i]
+                                  for r in ranks],
+            "steps_per_rank": [r["vae"]["steps"] for r in ranks],
+            "rows_a_rank": [r["vae"]["rows_a_rank"] for r in ranks],
+            "world_sizes": [2, 2, 1],
+            "max_abs_err": max(r["vae"]["kernels"][key] for r in ranks),
+            "scaled_err": max(v for r in ranks for n, v in
+                              r["vae"]["kernels"]["scaled_err"].items()
+                              if n in names)}
+           for i, (key, names) in enumerate((
+               ("max_abs_err_fwd", ["y"]),
+               ("max_abs_err_bwd", MLP_NAMES)))]
+    return lab, mlp[0], mlp[1]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3654,6 +4144,8 @@ def main():
     kernels[0]["graph_path"] = phase_graph_path(device, trained_net)
     (kernels[0]["remat_path"], kernels[1]["remat_path"],
      kernels[2]["remat_path"]) = phase_remat_path(device)
+    (kernels[0]["mesh_path"], kernels[1]["mesh_path"],
+     kernels[2]["mesh_path"]) = phase_mesh_path(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,12 +13,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def parse(doc, argv=None, plot=True, flags=None):
+def parse(doc, argv=None, plot=True, flags=None, options=None):
     """The parsed arguments; ``flags`` maps an example's own on/off
-    options to their help."""
+    options to their help, ``options`` its valued ones to (type, default,
+    help)."""
     p = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
     for name, text in (flags or {}).items():
         p.add_argument(f"--{name}", action="store_true", help=text)
+    for name, (kind, default, text) in (options or {}).items():
+        p.add_argument(f"--{name}", type=kind, default=default, help=text)
     p.add_argument("--device", default="cuda",
                    help='"cuda" (the default) or "cpu"; no fallback')
     p.add_argument("--smoke", action="store_true",

@@ -3,9 +3,10 @@ offer too, name by name, method by method and parameter by parameter.
 
 Both packages are imported on the CPU. For the top level and ``models``,
 ``utils``, ``trainers``, ``predictors``, ``nets``, ``losses_metrics``,
-``transforms``, ``stat`` and ``core`` (and the submodules ``utils.compat``,
-``utils.datasets``, ``utils.aseutils``, ``core.profiling`` and
-``core.dtypes``, where the "do not port" names live) the test lists:
+``transforms``, ``stat``, ``core`` and ``parallel`` (and the submodules
+``utils.compat``, ``utils.datasets``, ``utils.aseutils``, ``core.mesh``,
+``core.profiling`` and ``core.dtypes``, where the "do not port" names
+live) the test lists:
 - public names: ``__all__`` and every public attribute defined in the
   package itself;
 - public methods (and properties) of each class both packages have;
@@ -14,9 +15,9 @@ Both packages are imported on the CPU. For the top level and ``models``,
 
 A gap is the JAX side's item missing from the port's. Every gap must
 match an entry of ``EXCLUDED`` (an ``fnmatch`` pattern over the gap's
-name, each with its reason); every entry must match a gap, except those
-of work queued in ROADMAP (#21), so that the list never outlives what it
-excuses. Any other gap fails the test and names itself.
+name, each with its reason); every entry must match a gap, so that the
+list never outlives what it excuses. Any other gap fails the test and
+names itself.
 """
 
 import dataclasses
@@ -31,15 +32,14 @@ import torch
 torch.set_num_threads(1)
 
 NAMESPACES = ["", "models", "utils", "trainers", "predictors", "nets",
-              "losses_metrics", "transforms", "stat", "core",
+              "losses_metrics", "transforms", "stat", "core", "parallel",
               "utils.compat", "utils.datasets", "utils.aseutils",
-              "core.profiling", "core.dtypes"]
+              "core.mesh", "core.profiling", "core.dtypes"]
 
 _FLAX = "flax linen Module API (the port's nets are torch nn.Modules)"
 _TREE = "flax-tree argument (the port's modules hold their own weights)"
 _COST = "XLA cost-analysis helper (the port counts FLOPs with torch tools)"
 _NOPORT = "ROADMAP 'Do not port': TPU, XLA or tunnel scaffolding"
-_MESH = "#21, still to port"
 
 EXCLUDED = [
     # flax Module classes: flax's own API (less what torch's nn.Module
@@ -78,13 +78,6 @@ EXCLUDED = [
     ("name:core.profiling:compiled_bytes_accessed", _NOPORT),
     ("name:core.profiling:jaxpr_matmul_flops", _NOPORT),
     ("name:core.dtypes:enable_compilation_cache", _NOPORT),
-    # multi-device: queued as ROADMAP #21
-    ("name:core:get_mesh", _MESH),
-    ("name:core:data_sharding", _MESH),
-    ("name:core:replicate", _MESH),
-    ("name:core:ensemble_mesh", _MESH),
-    ("name:core:mesh", _MESH),
-    ("param:*:mesh", _MESH),
 ]
 
 
@@ -174,27 +167,36 @@ def test_every_gap_is_excused(gaps):
 
 
 def test_every_exclusion_is_used(gaps):
-    """An entry that excuses nothing is stale (entries for queued work may
-    wait for their gap)."""
+    """An entry that excuses nothing is stale."""
     stale = [pattern for pattern, reason in EXCLUDED
-             if reason != _MESH and
-             not any(fnmatch.fnmatchcase(g, pattern) for g in gaps)]
+             if not any(fnmatch.fnmatchcase(g, pattern) for g in gaps)]
     assert not stale, "stale exclusions:\n" + "\n".join(stale)
 
 
 def test_census_sees_gaps_and_aliases(gaps):
     """The census is not blind: the JAX-only helpers show up as gaps, and
-    the names the port has show up as shared."""
+    the names the port has show up as shared, the device-mesh layer's
+    among them (names, submodule and parameters)."""
     found = gaps
-    assert "name:core:get_mesh" in found
     assert "method:trainers:BaseTrainer.train_bytes_per_cycle" in found
     assert "param:nets:SignalED.encode:train" in found
     shared = [f"name:utils:{n}" for n in ("Hook", "ase_obj_basic",
                                           "init_dataloader")] + \
         ["method:trainers:BaseTrainer.fit",
          "method:predictors:Locator.rem_edge_coord",
-         "param:models:load_seg_model:meta_dict", "name:core:trace"]
+         "param:models:load_seg_model:meta_dict", "name:core:trace"] + \
+        [f"name:core:{n}" for n in ("get_mesh", "data_sharding",
+                                    "replicate", "ensemble_mesh", "mesh")] + \
+        [f"name:core.mesh:{n}" for n in ("resolve_data_mesh",
+                                         "resolve_model_mesh", "shard_batch",
+                                         "shard_member_stacked")] + \
+        ["param:core.mesh:get_mesh:devices",
+         "param:core.mesh:resolve_data_mesh:batch_size",
+         "name:parallel:shard_batch"]
     assert not set(shared) & set(found)
+    jm = _module("atomai_tpu", "core.mesh")
+    assert _public_names(jm) <= _public_names(
+        _module("atomai_tpu_torch", "core.mesh"))
 
 
 @pytest.mark.parametrize("ns", ["utils", ""])

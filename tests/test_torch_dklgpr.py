@@ -282,8 +282,14 @@ def test_dkl_from_jax_checks_the_tree(runs):
 
 def test_mesh_raises(data):
     X, y, _, _ = data
-    with pytest.raises(NotImplementedError, match="#21"):
-        dklGPR(INDIM, device="cpu").compile_trainer(X, y, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        dklGPR(INDIM, shared_embedding_space=False,
+               device="cpu").compile_multi_model_trainer(
+                   X, np.stack([y, y]), mesh=object())
+    for mesh in (None, False):   # one process: no mesh either way
+        m = dklGPR(INDIM, shared_embedding_space=False, device="cpu")
+        m.compile_multi_model_trainer(X, np.stack([y, y]), mesh=mesh)
+        assert m.model_mesh is None
 
 
 def test_gp_regression_model_matches_jax(data):

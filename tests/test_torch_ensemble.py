@@ -227,8 +227,9 @@ def test_layouts_meshes_and_remat():
         et.compile_ensemble_trainer(member_layout="vmap")
     with pytest.raises(ValueError, match="member_layout"):
         et.compile_ensemble_trainer(member_layout="pmap")
-    with pytest.raises(NotImplementedError, match="Queue 1 #21"):
-        et.compile_ensemble_trainer(mesh=object())
+    et.compile_ensemble_trainer(mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        et._resolve_mesh(4)
     # remat is taken (members train on checkpointed blocks: exactness in
     # test_torch_remat.py)
     et.compile_ensemble_trainer(remat=True)

@@ -1,6 +1,6 @@
 """The port's examples (``examples_torch/``) run end to end on the CPU:
 each script in a subprocess of its own with ``--device cpu --smoke``, all
-five at once on one thread each, printing what its workflow produces and
+six at once on one thread each (the multi-device one in two ranks), printing what its workflow produces and
 writing no figure unless asked. (Without ``--device`` each asks for the
 card: ``test_torch_trainer.py::test_entry_points_default_to_the_card``.)
 """
@@ -27,6 +27,13 @@ RUNS = {
     "dkl_active_learning.py": ([], ["posterior mean/var:"]),
     "graph_analysis_notebook.py": (["--plot"], ["defect clusters: 1",
                                                 "POSCAR written: True"]),
+    "multichip_training.py": ([], ["segmentor data mesh: (2, 1)",
+                                   "rVAE data mesh: (2, 1)",
+                                   "ensemble members on every rank: 4",
+                                   "DKL model mesh: (1, 2)",
+                                   "tiled predict output: (8, 64, 64, 1)",
+                                   "2 ranks ended with maps of one shape: "
+                                   "True"]),
 }
 
 
@@ -42,7 +49,8 @@ def runs(tmp_path_factory):
     thread and in its own directory: {name: (exit code, stdout, stderr,
     the directory)}."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        filter(None, [ROOT, os.environ.get("PYTHONPATH")])))
+        filter(None, [ROOT, os.environ.get("PYTHONPATH")])),
+        AOI_AUTO_MESH="1")     # the suite's default is off; a user's is on
     started = {}
     for name, (extra, _) in RUNS.items():
         cwd = tmp_path_factory.mktemp(name[:-3])

@@ -4,7 +4,8 @@ on the same numpy-made data: a few Adam steps of 'exact', 'sparse' and
 lengthscale constraints), their losses, final parameters and
 ``predict``; ``Reconstructor.reconstruct`` on the exact path (a 20 x 20
 image) and the inducing-grid path (24 x 24); a recompile clears the
-posterior cache; ``mesh`` raises. Each JAX run happens once, in a
+posterior cache; ``mesh`` is taken and ignored, as the JAX package's
+compile_trainer does. Each JAX run happens once, in a
 module-scoped fixture.
 
 Stated tolerances, float32 on the CPU (the GP has four parameters an
@@ -142,9 +143,11 @@ def test_recompile_clears_the_posterior_cache(data):
 
 def test_mesh_raises_and_off_runs(data):
     X, y, _, _ = data
-    with pytest.raises(NotImplementedError, match="#21"):
-        GPTrainer(device="cpu").compile_trainer(X, y, mesh=object())
-    for mesh in (None, False):
+    from atomai_tpu_torch.core.mesh import get_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        get_mesh(n_data=2)
+    # one GP: the JAX package's compile_trainer takes mesh and ignores it
+    for mesh in (None, False, object()):
         GPTrainer(device="cpu").compile_trainer(X, y, mesh=mesh)
 
 

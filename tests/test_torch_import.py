@@ -33,6 +33,14 @@ MODULES = sorted(
     for path in (os.path.join(ROOT, s) for s in SOURCES[:-1]))
 
 
+def test_mesh_modules_are_held():
+    """The device-mesh layer is among the modules held free of JAX."""
+    assert {"atomai_tpu_torch.core.mesh", "atomai_tpu_torch.parallel",
+            "atomai_tpu_torch.parallel.dryrun",
+            "atomai_tpu_torch.parallel.launch",
+            "atomai_tpu_torch.parallel.sync_bn"} <= set(MODULES)
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), filename=path)
     roots = set()

@@ -291,7 +291,7 @@ def test_augmentor_and_dims_checks():
     with pytest.raises(AssertionError, match="dimensions"):
         m.fit(X[:, :8], y, training_cycles=1, batch_size=4,
               filename=tempfile.mkdtemp() + "/x")
-    with pytest.raises(NotImplementedError, match="Queue 1 #21"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit(X, y, training_cycles=1, batch_size=4, mesh=object(),
               filename=tempfile.mkdtemp() + "/x")
 

@@ -15,6 +15,9 @@ explicit generator drawn twice, TF32 switches of the backward, and which
 blocks are units.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -28,6 +31,10 @@ from atomai_tpu_torch.trainers import EnsembleTrainer
 from test_torch_trainer import _assert_same_trajectory, _pair
 
 torch.set_num_threads(1)
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
 
 
 def _seg_data(seed=3, n=8, size=16):
@@ -251,3 +258,42 @@ def test_set_remat_units():
     set_remat(enc)
     set_remat(dec)
     assert enc.remat and dec.remat and dec.fused()
+
+
+def _plain_fits(*values):
+    return [{"x": v} for v in values]
+
+
+def _dist(a, b):
+    return {"x": abs(a["x"] - b["x"])}
+
+
+@pytest.mark.parametrize("fit, bound, spread_keys, passes", [
+    # within the a priori bound of every plain fit
+    (0.5, 1.0, (), True),
+    # within the bound of one plain fit only: the bound must hold for all
+    (0.55, 0.3, (), False),
+    # outside the bound, nearest plain fit within 3 times their spread
+    # (0.2): an exchangeable fit
+    (0.45, 0.01, ("x",), True),
+    # the same fit, the spread not taken for this measure
+    (0.45, 0.01, (), False),
+    # far from every plain fit: 3 * 0.2 < 1.7
+    (2.0, 0.01, ("x",), False),
+])
+def test_hold_to_spread(fit, bound, spread_keys, passes):
+    """chip_smoke's hold of a fit against several plain fits: the a
+    priori bound against each of them, else (where allowed) the nearest
+    one within REMAT_NOISE_FACTOR times the largest distance between two
+    plain fits."""
+    plains = _plain_fits(0.1, 0.2, 0.3)
+    args = ("fit", {"x": fit}, plains, _dist, {"x": bound}, spread_keys)
+    if passes:
+        held = chip_smoke.hold_to_spread(*args)
+        assert held["nearest"]["x"] == pytest.approx(
+            min(abs(fit - p["x"]) for p in plains))
+        assert held["spread"]["x"] == pytest.approx(0.2)
+        assert len(held["vs_plain"]) == 3 and len(held["plain_vs_plain"]) == 3
+    else:
+        with pytest.raises(AssertionError, match="off the plain fits"):
+            chip_smoke.hold_to_spread(*args)

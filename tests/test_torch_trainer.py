@@ -258,11 +258,13 @@ def test_nb_classes_mismatch_raises(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """``mesh`` raises (ROADMAP #21); ``remat=True`` trains, with the
-    Unet's blocks checkpointed (its exactness: ``test_torch_remat.py``)."""
+    """A ``mesh`` that is not a ``DeviceMesh`` raises (meshes:
+    ``test_torch_mesh.py``, ``test_torch_multidevice.py``); ``remat=True``
+    trains, with the Unet's blocks checkpointed (its exactness:
+    ``test_torch_remat.py``)."""
     m = Segmentor("Unet", 1, **SMALL)
     X, y, Xt, yt = _data()
-    with pytest.raises(NotImplementedError, match="Queue 1 #21"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit(X, y, Xt, yt, training_cycles=1, batch_size=4,
               filename=str(tmp_path / "x"), mesh=object())
     r = Segmentor("Unet", 1, **SMALL)

@@ -201,7 +201,7 @@ def test_trainer_options_optimizer_mesh_remat(tmp_path):
     with pytest.raises(ValueError, match="Unknown optimizer"):
         aoi.models.VAE((8, 8), device="cpu").compile_trainer(
             (X, None), optimizer="lbfgs")
-    with pytest.raises(NotImplementedError, match="#21"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         aoi.models.VAE((8, 8), device="cpu").compile_trainer(
             (X, None), mesh=object())
     # remat trains (its exactness: test_torch_remat.py)
