@@ -4,7 +4,8 @@ regression/classification nets (NCHW / NCL).
 Counterpart of `atomai_tpu/nets/blocks.py:104-327`:
 - ConvBlock: [conv -> (dropout) -> LeakyReLU(0.01) -> (BatchNorm)] x n, 1D
   or 2D,
-- UpsampleBlock: 2x interpolation (bilinear / nearest) + 1x1 conv,
+- UpsampleBlock: 2x interpolation (bilinear / nearest; 1D nearest) + 1x1
+  conv,
 - ResBlock / ResModule: 1x1 in-projection (the residual), two 3x3 convs
   each with BatchNorm, the skip add, LeakyReLU; a stack of them,
 - DilatedBlock: a cascade of dilated convs whose forward returns the sum of
@@ -129,10 +130,12 @@ class DilatedBlock(Rematerializable, nn.Module):
 
 
 class UpsampleBlock(Rematerializable, nn.Module):
-    """Interpolation upsampling (bilinear / nearest) followed by a 1x1 conv.
+    """Interpolation upsampling (bilinear / nearest) followed by a 1x1 conv,
+    2D (NCHW) or 1D (NCL, always nearest, as the JAX block forces it).
 
     ``jax.image.resize(..., "linear")`` at an integer upscale samples at
-    half-pixel centres with clamped edges, as ``align_corners=False`` does.
+    half-pixel centres with clamped edges, as ``align_corners=False`` does;
+    its "nearest" at an integer upscale repeats each sample, as torch's.
     """
 
     def __init__(self, ndim: int, input_channels: int, output_channels: int,
@@ -141,11 +144,11 @@ class UpsampleBlock(Rematerializable, nn.Module):
         if mode not in ("bilinear", "nearest"):
             raise NotImplementedError(
                 "use 'bilinear' or 'nearest' for upsampling mode")
-        if ndim != 2:
-            raise NotImplementedError("only 2D UpsampleBlocks are ported")
+        if ndim not in _CONV:
+            raise AssertionError("ndim must be 1 or 2")
         self.scale_factor = scale_factor
-        self.mode = mode
-        self.conv = nn.Conv2d(input_channels, output_channels, 1)
+        self.mode = mode if ndim == 2 else "nearest"
+        self.conv = _CONV[ndim](input_channels, output_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.interpolate(x, scale_factor=self.scale_factor, mode=self.mode,

@@ -37,20 +37,27 @@ kernel twice a step and save nothing); on the CPU its plain version is
 checkpointed.
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn as nn
+from torch._C import _functorch
+from torch.func import functional_call, vmap
 from torch.utils.checkpoint import checkpoint
 
+from .functional_bn import autocast_in_vmap
 
-def checkpointed(unit: nn.Module, fn: Callable, *args):
+
+def checkpointed(unit: nn.Module, fn: Callable, *args,
+                 buffers: Optional[List[torch.Tensor]] = None):
     """``fn(*args)`` (the forward of ``unit``) under a non-reentrant
-    ``torch.utils.checkpoint`` whose recompute restores ``unit``'s buffers
-    afterwards, replays the generators of its modules (a ``generator``
-    attribute, as :class:`~atomai_tpu_torch.nets.blocks.Dropout` has) from
-    their states at the forward, and runs under the forward's TF32
-    switches."""
+    ``torch.utils.checkpoint`` whose recompute restores ``buffers``
+    (``unit``'s by default) afterwards, replays the generators of its
+    modules (a ``generator`` attribute, as
+    :class:`~atomai_tpu_torch.nets.blocks.Dropout` has) from their states
+    at the forward, and runs under the forward's TF32 switches."""
+    if buffers is None:
+        buffers = list(unit.buffers())
     gens = {id(g): g for g in (getattr(m, "generator", None)
                                for m in unit.modules())
             if isinstance(g, torch.Generator)}
@@ -63,7 +70,7 @@ def checkpointed(unit: nn.Module, fn: Callable, *args):
         calls[0] += 1
         if calls[0] == 1:
             return fn(*a)
-        buffers = [b.clone() for b in unit.buffers()]
+        kept = [b.clone() for b in buffers]
         now = [(g, g.get_state()) for g, _ in drawn_from]
         saved_tf32 = (torch.backends.cudnn.allow_tf32,
                       torch.backends.cuda.matmul.allow_tf32)
@@ -79,10 +86,56 @@ def checkpointed(unit: nn.Module, fn: Callable, *args):
             for g, state in now:
                 g.set_state(state)
             with torch.no_grad():
-                for b, saved in zip(unit.buffers(), buffers):
+                for b, saved in zip(buffers, kept):
                     b.copy_(saved)
 
     return checkpoint(run, *args, use_reentrant=False)
+
+
+def _checkpointed_in_vmap(unit: nn.Module, call: Callable, *args):
+    """:func:`checkpointed` for a unit called inside ``torch.func.vmap``
+    (the ensemble trainer's "vmap" layout), where ``unit``'s tensors and
+    ``args`` are batched over the members. ``torch.utils.checkpoint``
+    recomputes in the backward, after the vmap has ended, so it cannot
+    recompute a function of batched tensors (nor run under
+    ``torch.func.grad``). Here the checkpoint takes the physical (stacked)
+    tensors and its function is a vmap of its own over them: the
+    recompute re-enters a vmap. The unit's running statistics are the
+    stacked buffers, put back after the recompute; the dropout masks are
+    buffers too, so the recompute takes the forward's."""
+    level = _functorch.maybe_get_level(args[0])
+    params = list(unit.named_parameters())
+    names, tensors = zip(*[*params, *unit.named_buffers()])
+
+    def unbatched(t):
+        if _functorch.is_batchedtensor(t) and \
+                _functorch.maybe_get_level(t) == level:
+            return _functorch.get_unwrapped(t), \
+                _functorch.maybe_get_bdim(t)
+        return t, None
+    phys, dims = zip(*map(unbatched, tensors))
+    xs, x_dims = zip(*map(unbatched, args))
+    n = len(params)
+    # the buffers go by closure: the forward moves the running statistics
+    # in place, which a checkpoint's saved inputs must not see
+    buffers = list(phys[n:])
+
+    def member(values, *a):
+        unit.remat = False        # one checkpoint: the units inside run plain
+        try:
+            return call(dict(zip(names, values)), *a)
+        finally:
+            unit.remat = True
+
+    def run(*t):
+        # the recompute replays autocast's state but not this mode
+        with autocast_in_vmap():
+            return vmap(member, in_dims=(list(dims), *x_dims))(
+                [*t[:n], *buffers], *t[n:])
+    out = checkpointed(
+        unit, run, *phys[:n], *xs,
+        buffers=[b for b, d in zip(buffers, dims[n:]) if d is not None])
+    return _functorch._add_batch_dim(out, 0, level)
 
 
 class Rematerializable:
@@ -93,6 +146,9 @@ class Rematerializable:
 
     def __call__(self, *args, **kwargs):
         if self.remat and self.training and torch.is_grad_enabled():
+            if _functorch.is_batchedtensor(args[0]):
+                return _checkpointed_in_vmap(self, lambda tensors, *a: (
+                    functional_call(self, tensors, a, kwargs)), *args)
             return checkpointed(self, lambda *a: super(
                 Rematerializable, self).__call__(*a, **kwargs), *args)
         return super().__call__(*args, **kwargs)

@@ -38,48 +38,20 @@ import torch.nn as nn
 from ..core.mesh import (MODEL_AXIS, block, gather_blocks,
                          resolve_model_mesh)
 from ..nets.ed import SignalED
+from ..nets.functional_bn import autocast_in_vmap, vmappable
 from ..utils.coords import cluster_coord
 from ..utils.preproc import format_image, format_spectra
 from .predictor import BasePredictor, Locator
 
-# member_layout "auto": the loop, which the H100 ran faster than the vmap
-# on config D's predictor (4 Unets, 32 x 512^2 frames; chip_smoke.py's
-# ensemble_path, scripts/profile_port_paths.py; PERF.md)
+# member_layout "auto": the loop, which an H100 80GB HBM3 (700 W) ran
+# faster than the vmap on config D's predictor (4 Unets, 32 x 512^2
+# frames; chip_smoke.py's ensemble_path): 181-260 ms against 268-281 ms a
+# predict with the vmap's convs in bf16 (``autocast_in_vmap``; PERF.md)
 AUTO_LAYOUT = "map"
 
 
 def _member_order(k):
     return int(k) if isinstance(k, str) and k.isdigit() else k
-
-
-class _EvalBatchNorm(nn.Module):
-    """A BatchNorm layer in eval mode as plain elementwise ops, under
-    BatchNorm's parameter and buffer names. ``torch.batch_norm`` on CUDA
-    asks its input for its memory format, which a tensor batched by
-    ``torch.func.vmap`` cannot answer; these ops it can batch."""
-
-    def __init__(self, bn: nn.Module):
-        super().__init__()
-        self.eps = bn.eps
-        self.weight, self.bias = bn.weight, bn.bias
-        for name in ("running_mean", "running_var", "num_batches_tracked"):
-            self.register_buffer(name, getattr(bn, name))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (-1,) + (1,) * (x.ndim - 2)
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return x * scale.reshape(shape) + shift.reshape(shape)
-
-
-def _vmappable(net: nn.Module) -> nn.Module:
-    """``net`` with every BatchNorm replaced by :class:`_EvalBatchNorm`."""
-    for name, child in net.named_children():
-        if isinstance(child, nn.modules.batchnorm._BatchNorm):
-            setattr(net, name, _EvalBatchNorm(child))
-        else:
-            _vmappable(child)
-    return net
 
 
 class EnsemblePredictor(BasePredictor):
@@ -135,7 +107,7 @@ class EnsemblePredictor(BasePredictor):
             params, buffers = stack_module_state(self.members)
             self._stacked = ({k: v.detach() for k, v in params.items()},
                              buffers)
-            self._base = _vmappable(copy.deepcopy(self.members[0])).to(
+            self._base = vmappable(copy.deepcopy(self.members[0])).to(
                 "meta")
         self.data_type = data_type
         self.output_type = output_type
@@ -188,9 +160,10 @@ class EnsemblePredictor(BasePredictor):
         with self.precision.scope(self.device):
             if self.member_layout == "vmap":
                 from torch.func import functional_call, vmap
-                out = vmap(lambda p, b, xx: functional_call(
-                    self._base, (p, b), (xx,)), in_dims=(0, 0, None))(
-                        *self._stacked, x)
+                with autocast_in_vmap():
+                    out = vmap(lambda p, b, xx: functional_call(
+                        self._base, (p, b), (xx,)), in_dims=(0, 0, None))(
+                            *self._stacked, x)
             else:
                 out = torch.stack([m(x) for m in self.members])
         out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)

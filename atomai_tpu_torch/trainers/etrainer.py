@@ -18,20 +18,27 @@ fixes, this one keeps:
 - from a baseline, the final model's parameters are the members' mean
   (`:480`); otherwise the final model is the last member.
 
-Members run one after another on the device (the JAX package's "map"
-layout, `:144-158`): ``member_layout`` "auto" and "map" are this loop.
-"vmap" training is not ported: ``torch.func.vmap`` cannot update BatchNorm
-running statistics in place, and it raises (ROADMAP Queue 1 #23). Initial
-weights of members from scratch come from ``init_weights_`` with one
-generator a member off the trainer's :class:`GeneratorSeq`; every random
-draw of member i's training (augmentation, dropout) from a generator of
-its own on the device.
+``member_layout`` (`:144-158`): "map" runs the members one after another
+on the single-model step; "vmap" runs every member's step as one
+``torch.func.vmap`` over the members' stacked weights (`:161-271,
+348-351`), with BatchNorm as ``nets.functional_bn.VmapBatchNorm`` and
+the precision policy's autocast applied inside the vmap
+(``autocast_in_vmap``, which vmap needs), one
+optimizer over the stacked leaves (Adam, AdamW or SGD, which act element
+by element, so each member's own) and, with ``remat``, each block
+checkpointed inside the vmap (``nets.remat``). "auto" is the loop
+(``AUTO_LAYOUT``). Initial weights of members from scratch come from
+``init_weights_`` with one generator a member off the trainer's
+:class:`GeneratorSeq`; every random draw of member i's training
+(augmentation, dropout) from a generator of its own on the device, in
+either layout in the same order, so the two layouts train the same
+members.
 
 Members over the model axis (`:112-141, 205-230`): in a world of several
 ranks, ``compile_ensemble_trainer(mesh=None)`` spreads the members over an
 :func:`~atomai_tpu_torch.core.mesh.ensemble_mesh` (``mesh=False``: every
 rank trains every member; a ``DeviceMesh`` is used as given). Each rank
-trains its contiguous block of members in the loop above; every rank
+trains its contiguous block of members in the layout above; every rank
 still draws all ``n_models`` initial and run generators, so member i is
 the same net whichever rank trains it. The members' ``state_dict``s and
 losses are then broadcast from their owners, so that every rank returns
@@ -47,6 +54,7 @@ from typing import Any, Dict, List, Mapping, Optional, Union
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.func import functional_call, vmap
 
 from ..core.checkpoint import save_checkpoint
 from ..core.mesh import (MODEL_AXIS, axis_size, block, block_owner,
@@ -56,19 +64,62 @@ from ..core.prng import GeneratorSeq, generator_from_seed
 from ..core.state import SwaState
 from ..losses_metrics import iou_score
 from ..nets import init_fcnn_model, init_imspec_model, init_weights_
+from ..nets.functional_bn import (MaskedDropout, autocast_in_vmap,
+                                  vmappable)
 from ..utils import preproc
 from ..utils.nn import sample_weights
 from .trainer import BaseTrainer, _shuffled_batch_schedule
 
-_VMAP_TRAINING = ("member_layout='vmap' training is not ported (ROADMAP "
-                  "Queue 1 #23): torch.func.vmap cannot update BatchNorm "
-                  "running statistics in place; use 'map'")
+# member_layout "auto": the loop, which an H100 80GB HBM3 (700 W) ran at
+# 244-367 images/s on config D against the vmap's 173-183, at a seventh of
+# its peak memory (chip_smoke.py's ensemble_vmap_path; PERF.md)
+AUTO_LAYOUT = "map"
+# optimizers that act element by element, so that one of them over the
+# stacked members' leaves is each member's own
+_ELEMENTWISE = (torch.optim.Adam, torch.optim.AdamW, torch.optim.SGD)
 
 State = Dict[str, torch.Tensor]
 
 
 def _clone(state: Mapping[str, torch.Tensor]) -> State:
     return {k: v.detach().clone() for k, v in state.items()}
+
+
+class _TrainerForward(nn.Module):
+    """The trainer's :meth:`forward` of its net as a module, so that
+    ``functional_call`` on it swaps the net's (``net.*``) tensors."""
+
+    def __init__(self, trainer: BaseTrainer):
+        super().__init__()
+        self.net = trainer.net
+        self._forward = trainer.forward
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x)
+
+
+def _dropout_shapes(trainer: BaseTrainer, drops, x: torch.Tensor):
+    """The input shape of each of ``drops`` ((name, MaskedDropout) of
+    ``trainer.net``) in a forward of the trainer on one member's batch
+    ``x``, in ``drops``' order; each must run once a forward. The forward
+    runs once, on an eval-mode copy of the net (no statistic moves)."""
+    seen: Dict[str, List] = {n: [] for n, _ in drops}
+    net = trainer.net
+    trainer.net = probe = copy.deepcopy(net).eval()
+    for n, _ in drops:
+        probe.get_submodule(n).register_forward_pre_hook(
+            lambda mod, inp, n=n: seen[n].append(tuple(inp[0].shape)))
+    try:
+        with torch.no_grad():
+            trainer.forward(x)
+    finally:
+        trainer.net = net
+    if any(len(v) != 1 for v in seen.values()):
+        raise NotImplementedError(
+            "member_layout='vmap' draws one dropout mask a layer a step: "
+            "a Dropout layer that runs other than once a forward needs "
+            "member_layout='map'")
+    return [seen[n][0] for n, _ in drops]
 
 
 class BaseEnsembleTrainer(BaseTrainer):
@@ -109,12 +160,13 @@ class BaseEnsembleTrainer(BaseTrainer):
         return resolve_model_mesh(self.member_mesh, n_models)
 
     def _member_layout(self) -> str:
+        """"map" (the members one after another) or "vmap" (one
+        ``torch.func.vmap`` of the step over the stacked members); "auto"
+        is ``AUTO_LAYOUT``."""
         layout = self.kdict.get("member_layout", "auto")
         if layout not in ("auto", "map", "vmap"):
             raise ValueError("member_layout must be 'auto'|'map'|'vmap'")
-        if layout == "vmap":
-            raise NotImplementedError(_VMAP_TRAINING)
-        return "map"
+        return AUTO_LAYOUT if layout == "auto" else layout
 
     # ------------------------------------------------------------ engine
     def _train_members(self, n_models: int, cycles: int,
@@ -122,11 +174,11 @@ class BaseEnsembleTrainer(BaseTrainer):
                        augment_fn=None, seed_offset: int = 0,
                        swa: bool = False) -> List[State]:
         """Trains ``n_models`` members, this rank's block of them over the
-        member mesh, one after another; returns every member's
+        member mesh, in the member layout; returns every member's
         ``state_dict`` (each from the rank that trained it) and appends
         the members' mean loss of each cycle to
         ``loss_acc["train_loss"]``."""
-        self._member_layout()
+        layout = self._member_layout()
         nb = len(self.Xb_train)
         self.member_schedules = np.stack([
             _shuffled_batch_schedule(nb, cycles, i + seed_offset)
@@ -139,37 +191,22 @@ class BaseEnsembleTrainer(BaseTrainer):
             if mesh is None or in_mesh(mesh) else range(0)
         saved = (self.net, self.optimizer, self.num_steps, self.augment_fn,
                  self.compute_accuracy, self.mesh)
-        states, losses = {}, {}
         try:
             self.augment_fn = augment_fn
             self.compute_accuracy = False
             self.mesh = None          # members see whole batches
+            members = []
             for i in owned:
                 net = copy.deepcopy(saved[0])
                 if from_state is None:
                     init_weights_(net, init_gens[i])
                 else:
                     net.load_state_dict(from_state)
-                self.net = net
-                self.optimizer = self._make_optimizer(self.optimizer_spec)
-                self.num_steps = 0
-                g = run_gens[i]
-                self._set_dropout_generator(g)
-                avg = SwaState(dict(net.named_parameters())) if swa else None
-                member_losses = []
-                for e, bi in enumerate(self.member_schedules[i]):
-                    loss, _ = self._train_batch(*self._augmented(
-                        self.Xb_train[int(bi)], self.yb_train[int(bi)], g))
-                    member_losses.append(loss)
-                    if avg is not None and e >= swa_start:
-                        avg.update(dict(net.named_parameters()))
-                self._set_dropout_generator(None)
-                if avg is not None:
-                    with torch.no_grad():
-                        for k, p in avg.mean().items():
-                            net.get_parameter(k).copy_(p)
-                states[i] = _clone(net.state_dict())
-                losses[i] = torch.stack(member_losses)
+                members.append(net)
+            train = self._vmap_members if layout == "vmap" \
+                else self._map_members
+            states, losses = train(dict(zip(owned, members)), run_gens,
+                                   swa, swa_start)
         finally:
             (self.net, self.optimizer, self.num_steps, self.augment_fn,
              self.compute_accuracy, self.mesh) = saved
@@ -179,6 +216,121 @@ class BaseEnsembleTrainer(BaseTrainer):
         self.loss_acc["train_loss"].extend(torch.stack(
             [losses[i] for i in range(n_models)]).mean(0).cpu().tolist())
         return states
+
+    def _map_members(self, members: Dict[int, nn.Module], run_gens,
+                     swa: bool, swa_start: int):
+        """The "map" layout: each member's cycles on the single-model step,
+        one member after another. ({member: state_dict}, {member: (cycles,)
+        losses})."""
+        states, losses = {}, {}
+        for i, net in members.items():
+            self.net = net
+            self.optimizer = self._make_optimizer(self.optimizer_spec)
+            self.num_steps = 0
+            g = run_gens[i]
+            self._set_dropout_generator(g)
+            avg = SwaState(dict(net.named_parameters())) if swa else None
+            member_losses = []
+            for e, bi in enumerate(self.member_schedules[i]):
+                loss, _ = self._train_batch(*self._augmented(
+                    self.Xb_train[int(bi)], self.yb_train[int(bi)], g))
+                member_losses.append(loss)
+                if avg is not None and e >= swa_start:
+                    avg.update(dict(net.named_parameters()))
+            self._set_dropout_generator(None)
+            if avg is not None:
+                with torch.no_grad():
+                    for k, p in avg.mean().items():
+                        net.get_parameter(k).copy_(p)
+            states[i] = _clone(net.state_dict())
+            losses[i] = torch.stack(member_losses)
+        return states, losses
+
+    def _vmap_members(self, members: Dict[int, nn.Module], run_gens,
+                      swa: bool, swa_start: int):
+        """The "vmap" layout (counterpart of `etrainer.py:161-271, 348-351`):
+        the members' parameters and buffers stacked on a leading axis, each
+        cycle one ``torch.func.vmap`` of ``functional_call`` over them, the
+        members' losses summed and differentiated by autograd on the
+        stacked leaves, one optimizer over those (element by element, so
+        each member's own). Outside the vmap, each member's batch is
+        augmented, and its dropout masks drawn, from its own generator in
+        the loop's order, so the inputs are the loop's draw for draw.
+        BatchNorm runs as :class:`VmapBatchNorm`, which updates the stacked
+        running statistics in place. Returns what :meth:`_map_members`
+        returns."""
+        if not members:
+            return {}, {}
+        order = list(members)
+        skeleton = next(iter(members.values()))
+        self.net = vmappable(copy.deepcopy(skeleton)).train()
+        call = _TrainerForward(self)
+        params = {"net." + k: torch.stack(
+            [m.get_parameter(k).detach() for m in members.values()]
+        ).requires_grad_() for k, _ in skeleton.named_parameters()}
+        buffers = {"net." + k: torch.stack(
+            [m.get_buffer(k) for m in members.values()])
+            for k, _ in skeleton.named_buffers()}
+        keys = list(skeleton.state_dict())
+        del members, skeleton
+        self.optimizer = self._make_optimizer(self.optimizer_spec,
+                                              list(params.values()))
+        if type(self.optimizer) not in _ELEMENTWISE:
+            raise ValueError(
+                "member_layout='vmap' trains every member with one "
+                "optimizer over the stacked weights, which equals one "
+                "optimizer a member only for an element-wise rule (Adam, "
+                "AdamW, SGD); got " + type(self.optimizer).__name__ +
+                ": use member_layout='map'")
+        self.num_steps = 0
+        drops = [(n, m) for n, m in self.net.named_modules()
+                 if isinstance(m, MaskedDropout) and m.p > 0]
+        mask_shapes = None
+        avg = SwaState(params) if swa else None
+        gens = [run_gens[i] for i in order]
+        step = vmap(lambda p, b, masks, x: functional_call(
+            call, (p, b, masks), (x,)), randomness="error")
+        losses = []
+        for e in range(self.member_schedules.shape[1]):
+            batches, masks = [], {"net." + n + ".mask": [] for n, _ in drops}
+            for i, g in zip(order, gens):
+                bi = int(self.member_schedules[i, e])
+                batches.append(self._augmented(
+                    self.Xb_train[bi], self.yb_train[bi], g))
+                if drops and mask_shapes is None:
+                    mask_shapes = _dropout_shapes(self, drops,
+                                                  batches[-1][0])
+                for (n, m), shape in zip(drops, mask_shapes or ()):
+                    masks["net." + n + ".mask"].append(torch.rand(
+                        shape, generator=g, device=self.device) >= m.p)
+            X = torch.stack([b[0] for b in batches])
+            y = torch.stack([b[1] for b in batches])
+            masks = {k: torch.stack(v) for k, v in masks.items()}
+            self.optimizer.zero_grad(set_to_none=True)
+            with self.precision.tf32_scope(), autocast_in_vmap():
+                out = step(params, buffers, masks, X)
+                loss = torch.stack([self.criterion(out[j], y[j])
+                                    for j in range(len(order))])
+                loss.sum().backward()
+            if self.lrs is not None:
+                lr = self.lrs[min(self.num_steps, len(self.lrs) - 1)]
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+            self.optimizer.step()
+            self.num_steps += 1
+            losses.append(loss.detach())
+            if avg is not None and e >= swa_start:
+                avg.update(params)
+        with torch.no_grad():
+            if avg is not None:
+                for k, p in avg.mean().items():
+                    params[k].copy_(p)
+            stacked = {k[len("net."):]: v.detach()
+                       for k, v in {**params, **buffers}.items()}
+            states = {i: {k: stacked[k][j].clone() for k in keys}
+                      for j, i in enumerate(order)}
+        losses = torch.stack(losses, 1)      # (members, cycles)
+        return states, {i: losses[j] for j, i in enumerate(order)}
 
     def _gather_members(self, mesh, n_models: int, cycles: int,
                         states: Dict[int, State],

@@ -241,8 +241,11 @@ class BaseTrainer:
         self.metrics_log = kwargs.get("metrics_log")
         self.filename = kwargs.get("filename", "./model")
 
-    def _make_optimizer(self, optimizer) -> torch.optim.Optimizer:
-        params = self.net.parameters()
+    def _make_optimizer(self, optimizer, params=None
+                        ) -> torch.optim.Optimizer:
+        """The optimizer of the compiled spec over ``params`` (the net's
+        parameters by default), and the per-step LR schedule."""
+        params = self.net.parameters() if params is None else params
         self.lrs = None
         if optimizer is not None and not isinstance(optimizer, str):
             return optimizer(params)      # a given optimizer keeps its LR

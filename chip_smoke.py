@@ -211,12 +211,24 @@ Phases, one JSON line each (all before the last line):
     of its first step; a world of one on NCCL (the sharded predict and
     the rVAE: NCCL and the rank's card start up); the labeller's and the
     spatial-MLP kernels' launches a rank, each path's seconds, the busy
-    share of the card during the split config A fit.
+    share of the card during the split config A fit; config D's members
+    in the "vmap" layout on the member axis, held like the loop's against
+    one process's fits of that layout;
+31. ensemble_vmap_path: config D with ``member_layout="vmap"`` (every
+    member's step one ``torch.func.vmap`` over the stacked members): one
+    float32 cycle against three "map" runs (a priori bounds), 30 bf16
+    cycles with the augmentation against three "map" runs (within the
+    bounds of each, or the nearest within 3 times their own spread);
+    images/s, the peak memory of a fit above the resting allocation and
+    the card's busy share, each layout; the members fine-tuned from phase
+    10's net in the "vmap" layout, served by ``EnsemblePredictor`` and
+    ``ensemble_locate`` (one labeller launch, labels and sums equal to the
+    plain labeller's, its time).
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
 and the forward's with the ``served_from_jax`` ones, the labeller's with
-the ``stat_path``, ``graph_path``, ``remat_path`` and ``mesh_path``
-ones), and as the last line
+the ``stat_path``, ``graph_path``, ``remat_path``, ``mesh_path`` and
+``ensemble_vmap_path`` ones), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -527,6 +539,35 @@ TOL_MESH_DKL_REL = 1e-3   # losses: cuBLAS's batched GEMMs of a block
 # steps): 1e-2
 TOL_MESH_DRYRUN_REL = {"seg_loss": (1e-3, 1e-3), "rvae_loss": (1e-4, 1e-4),
                        "ens_loss": (1e-5, 1e-5), "dkl_loss": (1e-3, 1e-2)}
+# phase 31: config D's members in the "vmap" layout against the "map"
+# loop, the same members, schedules and draws. One float32 cycle (TF32
+# off), a priori: the first losses 1e-5 relative (the same function;
+# grouped convs and the elementwise BatchNorm sum in another order: 3e-7
+# on the CPU), the weights 2 * lr (Adam's first step moves a weight by lr
+# either way, whatever its gradient's rounding), the running statistics
+# 1e-4 of their scale (one update from batch statistics summed in another
+# order). 30 bf16 cycles with config D's augmentation: the bounds of phase
+# 29 (losses 1e-3 relative, weights 2 * lr a step, statistics 1e-2 of
+# their scale) against each of three "map" runs, or the nearest within 3
+# times their own spread (``hold_to_spread``). Two loop runs differ only
+# by the atomics of the upsampling's backward, from the first backward
+# on a few values (after one bf16 cycle they are bit for bit equal); the
+# vmap layout rounds every conv and BatchNorm in another order from its
+# first forward, and on an H100 80GB HBM3 (700 W) landed 2-5 times further
+# from the loop than two loop runs lie apart in float32 (10 and 30
+# cycles) and 6-25 times in bf16 (10 cycles; scripts/
+# ensemble_layout_spread.py), though its float32 and bf16 gradients lie
+# as close to a float64 step as the loop's (scripts/
+# ensemble_layout_gradients.py: medians 1.14e-4 and 1.32e-4 of scale in
+# float32). So two of the three loop runs take
+# their batches' frames in two other orders after the augmentation
+# (``frames_reordered``): the same function, its sums over the batch in
+# another order from the first step, as the vmap layout's are
+TOL_ENS_VMAP_F32 = {"loss_rel": 1e-5, "abs": 2 * 1e-3, "stats_rel": 1e-4}
+BUSY_CYCLES = 10
+TOL_ENS_VMAP_BF16 = {"loss_rel": TOL_REMAT_LOSS_REL,
+                     "abs": 2 * 1e-3 * ENS_CYCLES,
+                     "stats_rel": TOL_REMAT_STATS_REL}
 
 
 def check(cond, msg):
@@ -1357,6 +1398,27 @@ def timed(fn, device):
     end.record()
     torch.cuda.synchronize(device)
     return time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def timed_result(fn, device):
+    """(host seconds, result) of one call of ``fn``, from an idle card to
+    an idle card."""
+    import torch
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, result
+
+
+def frames_reordered(augment_fn, shift):
+    """``augment_fn``'s batch with its frames in reverse order, rolled by
+    ``shift``: the same training step, its sums over the batch taken in
+    another order."""
+    def reordered(g, X, y):
+        X, y = augment_fn(g, X, y)
+        return X.flip(0).roll(shift, 0), y.flip(0).roll(shift, 0)
+    return reordered
 
 
 @contextlib.contextmanager
@@ -3873,15 +3935,15 @@ def _mesh_ensemble(device, model_mesh, tmp, plain):
     imgs, masks, _ = make_lattice_stack(**ENS_DATA)
     aug = seg_augmentor(1, **AUG)
 
-    def fit(mesh, name):
+    def fit(mesh, name, layout="map", augment_fn=aug):
         et = EnsembleTrainer("Unet", 1, device=device)
         et.compile_ensemble_trainer(training_cycles=MESH_ENS_CYCLES,
                                     batch_size=ENS_BATCH, swa=True,
                                     filename=os.path.join(tmp, name),
-                                    mesh=mesh)
+                                    mesh=mesh, member_layout=layout)
         t0 = time.perf_counter()
         net, ens = et.train_ensemble_from_scratch(
-            imgs, masks, n_models=ENS_MODELS, augment_fn=aug)
+            imgs, masks, n_models=ENS_MODELS, augment_fn=augment_fn)
         torch.cuda.synchronize(device)
         return et, net, ens, time.perf_counter() - t0
 
@@ -3893,19 +3955,35 @@ def _mesh_ensemble(device, model_mesh, tmp, plain):
         return {"loss_rel": float(np.abs(la / lb - 1).max()), "abs": w}
 
     meshed = fit(model_mesh, "em")
-    check(len(meshed[2]) == ENS_MODELS, "members missing on this rank")
-    out = {"mesh": list(model_mesh.shape), "seconds": meshed[3],
-           "loss": list(meshed[0].loss_acc["train_loss"]),
-           "members": {i: {k: v.cpu() for k, v in s.items()}
-                       for i, s in meshed[2].items()}}
+    vmapped = fit(model_mesh, "ev", "vmap")
+    out = {"mesh": list(model_mesh.shape)}
+    for name, run in (("map", meshed), ("vmap", vmapped)):
+        check(len(run[2]) == ENS_MODELS, f"{name} members missing on this "
+              "rank")
+        out[name] = {"seconds": run[3],
+                     "loss": list(run[0].loss_acc["train_loss"]),
+                     "members": {i: {k: v.cpu() for k, v in s.items()}
+                                 for i, s in run[2].items()}}
     if plain:
-        plains = [fit(False, f"ep{i}") for i in range(SPREAD_FITS)]
+        # each layout against one process's fits of the same layout (phase
+        # 31 holds the layouts to each other). The member axis computes a
+        # loop's member as one process does; a vmap over a rank's 2
+        # members runs grouped convs of 2 groups, not 4, which cuDNN may
+        # round in another order, so two of the vmap's plain fits sum
+        # their batches in other orders too (``frames_reordered``)
         bounds = {"loss_rel": TOL_REMAT_LOSS_REL,
                   "abs": 2 * 1e-3 * MESH_ENS_CYCLES}
-        out.update(plain_seconds=plains[0][3], bounds=bounds,
-                   mesh_vs_plain=hold_to_spread(
-                       "config D on the member axis", meshed, plains, diff,
-                       bounds, bounds))
+        out["bounds"] = bounds
+        for layout, run, key in (("map", meshed, "mesh_vs_plain"),
+                                 ("vmap", vmapped, "vmap_mesh_vs_plain")):
+            plains = [fit(False, f"ep{layout}{i}", layout,
+                          frames_reordered(aug, i) if layout == "vmap" and
+                          i else aug)
+                      for i in range(SPREAD_FITS)]
+            out[key] = hold_to_spread(
+                f"config D's {layout} layout on the member axis", run,
+                plains, diff, bounds, bounds)
+            out[layout]["plain_seconds"] = plains[0][3]
     net, ens = meshed[1], meshed[2]
     p = EnsemblePredictor(net, ens, nb_classes=1, verbose=0,
                           mesh=model_mesh)
@@ -4013,17 +4091,21 @@ def _ranks_agree(ranks):
               f"rank {r['rank']}'s config A fit differs from rank 0's")
         check(r["vae"]["mesh"]["elbo"] == r0["vae"]["mesh"]["elbo"],
               f"rank {r['rank']}'s ELBOs differ from rank 0's")
-        check(r["ens"]["loss"] == r0["ens"]["loss"] and
-              all(torch.equal(v, r0["ens"]["members"][i][k])
-                  for i, s in r["ens"]["members"].items()
-                  for k, v in s.items()),
-              f"rank {r['rank']}'s members differ from rank 0's")
+        for layout in ("map", "vmap"):
+            got, want = r["ens"][layout], r0["ens"][layout]
+            check(got["loss"] == want["loss"] and
+                  all(torch.equal(v, want["members"][i][k])
+                      for i, s in got["members"].items()
+                      for k, v in s.items()),
+                  f"rank {r['rank']}'s {layout} members differ from rank "
+                  "0's")
         check(r["dkl"]["loss"] == r0["dkl"]["loss"],
               f"rank {r['rank']}'s DKL losses differ from rank 0's")
         check(r["dryrun"] == r0["dryrun"],
               f"rank {r['rank']}'s dryrun differs from rank 0's")
     for r in ranks:
-        del r["seg"]["state"], r["ens"]["members"]
+        del r["seg"]["state"], r["ens"]["map"]["members"], \
+            r["ens"]["vmap"]["members"]
 
 
 def phase_mesh_path(device):
@@ -4101,6 +4183,169 @@ def phase_mesh_path(device):
                ("max_abs_err_bwd", MLP_NAMES)))]
     return lab, mlp[0], mlp[1]
 
+def _ens_diff(a, b):
+    """How far two config D fits ((trainer, net, members)) are apart: the
+    members' mean losses of each cycle (relative), their weights
+    (absolute) and running statistics (of their scale)."""
+    la, lb = (np.asarray(e[0].loss_acc["train_loss"]) for e in (a, b))
+    w, stats = 0.0, 0.0
+    for i, sb in b[2].items():
+        for k, v in sb.items():
+            d = float((a[2][i][k].float() - v.float()).abs().max())
+            if ".running_" in k:
+                stats = max(stats, d / float(v.abs().max()))
+            elif v.is_floating_point():
+                w = max(w, d)
+    return {"loss_rel": float(np.abs(la / lb - 1).max()), "abs": w,
+            "stats_rel": stats}
+
+
+def autocast_in_vmap_dtypes(device):
+    """{op: (dtype under autocast, dtype vmapped under autocast with
+    ``autocast_in_vmap``)} for ops of each of autocast's lists on the card
+    (lower precision, float32, neither)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.func import vmap
+    from atomai_tpu_torch.nets.functional_bn import autocast_in_vmap
+    x = torch.randn(2, 3, 4, 8, 8, device=device)
+    w = torch.randn(2, 5, 4, 3, 3, device=device)
+    ops = {"conv2d": lambda a, b: F.conv2d(a, b, padding=1),
+           "interpolate": lambda a, b: F.interpolate(
+               F.conv2d(a, b), scale_factor=2, mode="bilinear"),
+           "softmax": lambda a, b: torch.softmax(F.conv2d(a, b), 1),
+           "leaky_relu": lambda a, b: F.leaky_relu(F.conv2d(a, b))}
+    out = {}
+    with torch.autocast(device.type, dtype=torch.bfloat16):
+        for name, op in ops.items():
+            with autocast_in_vmap():
+                vmapped = vmap(op)(x, w).dtype
+            out[name] = (str(op(x[0], w[0]).dtype), str(vmapped))
+    return out
+
+
+def phase_ensemble_vmap_path(device, basenet):
+    """Config D with ``member_layout="vmap"`` held to the "map" loop,
+    timed both ways, then served: ``basenet`` (phase 10's trained Unet) is
+    the baseline the served members are fine-tuned from."""
+    import torch
+    from scipy.spatial import cKDTree
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.ops import cc_kernel
+    from atomai_tpu_torch.predictors import EnsemblePredictor, ensemble_locate
+    from atomai_tpu_torch.trainers import EnsembleTrainer
+    from atomai_tpu_torch.transforms import seg_augmentor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs, masks, true_xy = make_lattice_stack(**ENS_DATA)
+    n, size = ENS_DATA["n_images"], ENS_DATA["size"]
+    aug = seg_augmentor(1, **AUG)
+    dtypes = autocast_in_vmap_dtypes(device)
+    check(all(a == b for a, b in dtypes.values()),
+          f"autocast inside the vmap differs from autocast: {dtypes}")
+    out = {"frames": list(imgs.shape), "members": ENS_MODELS,
+           "cycles": ENS_CYCLES, "batch": ENS_BATCH,
+           "autocast_dtypes": dtypes}
+    with tempfile.TemporaryDirectory() as tmp, quiet():
+        def fit(layout, cycles=ENS_CYCLES, f32=False, measure=None,
+                augment_fn=aug):
+            """(trainer, net, members) of a config D fit from scratch;
+            with ``measure`` (a dict), its seconds, images/s and peak
+            bytes above the resting allocation go there."""
+            et = EnsembleTrainer("Unet", 1, device=device)
+            if f32:
+                et.precision = Precision.full()
+            et.compile_ensemble_trainer(
+                training_cycles=cycles, batch_size=ENS_BATCH, swa=not f32,
+                member_layout=layout, filename=os.path.join(tmp, layout))
+            run = lambda: et.train_ensemble_from_scratch(   # noqa: E731
+                imgs, masks, n_models=ENS_MODELS,
+                augment_fn=None if f32 else augment_fn)
+            if measure is None:
+                return (et,) + run()
+            torch.cuda.synchronize(device)
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            seconds, (net, ens) = timed_result(run, device)
+            measure.update(
+                seconds=seconds,
+                images_per_s=cycles * ENS_BATCH * ENS_MODELS / seconds,
+                fit_peak_bytes_above_resting=torch.cuda.max_memory_allocated(
+                    device) - base)
+            return et, net, ens
+
+        # one float32 cycle: a priori bounds against every "map" run
+        f32_plains = [fit("map", 1, f32=True) for _ in range(SPREAD_FITS)]
+        out["f32_one_cycle"] = hold_to_spread(
+            "config D's vmap layout, one float32 cycle",
+            fit("vmap", 1, f32=True), f32_plains, _ens_diff,
+            TOL_ENS_VMAP_F32, ())
+        # 30 bf16 cycles with the augmentation (the second run of each
+        # layout warm, and timed), then the card's busy share over 10
+        # cycles of each
+        speed = {"map": {}, "vmap": {}}
+        plains = [fit("map", augment_fn=frames_reordered(aug, 0)),
+                  fit("map", measure=speed["map"]),
+                  fit("map", augment_fn=frames_reordered(
+                      aug, ENS_BATCH // 2))]
+        vmapped = fit("vmap")
+        fit("vmap", measure=speed["vmap"])
+        for layout, measured in speed.items():
+            measured["busy_share_10_cycles"] = busy_share(
+                lambda: fit(layout, BUSY_CYCLES), device)
+        out["bf16_30_cycles"] = hold_to_spread(
+            "config D's vmap layout, 30 bf16 cycles", vmapped, plains,
+            _ens_diff, TOL_ENS_VMAP_BF16, TOL_ENS_VMAP_BF16)
+        out["speed"] = speed
+        out["loss_first_last"] = [vmapped[0].loss_acc["train_loss"][i]
+                                  for i in (0, -1)]
+        # served: members fine-tuned from phase 10's net in the vmap layout
+        et = EnsembleTrainer("Unet", 1, device=device)
+        et.compile_ensemble_trainer(batch_size=ENS_BATCH, swa=True,
+                                    member_layout="vmap",
+                                    filename=os.path.join(tmp, "served"))
+        net, ens = et.train_ensemble_from_baseline(
+            imgs, masks, basemodel=basenet, n_models=ENS_MODELS,
+            training_cycles_ensemble=ENS_CYCLES, augment_fn=aug)
+    check(bool(np.isfinite(et.loss_acc["train_loss"]).all()),
+          "non-finite losses of the vmap fine-tune")
+    pred = EnsemblePredictor(net, ens, nb_classes=1, verbose=0)
+    maps = torch.from_numpy(pred.ensemble_forward(
+        pred.preprocess(imgs), num_batches=n)).to(device)
+    check(bool(torch.isfinite(maps).all()) and tuple(maps.shape) ==
+          (ENS_MODELS, n, size, size, 1), f"member maps {maps.shape}")
+    cc_kernel.LAUNCHES = 0
+    c_mean, _ = ensemble_locate(maps, eps=ENS_EPS,
+                                min_samples=ENS_MIN_SAMPLES)
+    torch.cuda.synchronize(device)
+    launches = cc_kernel.LAUNCHES
+    check(launches == 1, f"ensemble_locate launched the labeller "
+          f"{launches} times")
+    errs, found = [], 0
+    for i in range(n):
+        found += len(c_mean[i])
+        if len(c_mean[i]):
+            errs.append(cKDTree(true_xy[i] + MASK_OFFSET).query(
+                c_mean[i][:, :2])[0])
+    lab = labeller_on(maps.reshape((-1,) + tuple(maps.shape[2:])), device)
+    locate_ms = cuda_ms(lambda: ensemble_locate(
+        maps, eps=ENS_EPS, min_samples=ENS_MIN_SAMPLES), 3, device)
+    out.update(tolerances={"f32": TOL_ENS_VMAP_F32,
+                           "bf16": TOL_ENS_VMAP_BF16,
+                           "noise_factor": REMAT_NOISE_FACTOR},
+               served={"loss_first_last": [et.loss_acc["train_loss"][i]
+                                           for i in (0, -1)],
+                       "member_maps": list(maps.shape), "launches": launches,
+                       "clusters": found, "median_err_px": float(np.median(
+                           np.concatenate(errs))) if errs else None,
+                       "locate_ms": locate_ms, "labeller": lab})
+    emit("ensemble_vmap_path", **out)
+    return {"launches": launches, "ms": lab["kernel_ms"],
+            "plain_ms": lab["kernel_plain_ms"], "bound_ms": lab["bound_ms"],
+            "bound_by": lab["bound_by"],
+            "share_of_bound": lab["share_of_bound"],
+            "max_abs_err": lab["max_abs_err"], "blobs": lab["blobs"],
+            "tiled_mask": lab["tiled_mask"], "locate_ms": locate_ms}
+
 
 def main():
     import torch
@@ -4146,6 +4391,8 @@ def main():
      kernels[2]["remat_path"]) = phase_remat_path(device)
     (kernels[0]["mesh_path"], kernels[1]["mesh_path"],
      kernels[2]["mesh_path"]) = phase_mesh_path(device)
+    kernels[0]["ensemble_vmap_path"] = phase_ensemble_vmap_path(device,
+                                                                trained_net)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

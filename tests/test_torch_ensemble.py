@@ -223,8 +223,10 @@ def test_swag_samples_share_batch_stats_and_follow_the_moments(tmp_path):
 
 def test_layouts_meshes_and_remat():
     et = _seg_trainer()
-    with pytest.raises(NotImplementedError, match="Queue 1 #23"):
-        et.compile_ensemble_trainer(member_layout="vmap")
+    et.compile_ensemble_trainer(member_layout="vmap")
+    assert et._member_layout() == "vmap"
+    et.compile_ensemble_trainer()
+    assert et._member_layout() == "map"      # "auto": the loop
     with pytest.raises(ValueError, match="member_layout"):
         et.compile_ensemble_trainer(member_layout="pmap")
     et.compile_ensemble_trainer(mesh=object())

@@ -139,8 +139,9 @@ def _lattice():
 
 
 def _ensembles(tmp, mesh=None):
-    """From scratch (4 members) and from a baseline (2 members); the
-    predictor of the first."""
+    """From scratch (4 members, in the "map" and the "vmap" member
+    layout) and from a baseline (2 members); the predictor of the
+    first."""
     imgs, masks = _lattice()
     out = {}
     with _quiet():
@@ -151,6 +152,14 @@ def _ensembles(tmp, mesh=None):
         net, ens = et.train_ensemble_from_scratch(imgs, masks, n_models=4)
         out["scratch"] = (ens, list(et.loss_acc["train_loss"]),
                           M.axis_size(et._resolve_mesh(4), M.MODEL_AXIS))
+        vt = EnsembleTrainer("Unet", nb_classes=1, seed=3, **SMALL)
+        vt.compile_ensemble_trainer(training_cycles=4, batch_size=4,
+                                    filename=os.path.join(tmp, "e3"),
+                                    mesh=mesh, member_layout="vmap")
+        _, vens = vt.train_ensemble_from_scratch(imgs, masks, n_models=4)
+        out["scratch_vmap"] = (vens, list(vt.loss_acc["train_loss"]),
+                               M.axis_size(vt._resolve_mesh(4),
+                                           M.MODEL_AXIS))
         p = EnsemblePredictor(net, ens, nb_classes=1, verbose=0, mesh=mesh)
         out["predict"] = p.predict(imgs, num_batches=1) + (
             M.axis_size(p._mesh, M.MODEL_AXIS), len(p.members))
@@ -408,6 +417,29 @@ def test_ensemble_members_over_the_model_axis(setup, one_ensembles):
             for k, w in want[i].items():
                 np.testing.assert_allclose(got[i][k], w, atol=TOL_MEMBER,
                                            rtol=0, err_msg=f"{i}.{k}")
+        np.testing.assert_allclose(loss, want_loss, rtol=TOL_MEMBER)
+
+
+def test_vmap_ensemble_members_over_the_model_axis(setup, one_ensembles):
+    """member_layout="vmap" from scratch: each rank vmaps its block of 2
+    members; every rank returns every member, each within 1e-6 of the
+    one-process vmap's member i (a vmap over 2 members against one over
+    4) and within the layouts' bounds of the one-process loop's
+    (`tests/test_torch_ensemble_vmap.py`: 2 * lr * steps, running
+    variances 1e-2 relative)."""
+    from chip_smoke import failures, state_errors
+    want, want_loss = one_ensembles["scratch_vmap"][:2]
+    loop = one_ensembles["scratch"][0]
+    for r in setup["ranks"]:
+        got, loss, n_axis = r["ensembles"]["scratch_vmap"]
+        assert n_axis == 2 and sorted(got) == sorted(want) == [0, 1, 2, 3]
+        for i in want:
+            for k, w in want[i].items():
+                np.testing.assert_allclose(got[i][k], w, atol=TOL_MEMBER,
+                                           rtol=0, err_msg=f"{i}.{k}")
+            errs, tols = {}, {}
+            state_errors(got[i], loop[i], 2 * 1e-3 * 4, errs, tols)
+            assert not failures(errs, tols), i
         np.testing.assert_allclose(loss, want_loss, rtol=TOL_MEMBER)
 
 

@@ -130,6 +130,27 @@ def test_upsample_block_matches_flax(mode, shape):
     np.testing.assert_allclose(got, y, atol=ATOL)
 
 
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("shape", [(2, 8, 6), (1, 13, 3)])
+def test_upsample_block_1d_matches_flax(mode, shape):
+    """1D input: nearest interpolation whatever the mode, then a 1x1
+    Conv1d (`atomai_tpu/nets/blocks.py:150-161`)."""
+    x = np.random.RandomState(6).randn(*shape).astype(np.float32)
+    jblock = JaxUpsampleBlock(1, 4, mode=mode)
+    params = jax.device_get(jblock.init(jax.random.key(0),
+                                        jnp.asarray(x)))["params"]
+    y = np.asarray(jblock.apply({"params": params}, jnp.asarray(x)))
+    block = UpsampleBlock(1, shape[-1], 4, mode=mode)
+    assert isinstance(block.conv, torch.nn.Conv1d)
+    conv = conversion._conv(params["Conv_0"], "UpsampleBlock", rank=3)
+    block.load_state_dict({f"conv.{k}": t for k, t in conv.items()})
+    with torch.no_grad():
+        got = block(torch.from_numpy(x.transpose(0, 2, 1).copy()))
+    got = got.permute(0, 2, 1).numpy()
+    assert got.shape == y.shape == (shape[0], 2 * shape[1], 4)
+    np.testing.assert_allclose(got, y, atol=ATOL)
+
+
 @pytest.fixture(scope="module")
 def small_unet_variables():
     x = np.zeros((1, 16, 16, 1), np.float32)
