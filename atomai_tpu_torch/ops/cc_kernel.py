@@ -30,11 +30,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..core import profiling
 from . import _build
-
-# kernel launches since import (or since a caller reset it); the wrappers
-# add one per call that launches the kernel, and only there
-LAUNCHES = 0
 
 TILE_H = 32
 TILE_W = 64
@@ -128,8 +125,7 @@ def launch(mask: torch.Tensor, band: int = 0, moments: bool = True
     """Launches the kernel on a contiguous CUDA mask without waiting for
     it. With ``moments``, the K components are listed in no particular
     order; ``band`` > 0 sums
-    band-local rows ``row % band``."""
-    global LAUNCHES
+    band-local rows ``row % band``. Counts ``labeller.launches``."""
     _check_cuda_mask(mask)
     if band < 0:
         raise ValueError(f"band must be >= 0, got {band}")
@@ -164,7 +160,7 @@ def launch(mask: torch.Tensor, band: int = 0, moments: bool = True
     if err != 0:
         raise RuntimeError("cc_label kernel launch failed: "
                            + lib.cc_error_string(err).decode())
-    LAUNCHES += 1
+    profiling.count("labeller.launches")
     return Launch(labels, n_blobs, roots, blob_slot, sums)
 
 
@@ -181,7 +177,9 @@ def labels_and_sums_cuda(mask: torch.Tensor, band: int = 0
     :func:`launch`. Reads the number of components back to the host (one
     synchronisation)."""
     out = launch(mask, band, moments=True)
-    slots = out.blob_slot[:int(out.n_blobs)].long()
+    with profiling.span("labeller.fetch"):
+        n_blobs = int(out.n_blobs)
+    slots = out.blob_slot[:n_blobs].long()
     roots, order = torch.sort(out.roots[slots])   # int32 keys: 4 passes
     sums = out.sums[:, slots[order]]
     return out.labels, (roots.long(), sums[0], sums[1], sums[2])

@@ -36,12 +36,8 @@ from typing import Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core import profiling
 from . import _build
-
-# launches since import (or since a caller reset them); each wrapper adds
-# one per call that launches its kernel, and only there
-FORWARD_LAUNCHES = 0
-BACKWARD_LAUNCHES = 0
 
 _SOURCE = "spatial_mlp.cu"
 _lib = None
@@ -167,8 +163,7 @@ def _raise_on(err: int, what: str) -> None:
 
 def spatial_mlp_forward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
     """Launches the forward kernel on contiguous float32 CUDA tensors;
-    returns y (B, 1, n)."""
-    global FORWARD_LAUNCHES
+    returns y (B, 1, n). Counts ``spatial_mlp.forward_launches``."""
     args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
     B, n, H, L = _dims(*args)
     _check_cuda(args, B, H)
@@ -181,15 +176,15 @@ def spatial_mlp_forward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
                                       y.data_ptr(), ws.data_ptr(), nbytes,
                                       B, n, H, L, stream)
     _raise_on(err, "forward launch")
-    FORWARD_LAUNCHES += 1
+    profiling.count("spatial_mlp.forward_launches")
     return y
 
 
 def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     """Launches the backward kernel (and its reduction); returns the
     gradients of the eight inputs (dx, dzb, dWc, dbc, dWs, dbs, dWo, dbo),
-    float32, with the inputs' shapes."""
-    global BACKWARD_LAUNCHES
+    float32, with the inputs' shapes. Counts
+    ``spatial_mlp.backward_launches``."""
     args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
     B, n, H, L = _dims(*args)
     if tuple(gy.shape) != (B, 1, n):
@@ -209,7 +204,7 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
             dzb.data_ptr(), flat.data_ptr(), ws.data_ptr(), nbytes,
             B, n, H, L, stream)
     _raise_on(err, "backward launch")
-    BACKWARD_LAUNCHES += 1
+    profiling.count("spatial_mlp.backward_launches")
     dWs, dbs, dWo, dbo, dWc, dbc = torch.split(flat, sizes)
     return (dx, dzb, dWc.view(2, H), dbc.view(1, H), dWs.view(L, H, H),
             dbs.view(L, H), dWo.view(H, 1), dbo.view(1, 1))

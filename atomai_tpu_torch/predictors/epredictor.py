@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core import profiling
 from ..core.mesh import (MODEL_AXIS, block, gather_blocks,
                          resolve_model_mesh)
 from ..nets.ed import SignalED
@@ -140,44 +141,48 @@ class EnsemblePredictor(BasePredictor):
     def preprocess(self, data, norm: bool = True) -> torch.Tensor:
         """Images -> NHWC, spectra -> (n, length), float32 on the device,
         min-max normalised over the whole set unless ``norm=False``."""
-        data = np.asarray(data)
-        if self.data_type == "image":
-            if data.ndim == 2:
-                data = data[None]
-            data = format_image(data, norm)
-        else:
-            if data.ndim == 1:
-                data = data[None]
-            data = format_spectra(data, norm)
-        return torch.from_numpy(data).to(self.device)
+        with profiling.span("predictor.preprocess"):
+            data = np.asarray(data)
+            if self.data_type == "image":
+                if data.ndim == 2:
+                    data = data[None]
+                data = format_image(data, norm)
+            else:
+                if data.ndim == 1:
+                    data = data[None]
+                data = format_spectra(data, norm)
+            data = torch.from_numpy(data)
+            with profiling.span("predictor.upload"):
+                return data.to(self.device)
 
     def _member_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """(n_models, n, ...) float32 outputs of a chunk, channel-last,
         after the logits' activation (every rank's block of members)."""
-        image_in = self.data_type == "image" and self._channels_first
-        if image_in:
-            x = x.permute(0, 3, 1, 2)
-        with self.precision.scope(self.device):
-            if self.member_layout == "vmap":
-                from torch.func import functional_call, vmap
-                with autocast_in_vmap():
-                    out = vmap(lambda p, b, xx: functional_call(
-                        self._base, (p, b), (xx,)), in_dims=(0, 0, None))(
-                            *self._stacked, x)
-            else:
-                out = torch.stack([m(x) for m in self.members])
-        out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)
-        if self._channels_first and out.ndim == 5:
-            out = out.permute(0, 1, 3, 4, 2)
-        nb = self.nb_classes or 0
-        if self.logits:
-            if nb > 1:
-                out = torch.softmax(out, dim=-1)
-            elif nb == 1:
-                out = torch.sigmoid(out)
-        elif nb > 1:
-            out = torch.exp(out)
-        return out
+        with profiling.span("predictor.forward"):
+            image_in = self.data_type == "image" and self._channels_first
+            if image_in:
+                x = x.permute(0, 3, 1, 2)
+            with self.precision.scope(self.device):
+                if self.member_layout == "vmap":
+                    from torch.func import functional_call, vmap
+                    with autocast_in_vmap():
+                        out = vmap(lambda p, b, xx: functional_call(
+                            self._base, (p, b), (xx,)),
+                            in_dims=(0, 0, None))(*self._stacked, x)
+                else:
+                    out = torch.stack([m(x) for m in self.members])
+            out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)
+            if self._channels_first and out.ndim == 5:
+                out = out.permute(0, 1, 3, 4, 2)
+            nb = self.nb_classes or 0
+            if self.logits:
+                if nb > 1:
+                    out = torch.softmax(out, dim=-1)
+                elif nb == 1:
+                    out = torch.sigmoid(out)
+            elif nb > 1:
+                out = torch.exp(out)
+            return out
 
     @torch.inference_mode()
     def ensemble_forward(self, data, out_shape=None, num_batches: int = 1
@@ -185,16 +190,18 @@ class EnsemblePredictor(BasePredictor):
         """Every member's prediction of ``data`` (preprocessed input), as
         numpy (n_models, n, ...), reshaped per member to ``out_shape`` when
         given."""
-        x = torch.as_tensor(data).to(self.device)
-        bsz = max(1, len(x) // max(1, num_batches))
-        preds = torch.cat([self._member_outputs(x[s:s + bsz])
-                           for s in range(0, len(x), bsz)], dim=1)
-        preds = preds.cpu().numpy()
-        if preds.ndim == 3:
-            preds = preds[..., None]
-        if out_shape is not None:
-            preds = preds.reshape((self.n_models, *out_shape))
-        return preds
+        with profiling.span("predictor.ensemble_forward"):
+            x = torch.as_tensor(data).to(self.device)
+            bsz = max(1, len(x) // max(1, num_batches))
+            preds = torch.cat([self._member_outputs(x[s:s + bsz])
+                               for s in range(0, len(x), bsz)], dim=1)
+            with profiling.span("predictor.fetch"):
+                preds = preds.cpu().numpy()
+            if preds.ndim == 3:
+                preds = preds[..., None]
+            if out_shape is not None:
+                preds = preds.reshape((self.n_models, *out_shape))
+            return preds
 
     def ensemble_forward_(self, data, out_shape=None
                           ) -> Tuple[np.ndarray, np.ndarray]:
@@ -224,8 +231,9 @@ class EnsemblePredictor(BasePredictor):
             preds = self._member_outputs(chunk)
             means.append(preds.mean(0))
             variances.append(preds.var(0, unbiased=False))
-        mean = torch.cat(means).cpu().numpy()
-        var = torch.cat(variances).cpu().numpy()
+        mean, var = torch.cat(means), torch.cat(variances)
+        with profiling.span("predictor.fetch"):
+            mean, var = mean.cpu().numpy(), var.cpu().numpy()
         return (mean.reshape(self.output_shape),
                 var.reshape(self.output_shape))
 
@@ -236,16 +244,17 @@ class EnsemblePredictor(BasePredictor):
         if format_out not in ("channel_first", "channel_last"):
             raise ValueError(
                 "Specify channel_last or channel_first output format")
-        data = self.preprocess(data, norm)
-        if self._user_output_shape:
-            self.output_shape = self._user_output_shape
-        else:
-            self._set_output_shape(data)
-        mean, var = self.ensemble_batch_predict(data, num_batches)
-        if format_out == "channel_first":
-            axes = (0, mean.ndim - 1, *range(1, mean.ndim - 1))
-            mean, var = mean.transpose(axes), var.transpose(axes)
-        return mean, var
+        with profiling.span("predictor.predict"):
+            data = self.preprocess(data, norm)
+            if self._user_output_shape:
+                self.output_shape = self._user_output_shape
+            else:
+                self._set_output_shape(data)
+            mean, var = self.ensemble_batch_predict(data, num_batches)
+            if format_out == "channel_first":
+                axes = (0, mean.ndim - 1, *range(1, mean.ndim - 1))
+                mean, var = mean.transpose(axes), var.transpose(axes)
+            return mean, var
 
 
 def ensemble_locate(nn_output_ensemble: Union[np.ndarray, torch.Tensor],
@@ -263,16 +272,17 @@ def ensemble_locate(nn_output_ensemble: Union[np.ndarray, torch.Tensor],
     thresh = kwargs.get("threshold", 0.5)
     min_samples = kwargs.get("min_samples", 10)
     n_models, n_images = nn_output_ensemble.shape[:2]
-    flat = nn_output_ensemble.reshape(
-        (n_models * n_images,) + tuple(nn_output_ensemble.shape[2:]))
-    all_coords = Locator(thresh, device=kwargs.get("device", "cuda")).run(
-        flat)
-    coord_mean_all, coord_var_all = {}, {}
-    for i in range(n_images):
-        coordinates = {m: all_coords[m * n_images + i]
-                       for m in range(n_models)}
-        _, coord_mean, coord_var = cluster_coord(coordinates, eps,
-                                                 min_samples)
-        coord_mean_all[i] = coord_mean
-        coord_var_all[i] = coord_var
+    with profiling.span("locator.ensemble_locate"):
+        flat = nn_output_ensemble.reshape(
+            (n_models * n_images,) + tuple(nn_output_ensemble.shape[2:]))
+        all_coords = Locator(thresh,
+                             device=kwargs.get("device", "cuda")).run(flat)
+        coord_mean_all, coord_var_all = {}, {}
+        for i in range(n_images):
+            coordinates = {m: all_coords[m * n_images + i]
+                           for m in range(n_models)}
+            _, coord_mean, coord_var = cluster_coord(coordinates, eps,
+                                                     min_samples)
+            coord_mean_all[i] = coord_mean
+            coord_var_all[i] = coord_var
     return coord_mean_all, coord_var_all

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core import profiling
 from ..core.device import resolve_device
 from ..core.dtypes import default_precision
 from ..core.mesh import (DATA_AXIS, axis_size, gather_blocks,
@@ -65,8 +66,10 @@ class BasePredictor:
 
     def preprocess(self, data) -> torch.Tensor:
         """``data`` as a float32 tensor on the model's device."""
-        return torch.as_tensor(np.asarray(data, np.float32),
-                               device=self.device)
+        with profiling.span("predictor.preprocess"):
+            data = np.asarray(data, np.float32)
+            with profiling.span("predictor.upload"):
+                return torch.as_tensor(data, device=self.device)
 
     def forward_(self, x: torch.Tensor) -> torch.Tensor:
         """One forward pass of a batch (NCHW for images); under a data mesh
@@ -88,6 +91,11 @@ class BasePredictor:
         """Forward of ``x`` in ``num_batches`` chunks plus a remainder
         chunk (`atomai_tpu/predictors/predictor.py:194-219`); the result
         stays on the device."""
+        with profiling.span("predictor.forward"):
+            return self._batch_forward(x, num_batches)
+
+    def _batch_forward(self, x: torch.Tensor, num_batches: int
+                       ) -> torch.Tensor:
         batch_size = len(x) // num_batches
         if batch_size < 1:
             num_batches, batch_size = 1, len(x)
@@ -150,23 +158,25 @@ class SegPredictor(BasePredictor):
         """(N?, H, W[, 1]) -> padded NHWC float32 tensor on the device,
         min-max normalised over the whole stack
         (`atomai_tpu/predictors/predictor.py:277-294`)."""
-        image_data = np.asarray(image_data)
-        if image_data.ndim == 2:
-            image_data = image_data[None, ...]
-        elif image_data.ndim == 4:
-            if image_data.shape[-1] == 1:
-                image_data = image_data[..., 0]
-            elif image_data.shape[1] == 1:
-                image_data = image_data[:, 0, ...]
-        if self.resize is not None:
-            image_data = img_resize(image_data, self.resize)
-        image_data = img_pad(image_data, self.downsampling)
-        x = torch.from_numpy(format_image(image_data, norm=False)).to(
-            self.device)
-        if norm:
-            lo = x.min()
-            x = (x - lo) / torch.clamp(x.max() - lo, min=1e-12)
-        return x
+        with profiling.span("predictor.preprocess"):
+            image_data = np.asarray(image_data)
+            if image_data.ndim == 2:
+                image_data = image_data[None, ...]
+            elif image_data.ndim == 4:
+                if image_data.shape[-1] == 1:
+                    image_data = image_data[..., 0]
+                elif image_data.shape[1] == 1:
+                    image_data = image_data[:, 0, ...]
+            if self.resize is not None:
+                image_data = img_resize(image_data, self.resize)
+            image_data = img_pad(image_data, self.downsampling)
+            x = torch.from_numpy(format_image(image_data, norm=False))
+            with profiling.span("predictor.upload"):
+                x = x.to(self.device)
+            if norm:
+                lo = x.min()
+                x = (x - lo) / torch.clamp(x.max() - lo, min=1e-12)
+            return x
 
     def _num_batches(self, n: int, h: int, w: int) -> int:
         # chunks of ~256 MB of activations, never more chunks than frames
@@ -182,13 +192,15 @@ class SegPredictor(BasePredictor):
         n, h, w = x.shape[:3]
         num_batches = kwargs.get("num_batches") or \
             self._num_batches(n, h, w)
-        y = self.batch_forward(x.permute(0, 3, 1, 2), num_batches).float()
-        if self.logits:
-            y = torch.softmax(y, dim=1) if self.nb_classes > 1 \
-                else torch.sigmoid(y)
-        elif self.nb_classes > 1:
-            y = torch.exp(y)
-        y = y.permute(0, 2, 3, 1).contiguous()
+        with profiling.span("predictor.forward"):
+            y = self._batch_forward(x.permute(0, 3, 1, 2),
+                                    num_batches).float()
+            if self.logits:
+                y = torch.softmax(y, dim=1) if self.nb_classes > 1 \
+                    else torch.sigmoid(y)
+            elif self.nb_classes > 1:
+                y = torch.exp(y)
+            y = y.permute(0, 2, 3, 1).contiguous()
         return (y, x) if return_image else y
 
     def predict(self, image_data, return_image: bool = False, **kwargs):
@@ -198,26 +210,32 @@ class SegPredictor(BasePredictor):
         if return_image:
             y, x = self.predict_device(image_data, return_image=True,
                                        **kwargs)
-            return x.cpu().numpy(), y.cpu().numpy()
-        return self.predict_device(image_data, **kwargs).cpu().numpy()
+            with profiling.span("predictor.fetch"):
+                return x.cpu().numpy(), y.cpu().numpy()
+        y = self.predict_device(image_data, **kwargs)
+        with profiling.span("predictor.fetch"):
+            return y.cpu().numpy()
 
     def run(self, image_data, compute_coords: bool = True, **kwargs):
         """Predict + locate: (NHWC maps as numpy, coordinates dict)."""
-        start_time = time.time()
-        if not compute_coords:
-            return self.predict(image_data, **kwargs)
-        y, x = self.predict_device(image_data, return_image=True, **kwargs)
-        thresh = kwargs.get("thresh", self.thresh)
-        coordinates = Locator(thresh, refine=self.refine, d=self.d).run(y, x)
-        decoded_imgs = y.cpu().numpy()
-        if self.verbose:
-            n_images_str = " image was " if decoded_imgs.shape[0] == 1 \
-                else " images were "
-            print("\n" + str(decoded_imgs.shape[0]) + n_images_str +
-                  "decoded in approximately " +
-                  str(np.around(time.time() - start_time, decimals=4)) +
-                  " seconds")
-        return decoded_imgs, coordinates
+        with profiling.span("predictor.run"):
+            start_time = time.time()
+            if not compute_coords:
+                return self.predict(image_data, **kwargs)
+            y, x = self.predict_device(image_data, return_image=True, **kwargs)
+            thresh = kwargs.get("thresh", self.thresh)
+            coordinates = Locator(thresh, refine=self.refine,
+                                  d=self.d).run(y, x)
+            with profiling.span("predictor.fetch"):
+                decoded_imgs = y.cpu().numpy()
+            if self.verbose:
+                n_images_str = " image was " if decoded_imgs.shape[0] == 1 \
+                    else " images were "
+                print("\n" + str(decoded_imgs.shape[0]) + n_images_str +
+                      "decoded in approximately " +
+                      str(np.around(time.time() - start_time, decimals=4)) +
+                      " seconds")
+            return decoded_imgs, coordinates
 
 
 class ImSpecPredictor(BasePredictor):
@@ -363,33 +381,37 @@ class Locator:
         """Coordinates for every frame: {frame: (n, 3) float64
         [row, col, class]}, classes in channel order. With ``refine``, the
         images (N, H, W[, 1]) follow ``nn_output``."""
-        if not isinstance(nn_output, torch.Tensor):
-            nn_output = torch.from_numpy(np.asarray(
-                nn_output, np.float32)).to(resolve_device(self.device))
-        if nn_output.shape[-1] == 1 and self.dim_order == "channel_last":
-            n_cls = 1  # the background channel preprocess adds is unread
-        else:
-            nn_output = self.preprocess(nn_output)
-            n_cls = nn_output.shape[-1] - 1  # the last is background
-        n, h, w = nn_output.shape[:3]
-        masks = (nn_output[..., :n_cls] > self.threshold).permute(
-            0, 3, 1, 2).reshape(n * n_cls, h, w)
-        coords, frames, _ = blob_centers_tiled(masks)
-        # one copy to the host: [row, col, mask], masks ascending (frame,
-        # then class); each frame's rows are then one slice of the table
-        table = self.rem_edge_coord(torch.cat(
-            [coords.double(), frames.double()[:, None]], dim=1).cpu().numpy(),
-            h, w)
-        mask_idx = table[:, 2].astype(np.int64)
-        table[:, 2] = mask_idx % n_cls
-        bounds = np.searchsorted(mask_idx, np.arange(1, n) * n_cls)
-        d_coord = dict(enumerate(np.split(table, bounds)))
-        if self.refine:
-            if not args:
-                raise AssertionError(
-                    "Pass input image(s) for coordinates refinement")
-            d_coord = self._refine(d_coord, args[0], nn_output.device)
-        return d_coord
+        with profiling.span("locator.run"):
+            if not isinstance(nn_output, torch.Tensor):
+                nn_output = torch.from_numpy(np.asarray(nn_output, np.float32))
+                with profiling.span("locator.upload"):
+                    nn_output = nn_output.to(resolve_device(self.device))
+            if nn_output.shape[-1] == 1 and self.dim_order == "channel_last":
+                n_cls = 1  # the background channel preprocess adds is unread
+            else:
+                nn_output = self.preprocess(nn_output)
+                n_cls = nn_output.shape[-1] - 1  # the last is background
+            n, h, w = nn_output.shape[:3]
+            masks = (nn_output[..., :n_cls] > self.threshold).permute(
+                0, 3, 1, 2).reshape(n * n_cls, h, w)
+            coords, frames, _ = blob_centers_tiled(masks)
+            # one copy to the host: [row, col, mask], masks ascending (frame,
+            # then class); each frame's rows are then one slice of the table
+            table = torch.cat([coords.double(), frames.double()[:, None]],
+                              dim=1)
+            with profiling.span("locator.fetch"):
+                table = table.cpu()
+            table = self.rem_edge_coord(table.numpy(), h, w)
+            mask_idx = table[:, 2].astype(np.int64)
+            table[:, 2] = mask_idx % n_cls
+            bounds = np.searchsorted(mask_idx, np.arange(1, n) * n_cls)
+            d_coord = dict(enumerate(np.split(table, bounds)))
+            if self.refine:
+                if not args:
+                    raise AssertionError(
+                        "Pass input image(s) for coordinates refinement")
+                d_coord = self._refine(d_coord, args[0], nn_output.device)
+            return d_coord
 
     def _refine(self, d_coord: Dict[int, np.ndarray], images,
                 device: torch.device) -> Dict[int, np.ndarray]:

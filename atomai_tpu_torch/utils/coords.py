@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.device import resolve_device
 from ..native import ball_query, dbscan, knn
 from ..ops.cc_label import blob_centers
@@ -168,20 +169,22 @@ def cluster_coord(coord_class_dict: Dict[int, np.ndarray], eps: float,
     variance). Only the noise label -1 is left out (original atomai drops
     the first label whether or not it is noise); with no coordinates at
     all the result is empty."""
-    coordinates_all = np.concatenate(
-        [coord_class_dict[k] for k in range(len(coord_class_dict))])
-    if len(coordinates_all) == 0:
-        empty2 = np.empty((0, 2), dtype=float)
-        return np.array([], dtype=object), empty2, empty2
-    labels = dbscan(coordinates_all[:, :2], eps, min_samples)
-    clusters, clusters_var, clusters_mean = [], [], []
-    for lbl in np.unique(labels[labels >= 0]):
-        coord = coordinates_all[np.where(labels == lbl)]
-        clusters.append(coord)
-        clusters_mean.append(np.mean(coord[:, :2], axis=0))
-        clusters_var.append(np.var(coord[:, :2], axis=0))
-    return (np.array(clusters, dtype=object), np.array(clusters_mean),
-            np.array(clusters_var))
+    with profiling.span("cluster.coord"):
+        coordinates_all = np.concatenate(
+            [coord_class_dict[k] for k in range(len(coord_class_dict))])
+        if len(coordinates_all) == 0:
+            empty2 = np.empty((0, 2), dtype=float)
+            return np.array([], dtype=object), empty2, empty2
+        with profiling.span("cluster.dbscan"):
+            labels = dbscan(coordinates_all[:, :2], eps, min_samples)
+        clusters, clusters_var, clusters_mean = [], [], []
+        for lbl in np.unique(labels[labels >= 0]):
+            coord = coordinates_all[np.where(labels == lbl)]
+            clusters.append(coord)
+            clusters_mean.append(np.mean(coord[:, :2], axis=0))
+            clusters_var.append(np.var(coord[:, :2], axis=0))
+        return (np.array(clusters, dtype=object), np.array(clusters_mean),
+                np.array(clusters_var))
 
 
 def chain_tracks(coord_class_dict: Dict[int, np.ndarray],

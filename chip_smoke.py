@@ -579,6 +579,26 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+# the spatial-MLP kernels' counters (forward, backward)
+MLP_LAUNCHES = ("spatial_mlp.forward_launches",
+                "spatial_mlp.backward_launches")
+
+
+def zero_counters():
+    """Zeroes the program's counters (``core.profiling``)."""
+    from atomai_tpu_torch.core import profiling
+    profiling.reset()
+
+
+def counted(*names):
+    """The program's counters ``names`` since :func:`zero_counters`
+    (``profiling.summary()["counters"]``): one number, or a tuple."""
+    from atomai_tpu_torch.core import profiling
+    counters = profiling.summary()["counters"]
+    got = tuple(counters.get(n, 0) for n in names)
+    return got[0] if len(got) == 1 else got
+
+
 def scipy_labels(mask):
     """scipy.ndimage.label converted to the port's contract: the minimal
     flat index of each component, H*W for background."""
@@ -915,10 +935,10 @@ def phase_main_path(device):
     m = models.Segmentor("Unet", nb_classes=1, seed=1, device=device)
     m.predict(imgs, verbose=False)  # warm-up: cuDNN plans, allocator
 
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     nn_output, coords = m.predict(imgs, verbose=False)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
 
     check(nn_output.shape == (n, size, size, 1),
           f"maps shape {nn_output.shape}")
@@ -1261,14 +1281,14 @@ def phase_rvae_path(device, mlp_errs):
         m = rVAE((32, 32), latent_dim=2, device=device)
         check(m.decoder_net.fused(), "config C's decoder does not route to "
               "the kernels")
-        sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+        zero_counters()
         t0 = time.perf_counter()
         m.fit(X, training_cycles=RVAE_EPOCHS, batch_size=RVAE_BATCH,
               filename=fname, verbose=False)
         fit_s = time.perf_counter() - t0
         manifold = m.manifold2d()
         torch.cuda.synchronize(device)
-        launches = (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES)
+        launches = counted(*MLP_LAUNCHES)
         hist = m.loss_history["train_loss"]
         check(launches[0] > 0 and launches[1] > 0,
               f"the rVAE path launched the kernels {launches} times")
@@ -1505,7 +1525,6 @@ def phase_seg_train_fixture(device):
 def phase_seg_path(device):
     import torch
     from atomai_tpu_torch import models
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, masks, _ = make_lattice_stack(**MAIN)
@@ -1530,10 +1549,10 @@ def phase_seg_path(device):
     check(hist[-1] < hist[0], f"train loss did not fall: {hist[0]} -> "
           f"{hist[-1]}")
 
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     maps, coords = m.predict(imgs, verbose=False)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches > 0, "predict after fit never launched the labeller")
     check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
           "bad predict output")
@@ -2045,7 +2064,6 @@ def phase_ensemble_path(device, basenet):
     from scipy.spatial import cKDTree
     from atomai_tpu_torch.core import Precision
     from atomai_tpu_torch.native import dbscan, dbscan_reference
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import (EnsemblePredictor, Locator,
                                              SegPredictor, ensemble_locate)
     from atomai_tpu_torch.trainers import EnsembleTrainer
@@ -2140,11 +2158,11 @@ def phase_ensemble_path(device, basenet):
 
     # ensemble_locate on every member's maps: one Locator run of 4 x 32
     maps = member_maps(preds["map"])
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     c_mean, _ = ensemble_locate(maps, eps=ENS_EPS,
                                 min_samples=ENS_MIN_SAMPLES)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     qualities["plain"] = quality(c_mean)
     flat = maps.reshape((-1,) + tuple(maps.shape[2:]))
     lab = labeller_on(flat, device)     # kernel == plain route, and times
@@ -2446,7 +2464,6 @@ def phase_zoo_fixture(device):
 def phase_zoo_seg_path(device):
     import torch
     from atomai_tpu_torch import models
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, masks, _ = make_lattice_stack(**MAIN)
@@ -2467,10 +2484,10 @@ def phase_zoo_seg_path(device):
             check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
                   f"{name}: train loss {hist[0]} -> {hist[-1]}")
 
-            cc_kernel.LAUNCHES = 0
+            zero_counters()
             maps, coords = m.predict(imgs, verbose=False)
             torch.cuda.synchronize(device)
-            launches = cc_kernel.LAUNCHES
+            launches = counted("labeller.launches")
             check(launches > 0, f"{name}: predict never launched the "
                   "labeller")
             check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
@@ -2731,13 +2748,12 @@ def jvae_card_cases(device):
 
 
 def phase_jvae_fixture(device):
-    from atomai_tpu_torch.ops import spatial_mlp as sm
-    sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+    zero_counters()
     cases, bad = jvae_fixture_run(device, jvae_card_cases(device))
     emit("jvae_fixture", cases=cases, failures=bad,
-         kernel_launches=[sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES])
+         kernel_launches=list(counted(*MLP_LAUNCHES)))
     check(not bad, f"joint VAE fixture off: {bad}")
-    check(sm.FORWARD_LAUNCHES == sm.BACKWARD_LAUNCHES == 2,
+    check(counted(*MLP_LAUNCHES) == (2, 2),
           "the jrVAE's kernel steps did not launch the kernels once each")
 
 
@@ -2791,9 +2807,9 @@ def phase_jvae_path(device, mlp_errs):
         m = jrVAE((32, 32), device=device, **JVAE_KW)
         check(m.decoder_net.fused(), "the jrVAE's decoder does not route to "
               "the kernels")
-        sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+        zero_counters()
         out["jrvae"] = joint_path_run(m, X, os.path.join(tmp, "jrv"), device)
-        launches = (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES)
+        launches = counted(*MLP_LAUNCHES)
         steps = out["jrvae"]["steps"]
         check(launches == (steps, steps), f"the jrVAE's {steps} steps "
               f"launched the kernels {launches} times")
@@ -2993,17 +3009,16 @@ def phase_served_from_jax(device):
     from atomai_tpu_torch import export_model, load_exported, load_model
     from atomai_tpu_torch.core import Precision
     from atomai_tpu_torch.nets import ed
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.ops import spatial_mlp as sm
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, _, _ = make_lattice_stack(**MAIN)
     m = load_model(AOI_UNET, device=device)
     m.predict(imgs, verbose=False)          # warm-up
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     maps, coords = m.predict(imgs, verbose=False)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches == 1, f"predict launched the labeller {launches} times")
     n, size = MAIN["n_images"], MAIN["size"]
     check(maps.shape == (n, size, size, 1) and len(coords) == n,
@@ -3013,11 +3028,11 @@ def phase_served_from_jax(device):
     predict_ms = cuda_ms(lambda: m.predict(imgs, verbose=False), 5, device)
 
     v = load_model(AOI_RVAE, device=device)
-    sm.FORWARD_LAUNCHES = 0
+    zero_counters()
     z = np.random.RandomState(0).randn(81, 2).astype(np.float32)
     manifold, decoded = v.manifold2d(), v.decode(z)
     torch.cuda.synchronize(device)
-    mlp_launches = sm.FORWARD_LAUNCHES
+    mlp_launches = counted("spatial_mlp.forward_launches")
     check(mlp_launches == 2, f"decode and manifold2d launched the forward "
           f"kernel {mlp_launches} times")
     fused = ed.spatial_mlp
@@ -3162,18 +3177,17 @@ def phase_stat_path(device, trained_net):
     same call of the port on the CPU (on the first windows, a corner)."""
     import torch
     from atomai_tpu_torch import stat
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack, remove_edge_coord
     imgs, _, _ = make_lattice_stack(**LATTICE)
     pred = SegPredictor(trained_net, nb_classes=1, verbose=False)
     pred.run(imgs)                            # warm-up
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     t0 = time.perf_counter()
     maps, coords = pred.run(imgs)
     torch.cuda.synchronize(device)
     predict_s = time.perf_counter() - t0
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches == 1, f"predict launched the labeller {launches} times")
     lab = labeller_on(pred.predict_device(imgs), device)
     size = LATTICE["size"]
@@ -3371,13 +3385,13 @@ def phase_graph_path(device, trained_net):
         """Times one call from an idle card to an idle card (its labeller
         launches counted), then profiles a second for the busy share."""
         torch.cuda.synchronize(device)
-        cc_kernel.LAUNCHES = 0
+        zero_counters()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize(device)
         times[name] = time.perf_counter() - t0
         if count:
-            launches[name] = cc_kernel.LAUNCHES
+            launches[name] = counted("labeller.launches")
         busy[name] = busy_share(fn, device)
         return out
 
@@ -3629,19 +3643,18 @@ def _vae_remat_pair(cls, kw, X, device):
     spatial-MLP launches, and the peak bytes above the resting allocation
     of one more epoch."""
     import torch
-    from atomai_tpu_torch.ops import spatial_mlp as sm
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for remat in (False, True):
             m = cls((32, 32), device=device, **kw)
             check(m.decoder_net.fused(), f"{cls.__name__}'s decoder does "
                   "not route to the kernels")
-            sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+            zero_counters()
             m.fit(X, training_cycles=REMAT_VAE_EPOCHS, batch_size=RVAE_BATCH,
                   remat=remat, verbose=False,
                   filename=os.path.join(tmp, f"v{remat}"))
             torch.cuda.synchronize(device)
-            launches = [sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES]
+            launches = list(counted(*MLP_LAUNCHES))
             base = torch.cuda.memory_allocated(device)
             torch.cuda.reset_peak_memory_stats(device)
             m.train_epoch()
@@ -3678,7 +3691,6 @@ def phase_remat_path(device):
     import torch
     from atomai_tpu_torch.models import jrVAE, rVAE
     from atomai_tpu_torch.nets import set_remat
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, masks, _ = make_lattice_stack(**MAIN)
@@ -3702,10 +3714,10 @@ def phase_remat_path(device):
                                        plains, _seg_run_diff, bounds, bounds)
 
     # predict after the remat fit: one labeller launch, exact labels
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     maps, coords = remat.predict(imgs, verbose=False)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches == 1, f"predict launched the labeller {launches} times")
     check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
           "bad predict output")
@@ -3831,17 +3843,16 @@ def _mesh_predict(device, net, data_mesh):
     launch a rank, the labeller's labels and fused sums on the sharded
     maps equal to its plain version's, the maps against one process's."""
     import torch
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import SegPredictor
     from atomai_tpu_torch.utils import make_lattice_stack
     imgs, _, _ = make_lattice_stack(**MAIN)
     p = SegPredictor(net, nb_classes=1, verbose=False, mesh=data_mesh)
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     t0 = time.perf_counter()
     maps, coords = p.run(imgs)
     torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches == 1, f"the sharded predict launched the labeller "
           f"{launches} times")
     check(maps.shape == (64, 256, 256, 1) and len(coords) == 64,
@@ -3884,21 +3895,20 @@ def _mesh_rvae(device, data_mesh, tmp, plain):
     step."""
     import torch
     from atomai_tpu_torch.models import rVAE
-    from atomai_tpu_torch.ops import spatial_mlp as sm
     X = config_c_patches()
     runs, step_inputs = {}, []
     for name, mesh in (("mesh", data_mesh), ("plain", False))[:1 + plain]:
         m = rVAE((32, 32), latent_dim=2, device=device)
         check(m.decoder_net.fused(), "the rVAE's decoder does not route to "
               "the kernels")
-        sm.FORWARD_LAUNCHES = sm.BACKWARD_LAUNCHES = 0
+        zero_counters()
         t0 = time.perf_counter()
         with first_backward_inputs(step_inputs):
             m.fit(X, training_cycles=MESH_VAE_EPOCHS, batch_size=RVAE_BATCH,
                   mesh=mesh, verbose=False, filename=os.path.join(tmp, name))
         torch.cuda.synchronize(device)
         runs[name] = {"elbo": list(m.loss_history["train_loss"]),
-                      "launches": [sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES],
+                      "launches": list(counted(*MLP_LAUNCHES)),
                       "seconds": time.perf_counter() - t0,
                       "mesh": None if m.mesh is None else list(m.mesh.shape)}
     steps = MESH_VAE_EPOCHS * (len(X) // RVAE_BATCH)
@@ -4231,7 +4241,6 @@ def phase_ensemble_vmap_path(device, basenet):
     import torch
     from scipy.spatial import cKDTree
     from atomai_tpu_torch.core import Precision
-    from atomai_tpu_torch.ops import cc_kernel
     from atomai_tpu_torch.predictors import EnsemblePredictor, ensemble_locate
     from atomai_tpu_torch.trainers import EnsembleTrainer
     from atomai_tpu_torch.transforms import seg_augmentor
@@ -4313,11 +4322,11 @@ def phase_ensemble_vmap_path(device, basenet):
         pred.preprocess(imgs), num_batches=n)).to(device)
     check(bool(torch.isfinite(maps).all()) and tuple(maps.shape) ==
           (ENS_MODELS, n, size, size, 1), f"member maps {maps.shape}")
-    cc_kernel.LAUNCHES = 0
+    zero_counters()
     c_mean, _ = ensemble_locate(maps, eps=ENS_EPS,
                                 min_samples=ENS_MIN_SAMPLES)
     torch.cuda.synchronize(device)
-    launches = cc_kernel.LAUNCHES
+    launches = counted("labeller.launches")
     check(launches == 1, f"ensemble_locate launched the labeller "
           f"{launches} times")
     errs, found = [], 0

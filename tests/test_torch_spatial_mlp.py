@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from atomai_tpu.ops import pallas_mlp
+from atomai_tpu_torch.core import profiling
 from atomai_tpu_torch.nets import rDecoderNet
 from atomai_tpu_torch.ops import spatial_mlp as sm
 
@@ -112,13 +113,19 @@ def test_backward_reference_matches_autograd(L):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12, msg=name)
 
 
+def _launches():
+    counters = profiling.summary()["counters"]
+    return (counters.get("spatial_mlp.forward_launches", 0),
+            counters.get("spatial_mlp.backward_launches", 0))
+
+
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     args, gy = _inputs(2, 30, 16, 1, seed=5)
     t = [torch.from_numpy(a).requires_grad_() for a in args]
-    before = (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES)
+    before = _launches()
     y = sm.spatial_mlp(*t)
     (y * torch.from_numpy(gy)).sum().backward()
-    assert (sm.FORWARD_LAUNCHES, sm.BACKWARD_LAUNCHES) == before
+    assert _launches() == before
     torch.testing.assert_close(y.detach(), sm.spatial_mlp_reference(
         *[a.detach() for a in t]), rtol=0, atol=0)
     explicit = sm.spatial_mlp_backward_reference(
