@@ -2,7 +2,8 @@
 version, the JAX package's ``atomai_tpu.native.neighbors.dbscan`` and, where
 it is installed, sklearn: equal labels (noise -1, clusters numbered by their
 first core point, a border point in the first cluster that reaches it).
-Then ``cluster_coord`` against the JAX function on the same coordinates.
+Then ``cluster_coord`` against the JAX function on the same coordinates,
+and against a plain per-label loop written out here.
 """
 
 import os
@@ -17,6 +18,7 @@ from atomai_tpu_torch import native
 from atomai_tpu_torch.native import neighbors
 from atomai_tpu_torch.ops import _build
 from atomai_tpu_torch.utils import cluster_coord
+from atomai_tpu_torch.utils import coords as tcoords
 
 torch.set_num_threads(1)
 
@@ -131,3 +133,83 @@ def test_cluster_coord_empty_and_no_noise():
            1: np.array([[1.1, 1.0, 0], [10.0, 10.1, 0]])}
     _, mean, _ = cluster_coord(pts, 0.5, 2)
     np.testing.assert_allclose(mean, [[1.05, 1.0], [10.0, 10.05]])
+
+
+def _loop_cluster_coord(coordinates_all, labels):
+    """The plain version: one pass over the points per label."""
+    clusters, clusters_var, clusters_mean = [], [], []
+    for lbl in np.unique(labels[labels >= 0]):
+        coord = coordinates_all[np.where(labels == lbl)]
+        clusters.append(coord)
+        clusters_mean.append(np.mean(coord[:, :2], axis=0))
+        clusters_var.append(np.var(coord[:, :2], axis=0))
+    return (np.array(clusters, dtype=object), np.array(clusters_mean),
+            np.array(clusters_var))
+
+
+def _members(points, n_members=4, seed=0):
+    """(n, 2) points dealt at random to ``n_members`` members as (m, 3)
+    [row, col, class] rows with a random class."""
+    rng = np.random.RandomState(seed)
+    rows = np.concatenate([points, rng.randint(0, 3, (len(points), 1))], 1)
+    split = np.array_split(rng.permutation(len(rows)), n_members)
+    return {m: rows[idx] for m, idx in enumerate(split)}
+
+
+def _full_lattice(n_members=4, jitter=0.15, seed=0):
+    """Every member finds every atom of the 6 x 6 lattice."""
+    rng = np.random.RandomState(seed)
+    atoms = np.stack(np.meshgrid(np.arange(6) * 8.0 + 4,
+                                 np.arange(6) * 8.0 + 4), -1).reshape(-1, 2)
+    return {m: np.concatenate([atoms + jitter * rng.randn(*atoms.shape),
+                               np.full((len(atoms), 1), m)], 1)
+            for m in range(n_members)}
+
+
+# name: (coordinates, eps, min_samples, labels in place of DBSCAN's or None,
+#        what the case has to reach)
+GROUP_CASES = {
+    "ragged_with_noise": (lambda: _members(_lattice_detections(7)), 0.5, 3,
+                          None, "ragged_noise"),
+    "all_clustered": (lambda: _members(_lattice_detections(8, noise=0)),
+                      0.5, 1, None, "ragged_no_noise"),
+    "same_size": (lambda: _full_lattice(), 0.5, 3, None, "same_size"),
+    "single_cluster": (lambda: _members(
+        3.0 + 0.1 * np.random.RandomState(9).randn(7, 2), 2), 0.5, 3, None,
+        "same_size"),
+    "labels_with_gaps": (lambda: _members(
+        np.random.RandomState(10).rand(40, 2) * 30, 3), 0.5, 3,
+        np.random.RandomState(11).choice([-1, 0, 3, 4, 9], 40),
+        "ragged_noise"),
+    "all_noise": (lambda: _members(np.arange(24.0).reshape(12, 2) * 10, 3),
+                  0.5, 2, None, "all_noise"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GROUP_CASES))
+def test_cluster_coord_matches_plain_loop(name, monkeypatch):
+    make, eps, min_samples, labels, reach = GROUP_CASES[name]
+    coords = make()
+    coordinates_all = np.concatenate([coords[k] for k in range(len(coords))])
+    if labels is None:
+        labels = native.dbscan(coordinates_all[:, :2], eps, min_samples)
+    else:
+        monkeypatch.setattr(tcoords, "dbscan", lambda *args: labels)
+    sizes = np.bincount(labels[labels >= 0], minlength=1)
+    sizes = sizes[sizes > 0]
+    assert {"ragged_noise": (labels == -1).any() and len(set(sizes)) > 1,
+            "ragged_no_noise": (labels >= 0).all() and len(set(sizes)) > 1,
+            "same_size": len(set(sizes)) == 1,
+            "all_noise": (labels == -1).all()}[reach]
+    got = cluster_coord(coords, eps, min_samples)
+    want = _loop_cluster_coord(coordinates_all, labels)
+    assert got[0].dtype == want[0].dtype == object
+    assert got[0].shape == want[0].shape
+    if reach == "same_size":
+        assert got[0].ndim == 3
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_array_equal(a, b)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert g.shape == ((len(sizes), 2) if len(sizes) else (0,))
+        np.testing.assert_allclose(g, w, atol=TOL_MEAN, rtol=0)
