@@ -26,9 +26,13 @@ Span names in the port: ``predictor.run``, ``predictor.predict``,
 ``predictor.preprocess``, ``predictor.forward``, ``locator.ensemble_locate``
 (root), ``locator.run``, ``cluster.coord``, ``cluster.dbscan``, and the
 host's waits on the card: ``predictor.upload``, ``locator.upload``,
-``predictor.fetch``, ``locator.fetch``, ``labeller.fetch``. Counters:
-``labeller.launches``, ``spatial_mlp.forward_launches``,
-``spatial_mlp.backward_launches``.
+``predictor.fetch``, ``locator.fetch``, ``labeller.fetch``. Deep kernel
+learning (``trainers/gptrainer.py``, ``models/dklgp/dklgpr.py``):
+``dkl.fit`` (root: one ``run``), ``dkl.fit.fetch`` (a chunk's losses),
+``dkl.upload`` (``set_data``'s copies and a draw's noise),
+``dkl.thompson`` (root: one draw and its argmax) and ``dkl.fetch`` (a
+draw to the host). Counters: ``labeller.launches``,
+``spatial_mlp.forward_launches``, ``spatial_mlp.backward_launches``.
 """
 
 import collections

@@ -6,6 +6,17 @@ posterior with the training-side Cholesky factorised once per fit,
 ``sample_from_posterior``, Thompson sampling, batched ``predict`` and
 ``embed``. The posterior draws take their noise from the model's
 generator stream, or from ``eps`` when the caller passes it.
+
+The draws depart from the JAX package, which forms and factorises the
+candidates' posterior covariance in float32 (`atomai_tpu/models/dklgp/
+dklgpr.py:117-128`). Over thousands of candidates dense in the embedding,
+``Kss - V^T V`` cancels to a matrix whose float32 rounding is larger than
+the 1e-6 jitter, its Cholesky fails, and the JAX package draws NaN and
+picks index 0. Here the draw's posterior is formed and factorised in
+``DRAW_DTYPE``, float64, from the float32 embeddings and hyperparameters
+and a float64 factor of the training points (``predict`` keeps the float32
+one); where even that factorisation fails, the draw raises
+``LinAlgError`` instead of returning NaN.
 """
 
 import warnings
@@ -14,8 +25,14 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ...trainers.gptrainer import (_FULL, _cholesky, dklGPTrainer,
-                                   posterior_cache, posterior_from_cache)
+from ...core import profiling
+from ...trainers.gptrainer import (_FULL, dklGPTrainer, posterior_cache,
+                                   posterior_from_cache)
+
+# the dtype the draws' posterior is formed and factorised in
+DRAW_DTYPE = torch.float64
+# added to the diagonal of the draws' posterior covariance
+DRAW_JITTER = 1e-6
 
 
 class dklGPR(dklGPTrainer):
@@ -63,45 +80,76 @@ class dklGPR(dklGPTrainer):
 
     # --------------------------------------------------------- posterior
     @torch.no_grad()
-    def _get_cache(self):
-        """(cache, training embedding): the factorisation of every output,
-        computed once per fit."""
+    def _get_cache(self, dtype: torch.dtype = torch.float32):
+        """(cache, training embedding) in ``dtype``: the factorisation of
+        every output, computed once per fit and dtype from the float32
+        embedding and hyperparameters."""
         if self._post_cache is None:
-            z = self._embed(self.X, self.scale_stats)
+            self._post_cache = {}
+        if dtype not in self._post_cache:
+            z = self._embed(self.X, self.scale_stats).to(dtype)
+            gp = {k: v.detach().to(dtype) for k, v in self.gp_params.items()}
             with _FULL.tf32_scope():
-                cache = posterior_cache(self.gp_params, z, self.y,
-                                        self.kernel)
-            self._post_cache = (cache, z)
-        return self._post_cache
+                cache = posterior_cache(gp, z, self.y.to(dtype), self.kernel)
+            self._post_cache[dtype] = (cache, z)
+        return self._post_cache[dtype]
 
     @torch.no_grad()
-    def _posteriors(self, Xs: torch.Tensor, full_cov: bool = False):
-        """Each output's posterior at Xs: mean (b, M) and variance (b, M)
-        or covariance (b, M, M)."""
+    def _posteriors(self, Xs: torch.Tensor):
+        """Each output's posterior mean (b, M) and variance (b, M) at Xs."""
         cache, z_train = self._get_cache()
         z_s = self._embed(Xs, self.scale_stats)
         with _FULL.tf32_scope():
-            return posterior_from_cache(cache, z_train, z_s, self.kernel,
-                                        full_cov=full_cov)
+            return posterior_from_cache(cache, z_train, z_s, self.kernel)
+
+    @torch.no_grad()
+    def _draw_posterior(self, Xs: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each output's posterior mean (b, M) and covariance (b, M, M) at
+        Xs in ``DRAW_DTYPE``, ``DRAW_JITTER`` on the covariance's
+        diagonal."""
+        cache, z_train = self._get_cache(DRAW_DTYPE)
+        z_s = self._embed(Xs, self.scale_stats).to(DRAW_DTYPE)
+        with _FULL.tf32_scope():
+            mean, cov = posterior_from_cache(cache, z_train, z_s, self.kernel,
+                                             full_cov=True)
+        cov.diagonal(dim1=-2, dim2=-1).add_(DRAW_JITTER)
+        return mean, cov
 
     @torch.no_grad()
     def sample_from_posterior(self, X, num_samples: int = 1000,
                               eps: Optional[torch.Tensor] = None
                               ) -> np.ndarray:
-        """(num_samples, b, M) draws from the posterior at X. ``eps``: the
-        (num_samples, b, M) standard normal noise; drawn from the model's
-        generator stream when None."""
+        """(num_samples, b, M) float32 draws from the posterior at X, formed
+        in ``DRAW_DTYPE``. ``eps``: the (num_samples, b, M) standard normal
+        noise; drawn (in float32) from the model's generator stream when
+        None. Raises ``torch.linalg.LinAlgError`` where the covariance does
+        not factorise."""
         Xs, _ = self.set_data(X)
-        mean, cov = self._posteriors(Xs, full_cov=True)
+        if eps is not None:
+            with profiling.span("dkl.upload"):
+                eps = torch.as_tensor(eps, dtype=torch.float32,
+                                      device=self.device)
+        mean, cov = self._draw_posterior(Xs)
         b, M = mean.shape
         if eps is None:
             eps = torch.randn((num_samples, b, M), device=self.device,
                               generator=self.keys.next(device=self.device))
-        eps = torch.as_tensor(eps, dtype=mean.dtype, device=self.device)
         with _FULL.tf32_scope():
-            L = _cholesky(cov + 1e-6 * torch.eye(M, device=self.device))
-            samples = mean[None] + torch.einsum("bmn,sbn->sbm", L, eps)
-        return samples.cpu().numpy()
+            L, info = torch.linalg.cholesky_ex(cov)
+            del cov
+            samples = mean[None] + torch.einsum("bmn,sbn->sbm", L,
+                                                eps.to(L.dtype))
+        with profiling.span("dkl.fetch"):
+            samples = samples.float().cpu().numpy()
+            info = info.cpu()
+        if bool(info.any()):
+            raise torch.linalg.LinAlgError(
+                f"the posterior covariance of {M} candidates is not "
+                f"positive definite in {DRAW_DTYPE} (cholesky info "
+                f"{info.tolist()}): candidates too close together in the "
+                f"embedding")
+        return samples
 
     def thompson(self, X_cand, scalarize_func: Optional[Callable] = None,
                  maximize: bool = True, eps: Optional[torch.Tensor] = None
@@ -110,10 +158,11 @@ class dklGPR(dklGPTrainer):
         draw (``eps`` (1, b, M) as in :meth:`sample_from_posterior`) and its
         argmax (argmin); ``scalarize_func`` maps a multi-output draw
         (b, M) to one row."""
-        tsample = self.sample_from_posterior(X_cand, 1, eps)[0]
-        if tsample.ndim > 1 and scalarize_func is not None:
-            tsample = np.asarray(scalarize_func(tsample))[None]
-        idx = tsample.argmax(-1) if maximize else tsample.argmin(-1)
+        with profiling.span("dkl.thompson"):
+            tsample = self.sample_from_posterior(X_cand, 1, eps)[0]
+            if tsample.ndim > 1 and scalarize_func is not None:
+                tsample = np.asarray(scalarize_func(tsample))[None]
+            idx = tsample.argmax(-1) if maximize else tsample.argmin(-1)
         return tsample, idx
 
     def predict(self, x_new, **kwargs) -> Tuple[np.ndarray, np.ndarray]:

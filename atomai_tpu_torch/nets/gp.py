@@ -126,7 +126,7 @@ def scale_to_bounds(x: torch.Tensor, lb: float = -1.0, ub: float = 1.0,
     test and candidate embeddings share the training transform; ``None``
     scales by ``x``'s own."""
     xmin, xmax = compute_bounds_stats(x) if stats is None else stats
-    x01 = (x - xmin) / torch.maximum(xmax - xmin, x.new_tensor(eps))
+    x01 = (x - xmin) / torch.maximum(xmax - xmin, x.new_full((), eps))
     return lb + (ub - lb) * x01
 
 

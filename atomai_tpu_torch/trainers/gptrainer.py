@@ -23,6 +23,17 @@ backward; the feature extractor runs in float32 under the policy's TF32
 switch (a two-stage backward: the GP part to the embedding, then the
 extractor). Losses are fetched once per ``print_loss`` chunk.
 
+On one card, a run's step is captured in a CUDA graph after its first
+``GRAPH_WARMUP`` steps and replayed for the rest of the run: one launch a
+step instead of some 550, so that a fit of a few hundred points is no
+longer bound by the host's launches. Adam keeps its state on the card
+(``capturable``) from the first step, so eager and replayed steps are the
+same arithmetic, bit for bit.
+
+The DKL trainers record the spans (``core.profiling``) ``dkl.fit`` around
+``run``, ``dkl.fit.fetch`` around each chunk's loss fetch and
+``dkl.upload`` around ``set_data``'s copies.
+
 Independent outputs over the model axis (`:488-527`): in a world of
 several ranks, ``compile_multi_model_trainer(mesh=None)`` spreads the b
 (extractor, GP) pairs over an ``ensemble_mesh`` (``mesh=False``: every
@@ -37,9 +48,10 @@ block is broadcast from its owner, so each rank predicts with every
 pair. The shared-embedding ``compile_trainer`` and the exact
 ``GPTrainer`` take ``mesh`` and ignore it, as the JAX package's do. The
 JAX package's ``engine`` attribute (scan or loop) has no counterpart: the
-port has one eager loop.
+port has one loop, its step replayed from a CUDA graph on one card.
 """
 
+import contextlib
 import copy
 import math
 from typing import Callable, List, Optional, Tuple
@@ -47,6 +59,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import Precision, default_precision
@@ -61,6 +74,8 @@ from ..nets.gp import (KERNELS, MemberStack, StackedFeatureExtractor,
                        scale_to_bounds, softplus)
 
 JITTER = 1e-5
+# eager steps of a run on a card before its step is captured
+GRAPH_WARMUP = 3
 _FULL = Precision.full()
 _LOG_2PI = math.log(2 * math.pi)
 
@@ -261,6 +276,64 @@ def posterior(params, X, y, Xs, kernel: Callable,
     return posterior_from_cache(cache, X, Xs, kernel, full_cov)
 
 
+# a card's capture stream, and the last step graph captured there. Each
+# capture shares the last one's memory pool, so that a run reuses the
+# blocks of the runs before (a private pool a graph would keep them from
+# every later capture). A graph is replayed only during its own run, so
+# one is live at a time; the last is kept, never replayed again, because
+# a pool that no graph holds cannot be shared.
+_CAPTURE: dict = {}
+
+
+class _StepGraph:
+    """A run's step in a CUDA graph: ``GRAPH_WARMUP`` eager steps on the
+    card's capture stream, then one step captured and replayed. The
+    capture calls ``CUDAGraph.capture_begin`` itself, not
+    ``torch.cuda.graph``, whose entry empties the allocator's cache: a
+    graph is captured for every fit, and each emptying would free the
+    cached blocks of the draws and fits before, to be allocated anew."""
+
+    def __init__(self, device: torch.device):
+        index = torch.cuda.current_device() if device.index is None \
+            else device.index
+        if index not in _CAPTURE:
+            with torch.cuda.device(index):
+                _CAPTURE[index] = {"stream": torch.cuda.Stream(),
+                                   "last": None}
+        self.card = _CAPTURE[index]
+        self.stream = self.card["stream"]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.loss: Optional[torch.Tensor] = None
+        self.steps = 0
+
+    def run(self, step: Callable[[], torch.Tensor], n: int
+            ) -> List[torch.Tensor]:
+        """n steps of ``step``: each one's loss."""
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        losses = []
+        with torch.cuda.stream(self.stream):
+            for _ in range(n):
+                if self.graph is None and self.steps >= GRAPH_WARMUP:
+                    last = self.card["last"]
+                    self.graph = torch.cuda.CUDAGraph()
+                    self.graph.capture_begin(
+                        pool=None if last is None else last.pool())
+                    try:
+                        self.loss = step()
+                    finally:
+                        self.graph.capture_end()
+                    self.card["last"] = self.graph
+                if self.graph is None:
+                    losses.append(step())
+                else:
+                    self.graph.replay()
+                    losses.append(self.loss.clone())
+                self.steps += 1
+        current.wait_stream(self.stream)
+        return losses
+
+
 class GPTrainer:
     """Exact (or SGPR) GP regression trainer (counterpart of
     `atomai_tpu/trainers/gptrainer.py:215-406`).
@@ -275,6 +348,8 @@ class GPTrainer:
 
     # the dtype of the data, the GP parameters and the linear algebra
     dtype = torch.float32
+    # the prefix of the trainer's spans; None: no spans
+    SPANS: Optional[str] = None
 
     def __init__(self, **kwargs):
         self.device = resolve_device(kwargs.get("device", "cuda"))
@@ -292,6 +367,7 @@ class GPTrainer:
         self.training_cycles = 1
         self.lr = None
         self.optimizer = None
+        self._graph: Optional[_StepGraph] = None
         self._post_cache = None
         # the outputs' mesh (multi-output DKL) and this rank's block of
         # the outputs (None: all of them)
@@ -302,19 +378,31 @@ class GPTrainer:
     def set_data(self, x, y=None, device=None):
         """Tensors of the trainer's dtype on its device; a 1D y becomes
         (1, N)."""
-        x = _as_tensor(x, self.device, self.dtype)
-        if y is not None:
-            y = _as_tensor(y, self.device, self.dtype)
-            if y.ndim == 1:
-                y = y[None]
+        with self._span("upload"):
+            x = _as_tensor(x, self.device, self.dtype)
+            if y is not None:
+                y = _as_tensor(y, self.device, self.dtype)
+                if y.ndim == 1:
+                    y = y[None]
         return x, y
 
     def _trainable(self) -> list:
         return list(self.gp_params.values())
 
+    def _span(self, name: str):
+        return contextlib.nullcontext() if self.SPANS is None else \
+            profiling.span(f"{self.SPANS}.{name}")
+
+    def _graphed(self) -> bool:
+        """Whether the fit's step is captured: on one card."""
+        return self.device.type == "cuda" and self.model_mesh is None
+
     def _reset_optimizer(self) -> None:
-        """Adam as ``optax.adam`` (eps outside the sqrt, bias-corrected)."""
-        self.optimizer = torch.optim.Adam(self._trainable(), lr=self.lr)
+        """Adam as ``optax.adam`` (eps outside the sqrt, bias-corrected),
+        its state on the card there."""
+        self.optimizer = torch.optim.Adam(
+            self._trainable(), lr=self.lr,
+            capturable=self.device.type == "cuda")
 
     def compile_trainer(self, X, y, training_cycles: int = 1, **kwargs):
         """``kernel_type``: 'exact' (default), 'sparse' (SGPR on
@@ -394,8 +482,10 @@ class GPTrainer:
         return all_sum(loss.detach(), self.model_mesh, MODEL_AXIS)
 
     def _run_chunk(self, n: int) -> None:
-        losses = [self._step() for _ in range(n)]
-        self.train_loss.extend(torch.stack(losses).tolist())  # one fetch
+        losses = [self._step() for _ in range(n)] if self._graph is None \
+            else self._graph.run(self._step, n)
+        with self._span("fit.fetch"):
+            self.train_loss.extend(torch.stack(losses).tolist())  # one fetch
 
     def train_step(self) -> None:
         """One optimisation step."""
@@ -405,15 +495,23 @@ class GPTrainer:
     def run(self, X=None, y=None, training_cycles: int = 1, **kwargs):
         """Trains for the compiled number of cycles (compiling first with
         these arguments if needed), printing every ``print_loss`` (10)."""
+        with self._span("fit"):
+            return self._run(X, y, training_cycles, **kwargs)
+
+    def _run(self, X=None, y=None, training_cycles: int = 1, **kwargs):
         if not self.compiled:
             self.compile_trainer(X, y, training_cycles, **kwargs)
         print_loss = kwargs.get("print_loss", 10)
-        e = 0
-        while e < self.training_cycles:
-            n = min(print_loss, self.training_cycles - e)
-            self._run_chunk(n)
-            e += n
-            self.print_statistics(e - 1)
+        self._graph = _StepGraph(self.device) if self._graphed() else None
+        try:
+            e = 0
+            while e < self.training_cycles:
+                n = min(print_loss, self.training_cycles - e)
+                self._run_chunk(n)
+                e += n
+                self.print_statistics(e - 1)
+        finally:
+            self._graph = None
         self._post_cache = None
         return self
 
@@ -455,6 +553,8 @@ class dklGPTrainer(GPTrainer):
     (:meth:`compile_multi_model_trainer`, a :class:`StackedFeatureExtractor`
     whose copies start equal unless ``ensemble``). ``lr`` defaults to
     0.01."""
+
+    SPANS = "dkl"
 
     def __init__(self, indim: int, embedim: int = 2,
                  shared_embedding_space: bool = True, **kwargs):
@@ -522,6 +622,12 @@ class dklGPTrainer(GPTrainer):
         self.compiled = True
         self.scale_stats = None
         self._post_cache = None
+
+    def _graphed(self) -> bool:
+        """On one card, with the package's own extractor (one given by the
+        caller may do what a capture cannot)."""
+        return super()._graphed() and isinstance(
+            self.fe, (fcFeatureExtractor, StackedFeatureExtractor))
 
     def _trainable(self) -> list:
         params = list(self.gp_params.values())
@@ -604,14 +710,14 @@ class dklGPTrainer(GPTrainer):
                 z.backward(zd.grad)
         return loss
 
-    def run(self, X=None, y=None, training_cycles: int = 1, **kwargs):
+    def _run(self, X=None, y=None, training_cycles: int = 1, **kwargs):
         if not self.compiled:
             if self.correlated_output:
                 self.compile_trainer(X, y, training_cycles, **kwargs)
             else:
                 self.compile_multi_model_trainer(X, y, training_cycles,
                                                  **kwargs)
-        super().run(training_cycles=training_cycles, **kwargs)
+        super()._run(training_cycles=training_cycles, **kwargs)
         self._gather_outputs()
         self._compute_scale_stats()
         return self

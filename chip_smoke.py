@@ -97,7 +97,10 @@ Phases, one JSON line each (all before the last line):
     float32 loss and gradient against float64 after those 25 cycles;
     ``predict`` on the 10,000 training inputs and on 10,000 fresh ones (the
     fresh mean's correlation with their first input), ``thompson`` on
-    4,096 candidates; independent outputs (4 x 2,048) and a 5-model
+    4,096 candidates (a gate: its float64 draw finite, its index the
+    argmax); a 25-cycle fit of 2,048 points whose step is replayed from its
+    CUDA graph against the same fit in eager steps (a gate: losses and
+    parameters bit for bit); independent outputs (4 x 2,048) and a 5-model
     ``fit_ensemble`` (2,048), ms a cycle each;
 18. reconstruct: ``Reconstructor.reconstruct`` of a 256 x 256 sin-cos image
     at 10% measured pixels (the exact path) and at 30% (the inducing grid),
@@ -2291,6 +2294,28 @@ def dkl_loss_grad(model, dtype):
             .double(), sum(p.numel() for p in c.gp_params.values()))
 
 
+def graphed_fit_is_eager(X, y, device, cycles=GP_FIRST + GP_WARM):
+    """Whether a dklGPR fit whose step is replayed from its CUDA graph
+    gives the losses and parameters of the same fit in eager steps, bit
+    for bit."""
+    import torch
+    from atomai_tpu_torch.models import dklGPR
+    from atomai_tpu_torch.trainers import gptrainer
+    fits = []
+    for warmup in (gptrainer.GRAPH_WARMUP, cycles):
+        saved, gptrainer.GRAPH_WARMUP = gptrainer.GRAPH_WARMUP, warmup
+        try:
+            m = dklGPR(X.shape[1], embedim=2, device=device, seed=1)
+            with quiet():
+                m.fit(X, y, training_cycles=cycles, print_loss=GP_FIRST)
+        finally:
+            gptrainer.GRAPH_WARMUP = saved
+        fits.append((m.train_loss, torch.cat(
+            [p.detach().reshape(-1) for p in m._trainable()])))
+    (la, pa), (lb, pb) = fits
+    return la == lb and torch.equal(pa, pb)
+
+
 def float64_check(model):
     """The float32 loss and gradient against float64, with K's condition
     number bound, 1 + N * outputscale / noise."""
@@ -2362,9 +2387,15 @@ def phase_dkl_path(device, n=GP_N, n_small=GP_N_SMALL, n_cand=GP_CAND):
     sample, idx = gp.thompson(Xc)
     check(sample.shape == (1, n_cand) and 0 <= int(idx[0]) < n_cand,
           f"bad thompson output {sample.shape} {idx}")
+    check(bool(np.isfinite(sample).all()) and int(idx[0]) ==
+          int(np.argmax(sample)), f"thompson draw over {n_cand} candidates "
+          f"not finite or its index not its argmax: {idx}")
 
     # independent outputs and an ensemble, at n_small points
     Xs, ys = Xg[:n_small], yg[:n_small]
+    graph_equal = graphed_fit_is_eager(Xs, ys, device)
+    check(graph_equal, "a fit whose step is replayed from its CUDA graph "
+          "differs from the same fit's eager steps")
     Ys = np.stack([ys, -ys, Xs[:, 1], Xs[:, 0] + Xs[:, 1]])[:GP_OUTPUTS]
     modes = {}
     for name, shared in (("independent", False), ("ensemble", True)):
@@ -2407,7 +2438,8 @@ def phase_dkl_path(device, n=GP_N, n_small=GP_N_SMALL, n_cand=GP_CAND):
          predict_fresh_ms=predict_fresh_ms,
          fresh_mean_corr_x0=corr, thompson_ms=thompson_ms,
          thompson_candidates=n_cand, thompson_idx=int(idx[0]),
-         thompson_finite=bool(np.isfinite(sample).all()), modes=modes)
+         thompson_finite=bool(np.isfinite(sample).all()),
+         graphed_fit_equal=graph_equal, modes=modes)
 
 
 def sparse_test_image(size, share, seed=0):
