@@ -10,7 +10,10 @@ Counterpart of `atomai_tpu/predictors/epredictor.py:26-337`:
   another; "vmap" runs them as one ``torch.func.vmap`` of
   ``functional_call`` over their stacked weights
   (``torch.func.stack_module_state``); "auto" takes the one measured
-  faster on the card (``AUTO_LAYOUT``);
+  faster on the card (``AUTO_LAYOUT``). Where the host, not the card,
+  sets the pace (:func:`graph_engages`), a chunk's member forwards replay
+  from a CUDA graph captured once an input signature
+  (:class:`_MemberGraphs`);
 - :func:`ensemble_locate`: one :class:`Locator` run over every (member,
   frame) map, so that on a CUDA tensor one labeller call serves the whole
   ensemble, then DBSCAN of each frame's coordinates
@@ -28,6 +31,8 @@ model axis, and every rank reduces the mean and variance over all members
 as one process does (a rank outside the mesh runs every member).
 """
 
+import collections
+import contextlib
 import copy
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
@@ -37,7 +42,7 @@ import torch.nn as nn
 
 from ..core import profiling
 from ..core.mesh import (MODEL_AXIS, block, gather_blocks,
-                         resolve_model_mesh)
+                         resolve_model_mesh, splits)
 from ..nets.ed import SignalED
 from ..nets.functional_bn import autocast_in_vmap, vmappable
 from ..utils.coords import cluster_coord
@@ -49,6 +54,102 @@ from .predictor import BasePredictor, Locator
 # frames; chip_smoke.py's ensemble_path): 181-260 ms against 268-281 ms a
 # predict with the vmap's convs in bf16 (``autocast_in_vmap``; PERF.md)
 AUTO_LAYOUT = "map"
+# chunks of at most this many pixels (frames x H x W) replay the members'
+# forwards from a CUDA graph: below it the host's launches set the pace,
+# above it the card does and a graph only pins memory. Config D's 4
+# members on an H100 80GB HBM3 (700 W), eager, 1/2/4/8 frames of 512^2:
+# 10.8/12.6/14.3/14.2 ms of host issuing a chunk, 3.9/5.9/10.4/19.5 ms of
+# kernels (PERF.md). Both layouts' graphs equal their eager forwards bit
+# for bit there (chip_smoke.py's ensemble_graph phase).
+GRAPH_MAX_PIXELS = 4 * 512 * 512
+# input signatures a predictor remembers (seen once, or graphed); the
+# oldest is dropped first, with its graph and memory pool
+GRAPHS_KEPT = 4
+
+
+def graph_engages(device: torch.device, mesh, grad_enabled: bool,
+                  pixels: int) -> bool:
+    """Whether a chunk of ``pixels`` replays the members' forwards from a
+    CUDA graph: on a CUDA device, with no mesh splitting the members over
+    ranks (their gather is a collective), autograd off, and at most
+    ``GRAPH_MAX_PIXELS``."""
+    return (device.type == "cuda" and not splits(mesh, MODEL_AXIS)
+            and not grad_enabled and pixels <= GRAPH_MAX_PIXELS)
+
+
+def _pixels(x: torch.Tensor) -> int:
+    """Frames x H x W of a channel-last image chunk; elements otherwise."""
+    return x.numel() // x.shape[-1] if x.ndim == 4 else x.numel()
+
+
+@contextlib.contextmanager
+def _no_cast_cache():
+    """Autocast's cache of parameter casts off in the enclosed code, the
+    scopes it opens included: a captured graph then makes its own bfloat16
+    casts of the parameters, rather than reading casts that were made, and
+    are freed, outside it."""
+    saved = torch.is_autocast_cache_enabled()
+    torch.set_autocast_cache_enabled(False)
+    try:
+        yield
+    finally:
+        torch.set_autocast_cache_enabled(saved)
+
+
+class _MemberGraphs:
+    """A predictor's CUDA graphs of its members' forwards, one an input
+    signature. A signature's first chunk runs eagerly on the capture
+    stream (cuDNN's plans and lazy set-up warm there), its second is
+    captured, and later ones are copied into the graph's input, replayed,
+    and their output cloned (the next replay overwrites it). Each graph
+    keeps a private memory pool while it lives, so a replay allocates
+    nothing there. The capture calls ``CUDAGraph.capture_begin`` itself:
+    ``torch.cuda.graph``'s entry empties the allocator's cache."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+        # signature -> None (seen once) or (graph, input, output)
+        self.entries: collections.OrderedDict = collections.OrderedDict()
+
+    def _on_capture_stream(self, fn, *args):
+        current = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            out = fn(*args)
+        current.wait_stream(self.stream)
+        return out
+
+    def _capture(self, forward, x: torch.Tensor):
+        static_in = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                        device=x.device)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            graph.capture_begin()
+            try:
+                with _no_cast_cache():
+                    return forward(static_in)
+            finally:
+                graph.capture_end()
+        return graph, static_in, self._on_capture_stream(capture)
+
+    def run(self, key, forward, x: torch.Tensor) -> torch.Tensor:
+        """``forward(x)`` for a chunk whose signature is ``key``."""
+        if key not in self.entries:
+            self.entries[key] = None
+            if len(self.entries) > GRAPHS_KEPT:
+                self.entries.popitem(last=False)
+            profiling.count("predictor.eager_forward")
+            return self._on_capture_stream(forward, x)
+        if self.entries[key] is None:
+            profiling.count("predictor.graph_capture")
+            self.entries[key] = self._capture(forward, x)
+        else:
+            profiling.count("predictor.graph_replay")
+        graph, static_in, static_out = self.entries[key]
+        static_in.copy_(x)
+        graph.replay()
+        return static_out.clone()
 
 
 def _member_order(k):
@@ -70,6 +171,11 @@ class EnsemblePredictor(BasePredictor):
     ``verbose``, ``mesh`` (the members' mesh: None for the automatic one,
     False for none, or a ``DeviceMesh``). The predictor runs on the
     skeleton's device.
+
+    Where :func:`graph_engages`, the members' forwards replay from CUDA
+    graphs that read the members' parameters and buffers in place:
+    ``load_state_dict`` into a member stays correct, while replacing a
+    member or its parameter tensors needs a new predictor.
     """
 
     def __init__(self, skeleton: nn.Module,
@@ -121,6 +227,8 @@ class EnsemblePredictor(BasePredictor):
         verbose = kwargs.get("verbose", 1)
         self.everbose = bool(verbose)
         self.verbose = verbose > 1 if isinstance(verbose, int) else False
+        self._graphs = _MemberGraphs(self.device) \
+            if self.device.type == "cuda" else None
 
     def _set_output_shape(self, data: torch.Tensor) -> None:
         """Output shape, channel-last (`epredictor.py:119-135`)."""
@@ -157,32 +265,42 @@ class EnsemblePredictor(BasePredictor):
 
     def _member_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """(n_models, n, ...) float32 outputs of a chunk, channel-last,
-        after the logits' activation (every rank's block of members)."""
+        after the logits' activation (every rank's block of members);
+        replayed from a CUDA graph where :func:`graph_engages`."""
         with profiling.span("predictor.forward"):
-            image_in = self.data_type == "image" and self._channels_first
-            if image_in:
-                x = x.permute(0, 3, 1, 2)
-            with self.precision.scope(self.device):
-                if self.member_layout == "vmap":
-                    from torch.func import functional_call, vmap
-                    with autocast_in_vmap():
-                        out = vmap(lambda p, b, xx: functional_call(
-                            self._base, (p, b), (xx,)),
-                            in_dims=(0, 0, None))(*self._stacked, x)
-                else:
-                    out = torch.stack([m(x) for m in self.members])
-            out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)
-            if self._channels_first and out.ndim == 5:
-                out = out.permute(0, 1, 3, 4, 2)
-            nb = self.nb_classes or 0
-            if self.logits:
-                if nb > 1:
-                    out = torch.softmax(out, dim=-1)
-                elif nb == 1:
-                    out = torch.sigmoid(out)
-            elif nb > 1:
-                out = torch.exp(out)
-            return out
+            if not graph_engages(self.device, self._mesh,
+                                 torch.is_grad_enabled(), _pixels(x)):
+                profiling.count("predictor.eager_forward")
+                return self._forward(x)
+            key = (tuple(x.shape), x.dtype, x.stride(),
+                   torch.is_inference_mode_enabled(), self.precision)
+            return self._graphs.run(key, self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        image_in = self.data_type == "image" and self._channels_first
+        if image_in:
+            x = x.permute(0, 3, 1, 2)
+        with self.precision.scope(self.device):
+            if self.member_layout == "vmap":
+                from torch.func import functional_call, vmap
+                with autocast_in_vmap():
+                    out = vmap(lambda p, b, xx: functional_call(
+                        self._base, (p, b), (xx,)),
+                        in_dims=(0, 0, None))(*self._stacked, x)
+            else:
+                out = torch.stack([m(x) for m in self.members])
+        out = gather_blocks(out.float(), self._mesh, MODEL_AXIS)
+        if self._channels_first and out.ndim == 5:
+            out = out.permute(0, 1, 3, 4, 2)
+        nb = self.nb_classes or 0
+        if self.logits:
+            if nb > 1:
+                out = torch.softmax(out, dim=-1)
+            elif nb == 1:
+                out = torch.sigmoid(out)
+        elif nb > 1:
+            out = torch.exp(out)
+        return out
 
     @torch.inference_mode()
     def ensemble_forward(self, data, out_shape=None, num_batches: int = 1

@@ -226,7 +226,18 @@ Phases, one JSON line each (all before the last line):
     the card's busy share, each layout; the members fine-tuned from phase
     10's net in the "vmap" layout, served by ``EnsemblePredictor`` and
     ``ensemble_locate`` (one labeller launch, labels and sums equal to the
-    plain labeller's, its time).
+    plain labeller's, its time);
+32. ensemble_graph: config D's four members (default Unets, seeded) in
+    ``EnsemblePredictor``'s CUDA graph at 1 and 3 frames of 512²: every
+    call of ``_member_outputs`` (eager first sighting, capture, replays)
+    equal to the eager forward bit for bit, and so ``predict`` and
+    ``ensemble_forward``; the counters (one eager sighting, one capture,
+    then replays); ``reserved`` and the card's allocations flat over 50
+    replays; the "vmap" layout's graph against its eager forward the same
+    way; and the size sweep behind
+    ``GRAPH_MAX_PIXELS``: eager forwards of 1, 2, 4 and 8 frames, the
+    host's time issuing a chunk against the card's time running it, and
+    the graphed chunk's time.
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
 and the forward's with the ``served_from_jax`` ones, the labeller's with
@@ -351,6 +362,11 @@ ENS_EPS, ENS_MIN_SAMPLES = 1.0, 3
 # "map" against "vmap" in float32 (TF32 off): the same function, grouped
 # convs and elementwise BatchNorm against plain convs and torch's BatchNorm
 ENS_LAYOUT_TOL = 1e-4
+# ensemble_graph: the chunks checked against the eager forward, the
+# replays over which the card's memory must stay flat, the sweep's chunks
+ENS_GRAPH_FRAMES = (1, 3)
+ENS_GRAPH_CALLS = 50
+ENS_GRAPH_SWEEP = (1, 2, 4, 8)
 # gp_fixture: the JAX runs of `tests/fixtures/torch_port_dklgp.npz`,
 # float32 (TF32 off). The DKL run's 590 K extractor weights get gradients
 # of rounding size where ReLUs are dead or nearly so, which Adam moves by
@@ -4388,6 +4404,143 @@ def phase_ensemble_vmap_path(device, basenet):
             "tiled_mask": lab["tiled_mask"], "locate_ms": locate_ms}
 
 
+@contextlib.contextmanager
+def predictor_graphs(max_pixels):
+    """``EnsemblePredictor``'s graph rule with another size limit (0: every
+    chunk eager) for the enclosed code."""
+    from atomai_tpu_torch.predictors import epredictor
+    saved, epredictor.GRAPH_MAX_PIXELS = epredictor.GRAPH_MAX_PIXELS, \
+        max_pixels
+    try:
+        yield
+    finally:
+        epredictor.GRAPH_MAX_PIXELS = saved
+
+
+def graph_predictor(device, layout="map"):
+    """Config D's predictor: 4 default Unets from seeds 0-3."""
+    import torch
+    from atomai_tpu_torch.nets import Unet
+    from atomai_tpu_torch.predictors import EnsemblePredictor
+    members = {}
+    for k in range(ENS_MODELS):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(k)
+            members[k] = Unet(nb_classes=1).state_dict()
+    skeleton = Unet(nb_classes=1).to(device)
+    return EnsemblePredictor(skeleton, members, nb_classes=1, verbose=0,
+                             member_layout=layout)
+
+
+def graphed_member_outputs(p, x, calls=4):
+    """Whether each of ``calls`` calls of ``p._member_outputs(x)`` (the
+    signature's eager sighting, its capture, then replays) equals the
+    eager forward bit for bit, and the counters of those calls."""
+    import torch
+    with torch.inference_mode():
+        want = p._forward(x)
+        zero_counters()
+        got = [p._member_outputs(x) for _ in range(calls)]
+    return (all(torch.equal(g, want) for g in got),
+            counted("predictor.eager_forward", "predictor.graph_capture",
+                    "predictor.graph_replay"))
+
+
+def replay_memory(p, x, device, calls=ENS_GRAPH_CALLS):
+    """The card's reserved bytes and allocations (``cudaMalloc`` /
+    ``cudaFree``) over ``calls`` replays of an already captured chunk."""
+    import torch
+
+    def reading():
+        torch.cuda.synchronize(device)
+        ms = torch.cuda.memory_stats(device)
+        return (torch.cuda.memory_reserved(device),
+                ms.get("num_device_alloc", ms["segment.all.allocated"]),
+                ms.get("num_device_free", ms["segment.all.freed"]))
+    with torch.inference_mode():
+        p._member_outputs(x)
+        before = reading()
+        for _ in range(calls):
+            p._member_outputs(x)
+        after = reading()
+    return {"reserved_before": before[0], "reserved_after": after[0],
+            "device_allocs": after[1] - before[1],
+            "device_frees": after[2] - before[2]}
+
+
+def graph_sweep(p, frames, device):
+    """For each chunk of ``ENS_GRAPH_SWEEP`` frames: the host's ms issuing
+    the eager forward (median of 5, the card idle at each start), the
+    card's ms running it (queued behind a sleep kernel), the eager chunk's
+    ms by CUDA events, and the graphed chunk's (every size graphed)."""
+    import torch
+    rows = {}
+    for n in ENS_GRAPH_SWEEP:
+        x = p.preprocess(frames[:n])
+        with torch.inference_mode(), predictor_graphs(max_pixels=1 << 62):
+            host = []
+            for _ in range(5):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                p._forward(x)
+                host.append((time.perf_counter() - t0) * 1e3)
+            dev = [device_ms(lambda: p._forward(x), 1, device)
+                   for _ in range(3)]
+            eager = cuda_ms(lambda: p._forward(x), 5, device)
+            reserved = torch.cuda.memory_reserved(device)
+            p._member_outputs(x)
+            p._member_outputs(x)
+            torch.cuda.synchronize(device)
+            pool = torch.cuda.memory_reserved(device) - reserved
+            graphed = cuda_ms(lambda: p._member_outputs(x), 5, device)
+        rows[n] = {"host_ms": float(np.median(host)),
+                   "device_ms": float(np.median(dev)), "eager_ms": eager,
+                   "graphed_ms": graphed, "graph_reserved_mb": pool / 2**20}
+    return rows
+
+
+def phase_ensemble_graph(device):
+    from atomai_tpu_torch.predictors import epredictor
+    from atomai_tpu_torch.utils import make_lattice_stack
+    imgs = make_lattice_stack(**dict(ENS_DATA, n_images=max(
+        ENS_GRAPH_SWEEP)))[0]
+    out = {"max_pixels": epredictor.GRAPH_MAX_PIXELS}
+    for n in ENS_GRAPH_FRAMES:
+        frames = imgs[:n]
+        p = graph_predictor(device)
+        x = p.preprocess(frames)
+        exact, counts = graphed_member_outputs(p, x)
+        check(exact, f"graphed member outputs of {n} frames differ from "
+              f"the eager forward")
+        check(counts == (1, 1, 2), f"counters {counts}, not one eager "
+              f"sighting, one capture, two replays")
+        mem = replay_memory(p, x, device)
+        check(mem["reserved_after"] == mem["reserved_before"]
+              and mem["device_allocs"] == 0,
+              f"replays of {n} frames allocate on the card: {mem}")
+        with predictor_graphs(max_pixels=0):
+            want = p.predict(frames), p.ensemble_forward(x)
+        got = [(p.predict(frames), p.ensemble_forward(x)) for _ in range(3)]
+        same = all(np.array_equal(g[0][0], want[0][0])
+                   and np.array_equal(g[0][1], want[0][1])
+                   and np.array_equal(g[1], want[1]) for g in got)
+        check(same, f"graphed predict or ensemble_forward of {n} frames "
+              f"differs from the eager one")
+        vmap_exact, vmap_counts = graphed_member_outputs(
+            graph_predictor(device, "vmap"), x)
+        check(vmap_exact and vmap_counts == (1, 1, 2),
+              f"the vmap layout's graph of {n} frames differs from its "
+              f"eager forward, or counted {vmap_counts}")
+        out[n] = {"member_outputs_exact": exact, "counters": counts,
+                  "memory": mem, "predict_exact": same,
+                  "vmap_exact": vmap_exact, "vmap_counters": vmap_counts}
+    sweep = graph_sweep(graph_predictor(device), imgs, device)
+    host_bound = [n for n, r in sweep.items()
+                  if r["host_ms"] > r["device_ms"]]
+    emit("ensemble_graph", **{str(k): v for k, v in out.items()},
+         sweep=sweep, host_bound_frames=host_bound)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4434,6 +4587,7 @@ def main():
      kernels[2]["mesh_path"]) = phase_mesh_path(device)
     kernels[0]["ensemble_vmap_path"] = phase_ensemble_vmap_path(device,
                                                                 trained_net)
+    phase_ensemble_graph(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

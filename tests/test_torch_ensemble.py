@@ -38,6 +38,7 @@ from atomai_tpu_torch.models import (ensemble_from_jax, load_ensemble,
                                      signal_ed_from_jax, unet_from_jax)
 from atomai_tpu_torch.nets import Unet, init_imspec_model
 from atomai_tpu_torch.predictors import EnsemblePredictor, ensemble_locate
+from atomai_tpu_torch.predictors import epredictor
 from atomai_tpu_torch.trainers import EnsembleTrainer
 from atomai_tpu_torch.utils import (average_weights, make_lattice_stack,
                                     sample_weights)
@@ -393,6 +394,85 @@ def test_predictor_shapes_and_checks():
     assert float(np.abs(var).max()) == 0.0       # one member
     with pytest.raises(ValueError, match="channel"):
         p.predict(x, format_out="nhwc")
+
+
+
+class _FakeMesh:
+    """What ``core.mesh.splits`` reads of a ``DeviceMesh``: this rank in a
+    (data, model) mesh of ``model`` ranks along the model axis."""
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, model):
+        self.model = model
+
+    def size(self, dim):
+        return (1, self.model)[dim]
+
+    def get_coordinate(self):
+        return [0, 0]
+
+
+_PX = epredictor.GRAPH_MAX_PIXELS
+
+
+@pytest.mark.parametrize("device,mesh,grad,pixels,want", [
+    ("cuda", None, False, 512 * 512, True),
+    ("cuda:0", None, False, _PX, True),
+    ("cuda", None, False, _PX + 1, False),
+    ("cpu", None, False, 512 * 512, False),
+    ("cuda", _FakeMesh(2), False, 512 * 512, False),
+    ("cuda", _FakeMesh(1), False, 512 * 512, True),
+    ("cuda", None, True, 512 * 512, False),
+])
+def test_graph_engagement_rule(device, mesh, grad, pixels, want):
+    """The members' forwards replay from a CUDA graph only on a card, with
+    no mesh splitting the members, autograd off and up to
+    ``GRAPH_MAX_PIXELS`` a chunk."""
+    assert epredictor.graph_engages(torch.device(device), mesh, grad,
+                                    pixels) is want
+
+
+@pytest.mark.parametrize("layout", ["map", "vmap"])
+def test_cpu_forwards_stay_eager_and_unchanged(layout):
+    """On the CPU ``predict``, ``ensemble_forward`` and a forward with
+    autograd on give the eager loop's arrays (exactly in its own layout),
+    and every chunk counts as an eager forward."""
+    from atomai_tpu_torch.core import profiling
+    tnet = Unet(nb_classes=1, nb_filters=4, layers=(1, 1, 1, 1))
+    members = {}
+    for i in range(3):
+        torch.manual_seed(i)
+        members[i] = Unet(nb_classes=1, nb_filters=4,
+                          layers=(1, 1, 1, 1)).state_dict()
+    x = np.random.RandomState(4).rand(7, 16, 16).astype(np.float32)
+    profiling.reset()
+    p = EnsemblePredictor(tnet, members, nb_classes=1, verbose=0,
+                          member_layout=layout)
+    mean, var = p.predict(x, num_batches=3)        # 4 chunks
+    xp = p.preprocess(x)
+    maps = p.ensemble_forward(xp)                  # 1 chunk
+    with torch.enable_grad():
+        grad_out = p._member_outputs(xp)           # 1 chunk
+    nets = []
+    for k in range(3):
+        net = Unet(nb_classes=1, nb_filters=4, layers=(1, 1, 1, 1))
+        net.load_state_dict(members[k])
+        nets.append(net.eval())
+    with torch.no_grad():
+        want = torch.sigmoid(torch.stack(
+            [m(xp.permute(0, 3, 1, 2)) for m in nets]).float()
+            .permute(0, 1, 3, 4, 2)).numpy()
+    tol = 0 if layout == "map" else 1e-6
+    np.testing.assert_allclose(maps, want, atol=tol, rtol=0)
+    np.testing.assert_allclose(grad_out.detach().numpy(), want, atol=tol,
+                               rtol=0)
+    np.testing.assert_allclose(mean, want.mean(0), atol=tol + 1e-7, rtol=0)
+    np.testing.assert_allclose(var, want.var(0), atol=tol + 1e-7, rtol=0)
+    counters = profiling.summary()["counters"]
+    assert counters.get("predictor.eager_forward") == 6
+    assert "predictor.graph_capture" not in counters
+    assert "predictor.graph_replay" not in counters
+    assert p._graphs is None
 
 
 # --------------------------------------------------------------- locate
