@@ -12,8 +12,8 @@ Counterpart of `atomai_tpu/predictors/epredictor.py:26-337`:
   (``torch.func.stack_module_state``); "auto" takes the one measured
   faster on the card (``AUTO_LAYOUT``). Where the host, not the card,
   sets the pace (:func:`graph_engages`), a chunk's member forwards replay
-  from a CUDA graph captured once an input signature
-  (:class:`_MemberGraphs`);
+  from a CUDA graph (``core/graphs.py``), captured at an input
+  signature's second sighting;
 - :func:`ensemble_locate`: one :class:`Locator` run over every (member,
   frame) map, so that on a CUDA tensor one labeller call serves the whole
   ensemble, then DBSCAN of each frame's coordinates
@@ -32,7 +32,6 @@ as one process does (a rank outside the mesh runs every member).
 """
 
 import collections
-import contextlib
 import copy
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
@@ -40,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..core import profiling
+from ..core import graphs, profiling
 from ..core.mesh import (MODEL_AXIS, block, gather_blocks,
                          resolve_model_mesh, splits)
 from ..nets.ed import SignalED
@@ -65,6 +64,9 @@ GRAPH_MAX_PIXELS = 4 * 512 * 512
 # input signatures a predictor remembers (seen once, or graphed); the
 # oldest is dropped first, with its graph and memory pool
 GRAPHS_KEPT = 4
+_COUNTERS = {"eager": "predictor.eager_forward",
+             "capture": "predictor.graph_capture",
+             "replay": "predictor.graph_replay"}
 
 
 def graph_engages(device: torch.device, mesh, grad_enabled: bool,
@@ -80,76 +82,6 @@ def graph_engages(device: torch.device, mesh, grad_enabled: bool,
 def _pixels(x: torch.Tensor) -> int:
     """Frames x H x W of a channel-last image chunk; elements otherwise."""
     return x.numel() // x.shape[-1] if x.ndim == 4 else x.numel()
-
-
-@contextlib.contextmanager
-def _no_cast_cache():
-    """Autocast's cache of parameter casts off in the enclosed code, the
-    scopes it opens included: a captured graph then makes its own bfloat16
-    casts of the parameters, rather than reading casts that were made, and
-    are freed, outside it."""
-    saved = torch.is_autocast_cache_enabled()
-    torch.set_autocast_cache_enabled(False)
-    try:
-        yield
-    finally:
-        torch.set_autocast_cache_enabled(saved)
-
-
-class _MemberGraphs:
-    """A predictor's CUDA graphs of its members' forwards, one an input
-    signature. A signature's first chunk runs eagerly on the capture
-    stream (cuDNN's plans and lazy set-up warm there), its second is
-    captured, and later ones are copied into the graph's input, replayed,
-    and their output cloned (the next replay overwrites it). Each graph
-    keeps a private memory pool while it lives, so a replay allocates
-    nothing there. The capture calls ``CUDAGraph.capture_begin`` itself:
-    ``torch.cuda.graph``'s entry empties the allocator's cache."""
-
-    def __init__(self, device: torch.device):
-        self.stream = torch.cuda.Stream(device)
-        # signature -> None (seen once) or (graph, input, output)
-        self.entries: collections.OrderedDict = collections.OrderedDict()
-
-    def _on_capture_stream(self, fn, *args):
-        current = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            out = fn(*args)
-        current.wait_stream(self.stream)
-        return out
-
-    def _capture(self, forward, x: torch.Tensor):
-        static_in = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                        device=x.device)
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            graph.capture_begin()
-            try:
-                with _no_cast_cache():
-                    return forward(static_in)
-            finally:
-                graph.capture_end()
-        return graph, static_in, self._on_capture_stream(capture)
-
-    def run(self, key, forward, x: torch.Tensor) -> torch.Tensor:
-        """``forward(x)`` for a chunk whose signature is ``key``."""
-        if key not in self.entries:
-            self.entries[key] = None
-            if len(self.entries) > GRAPHS_KEPT:
-                self.entries.popitem(last=False)
-            profiling.count("predictor.eager_forward")
-            return self._on_capture_stream(forward, x)
-        if self.entries[key] is None:
-            profiling.count("predictor.graph_capture")
-            self.entries[key] = self._capture(forward, x)
-        else:
-            profiling.count("predictor.graph_replay")
-        graph, static_in, static_out = self.entries[key]
-        static_in.copy_(x)
-        graph.replay()
-        return static_out.clone()
 
 
 def _member_order(k):
@@ -227,7 +159,8 @@ class EnsemblePredictor(BasePredictor):
         verbose = kwargs.get("verbose", 1)
         self.everbose = bool(verbose)
         self.verbose = verbose > 1 if isinstance(verbose, int) else False
-        self._graphs = _MemberGraphs(self.device) \
+        # input signature -> its graphed call
+        self._graphs = collections.OrderedDict() \
             if self.device.type == "cuda" else None
 
     def _set_output_shape(self, data: torch.Tensor) -> None:
@@ -248,20 +181,19 @@ class EnsemblePredictor(BasePredictor):
 
     def preprocess(self, data, norm: bool = True) -> torch.Tensor:
         """Images -> NHWC, spectra -> (n, length), float32 on the device,
-        min-max normalised over the whole set unless ``norm=False``."""
+        min-max normalised there over the whole set unless ``norm=False``."""
         with profiling.span("predictor.preprocess"):
             data = np.asarray(data)
             if self.data_type == "image":
-                if data.ndim == 2:
-                    data = data[None]
-                data = format_image(data, norm)
+                data = format_image(data, norm=False)
             else:
                 if data.ndim == 1:
                     data = data[None]
-                data = format_spectra(data, norm)
+                data = format_spectra(data)
             data = torch.from_numpy(data)
             with profiling.span("predictor.upload"):
-                return data.to(self.device)
+                x = data.to(self.device)
+            return self._minmax(x) if norm else x
 
     def _member_outputs(self, x: torch.Tensor) -> torch.Tensor:
         """(n_models, n, ...) float32 outputs of a chunk, channel-last,
@@ -274,7 +206,17 @@ class EnsemblePredictor(BasePredictor):
                 return self._forward(x)
             key = (tuple(x.shape), x.dtype, x.stride(),
                    torch.is_inference_mode_enabled(), self.precision)
-            return self._graphs.run(key, self._forward, x)
+            call = self._graphs.get(key)
+            if call is None:
+                # a private pool, freed with the dropped signature: a
+                # replay allocates nothing
+                call = self._graphs[key] = graphs.GraphedCall(
+                    warmup=1, private=True)
+                if len(self._graphs) > GRAPHS_KEPT:
+                    self._graphs.popitem(last=False)
+            profiling.count(_COUNTERS[call.stage])
+            with call.stream(self.device):
+                return call(self._forward, x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         image_in = self.data_type == "image" and self._channels_first

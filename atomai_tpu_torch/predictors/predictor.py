@@ -64,6 +64,13 @@ class BasePredictor:
         self.verbose = kwargs.get("verbose", False)
         self.mesh = resolve_data_mesh(kwargs.get("mesh", None))
 
+    @staticmethod
+    def _minmax(x: torch.Tensor) -> torch.Tensor:
+        """``x`` min-max normalised over the whole stack on its device, by
+        the JAX package's formula: (x - min) / max(max - min, 1e-12)."""
+        lo = x.min()
+        return (x - lo) / torch.clamp(x.max() - lo, min=1e-12)
+
     def preprocess(self, data) -> torch.Tensor:
         """``data`` as a float32 tensor on the model's device."""
         with profiling.span("predictor.preprocess"):
@@ -173,10 +180,7 @@ class SegPredictor(BasePredictor):
             x = torch.from_numpy(format_image(image_data, norm=False))
             with profiling.span("predictor.upload"):
                 x = x.to(self.device)
-            if norm:
-                lo = x.min()
-                x = (x - lo) / torch.clamp(x.max() - lo, min=1e-12)
-            return x
+            return self._minmax(x) if norm else x
 
     def _num_batches(self, n: int, h: int, w: int) -> int:
         # chunks of ~256 MB of activations, never more chunks than frames
@@ -257,14 +261,14 @@ class ImSpecPredictor(BasePredictor):
     def preprocess(self, signal, norm: bool = True) -> torch.Tensor:
         signal = np.asarray(signal)
         if len(self.output_dim) == 1:   # image -> spectrum
-            if signal.ndim == 2:
-                signal = signal[None]
-            signal = format_image(signal, norm)[..., 0]
+            signal = format_image(signal, norm=False)
         else:                            # spectrum -> image
             if signal.ndim == 1:
                 signal = signal[None]
-            signal = format_spectra(signal, norm)
-        return torch.from_numpy(signal).to(self.device)
+            signal = format_spectra(signal)
+        x = torch.from_numpy(signal).to(self.device)
+        x = self._minmax(x) if norm else x
+        return x[..., 0] if len(self.output_dim) == 1 else x
 
     def predict(self, signal, **kwargs) -> np.ndarray:
         x = self.preprocess(signal, kwargs.get("norm", True))
@@ -301,11 +305,9 @@ class RegPredictor(BasePredictor):
 
     def preprocess(self, image_data, norm: bool = True) -> torch.Tensor:
         """NCHW float32 tensor on the device."""
-        image_data = np.asarray(image_data)
-        if image_data.ndim == 2:
-            image_data = image_data[None, ...]
-        x = torch.from_numpy(format_image(image_data, norm))
-        return x.permute(0, 3, 1, 2).to(self.device)
+        x = torch.from_numpy(format_image(image_data, norm=False)).to(
+            self.device)
+        return (self._minmax(x) if norm else x).permute(0, 3, 1, 2)
 
     def forward_all(self, image_data, **kwargs) -> np.ndarray:
         x = self.preprocess(image_data, kwargs.get("norm", True))

@@ -23,12 +23,12 @@ backward; the feature extractor runs in float32 under the policy's TF32
 switch (a two-stage backward: the GP part to the embedding, then the
 extractor). Losses are fetched once per ``print_loss`` chunk.
 
-On one card, a run's step is captured in a CUDA graph after its first
-``GRAPH_WARMUP`` steps and replayed for the rest of the run: one launch a
-step instead of some 550, so that a fit of a few hundred points is no
-longer bound by the host's launches. Adam keeps its state on the card
-(``capturable``) from the first step, so eager and replayed steps are the
-same arithmetic, bit for bit.
+On one card, a run's step is captured in a CUDA graph (``core/graphs.py``)
+after its first ``GRAPH_WARMUP`` steps and replayed for the rest of the
+run: one launch a step instead of some 550, so that a fit of a few
+hundred points is no longer bound by the host's launches. Adam keeps its
+state on the card (``capturable``) from the first step, so eager and
+replayed steps are the same arithmetic, bit for bit.
 
 The DKL trainers record the spans (``core.profiling``) ``dkl.fit`` around
 ``run``, ``dkl.fit.fetch`` around each chunk's loss fetch and
@@ -59,7 +59,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import profiling
+from ..core import graphs, profiling
 from ..core.checkpoint import is_jax_tree, load_checkpoint, save_checkpoint
 from ..core.device import resolve_device
 from ..core.dtypes import Precision, default_precision
@@ -276,64 +276,6 @@ def posterior(params, X, y, Xs, kernel: Callable,
     return posterior_from_cache(cache, X, Xs, kernel, full_cov)
 
 
-# a card's capture stream, and the last step graph captured there. Each
-# capture shares the last one's memory pool, so that a run reuses the
-# blocks of the runs before (a private pool a graph would keep them from
-# every later capture). A graph is replayed only during its own run, so
-# one is live at a time; the last is kept, never replayed again, because
-# a pool that no graph holds cannot be shared.
-_CAPTURE: dict = {}
-
-
-class _StepGraph:
-    """A run's step in a CUDA graph: ``GRAPH_WARMUP`` eager steps on the
-    card's capture stream, then one step captured and replayed. The
-    capture calls ``CUDAGraph.capture_begin`` itself, not
-    ``torch.cuda.graph``, whose entry empties the allocator's cache: a
-    graph is captured for every fit, and each emptying would free the
-    cached blocks of the draws and fits before, to be allocated anew."""
-
-    def __init__(self, device: torch.device):
-        index = torch.cuda.current_device() if device.index is None \
-            else device.index
-        if index not in _CAPTURE:
-            with torch.cuda.device(index):
-                _CAPTURE[index] = {"stream": torch.cuda.Stream(),
-                                   "last": None}
-        self.card = _CAPTURE[index]
-        self.stream = self.card["stream"]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.loss: Optional[torch.Tensor] = None
-        self.steps = 0
-
-    def run(self, step: Callable[[], torch.Tensor], n: int
-            ) -> List[torch.Tensor]:
-        """n steps of ``step``: each one's loss."""
-        current = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(current)
-        losses = []
-        with torch.cuda.stream(self.stream):
-            for _ in range(n):
-                if self.graph is None and self.steps >= GRAPH_WARMUP:
-                    last = self.card["last"]
-                    self.graph = torch.cuda.CUDAGraph()
-                    self.graph.capture_begin(
-                        pool=None if last is None else last.pool())
-                    try:
-                        self.loss = step()
-                    finally:
-                        self.graph.capture_end()
-                    self.card["last"] = self.graph
-                if self.graph is None:
-                    losses.append(step())
-                else:
-                    self.graph.replay()
-                    losses.append(self.loss.clone())
-                self.steps += 1
-        current.wait_stream(self.stream)
-        return losses
-
-
 class GPTrainer:
     """Exact (or SGPR) GP regression trainer (counterpart of
     `atomai_tpu/trainers/gptrainer.py:215-406`).
@@ -367,7 +309,7 @@ class GPTrainer:
         self.training_cycles = 1
         self.lr = None
         self.optimizer = None
-        self._graph: Optional[_StepGraph] = None
+        self._graph: Optional[graphs.GraphedCall] = None
         self._post_cache = None
         # the outputs' mesh (multi-output DKL) and this rank's block of
         # the outputs (None: all of them)
@@ -482,8 +424,11 @@ class GPTrainer:
         return all_sum(loss.detach(), self.model_mesh, MODEL_AXIS)
 
     def _run_chunk(self, n: int) -> None:
-        losses = [self._step() for _ in range(n)] if self._graph is None \
-            else self._graph.run(self._step, n)
+        if self._graph is None:
+            losses = [self._step() for _ in range(n)]
+        else:
+            with graphs.capture_stream(self.device):
+                losses = [self._graph(self._step) for _ in range(n)]
         with self._span("fit.fetch"):
             self.train_loss.extend(torch.stack(losses).tolist())  # one fetch
 
@@ -502,7 +447,10 @@ class GPTrainer:
         if not self.compiled:
             self.compile_trainer(X, y, training_cycles, **kwargs)
         print_loss = kwargs.get("print_loss", 10)
-        self._graph = _StepGraph(self.device) if self._graphed() else None
+        # captured anew every run, so it shares the card's last pool: a run
+        # reuses the blocks of the runs before
+        self._graph = graphs.GraphedCall(GRAPH_WARMUP, private=False) \
+            if self._graphed() else None
         try:
             e = 0
             while e < self.training_cycles:

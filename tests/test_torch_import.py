@@ -92,3 +92,23 @@ def test_chip_smoke_imports_no_plotting_or_graph_package():
     bad = _imported_roots(os.path.join(ROOT, "chip_smoke.py")) & {
         "matplotlib", "networkx", "PIL"}
     assert not bad, f"chip_smoke.py imports {sorted(bad)}"
+
+
+def _captures(path):
+    """Lines that begin a CUDA-graph capture or construct a ``CUDAGraph``
+    (``capture_begin``, ``CUDAGraph(...)``, ``torch.cuda.graph(...)``)."""
+    tree = ast.parse(open(path).read(), filename=path)
+    return sorted(node.lineno for node in ast.walk(tree)
+                  if isinstance(node, ast.Call) and ast.unparse(node.func)
+                  .endswith(("capture_begin", "CUDAGraph", "cuda.graph")))
+
+
+def test_graphs_are_captured_in_one_module():
+    """Within the port only ``core/graphs.py`` captures CUDA graphs, so
+    that the capture rules (stream, pool, autocast's cast cache, warm-up)
+    are written once."""
+    home = os.path.join("atomai_tpu_torch", "core", "graphs.py")
+    found = {s: _captures(os.path.join(ROOT, s)) for s in SOURCES[:-1]}
+    assert found[home], "core/graphs.py captures no graph"
+    others = {s: lines for s, lines in found.items() if lines and s != home}
+    assert not others, f"graphs captured outside {home}: {others}"

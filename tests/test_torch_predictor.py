@@ -15,11 +15,15 @@ import pytest
 import torch
 
 from atomai_tpu.nets import Unet as JaxUnet
+from atomai_tpu.predictors import EnsemblePredictor as JaxEnsemblePredictor
+from atomai_tpu.predictors import ImSpecPredictor as JaxImSpecPredictor
 from atomai_tpu.predictors import Locator as JaxLocator
+from atomai_tpu.predictors import RegPredictor as JaxRegPredictor
 from atomai_tpu.predictors import SegPredictor as JaxSegPredictor
 from atomai_tpu_torch.models import unet_from_jax
 from atomai_tpu_torch.nets import Unet
-from atomai_tpu_torch.predictors import Locator, SegPredictor
+from atomai_tpu_torch.predictors import (EnsemblePredictor, ImSpecPredictor,
+                                         Locator, RegPredictor, SegPredictor)
 from atomai_tpu_torch.utils import make_lattice_stack
 
 torch.set_num_threads(1)
@@ -78,15 +82,58 @@ def test_predict_return_image_matches_jax(nets, size):
     np.testing.assert_allclose(got_y, ref_y, atol=ATOL_MAPS)
 
 
-def test_preprocess_normalises_whole_stack(nets):
+def _preprocessors(nets, case):
+    """(the port's preprocess, the JAX package's) of one predictor and
+    data type; both return the predictor's model input."""
     jnet, params, stats, net = nets
-    imgs = np.stack([np.full((16, 16), 2.0), np.full((16, 16), 4.0)])
-    imgs[0, 3, 3] = 0.0
-    x = SegPredictor(net, verbose=False).preprocess(imgs)
-    ref = np.asarray(JaxSegPredictor(jnet, params, stats, verbose=False)
-                     .preprocess(imgs))
-    np.testing.assert_allclose(x.numpy(), ref, atol=1e-7)
-    assert x.min() == 0 and x.max() == 1 and x[1].min() == 1
+    if case == "seg":
+        return (SegPredictor(net, verbose=False).preprocess,
+                JaxSegPredictor(jnet, params, stats, verbose=False)
+                .preprocess)
+    if case.startswith("ensemble"):
+        kind = case.split("_")[1]
+        member = {"params": params, "batch_stats": stats}
+        return (EnsemblePredictor(net, {0: net.state_dict()},
+                                  data_type=kind, output_type=kind,
+                                  verbose=0).preprocess,
+                JaxEnsemblePredictor(jnet, {0: member}, data_type=kind,
+                                     output_type=kind).preprocess)
+    if case.startswith("imspec"):
+        dim = (8,) if case == "imspec_image" else (16, 16)
+        return (ImSpecPredictor(net, dim, verbose=False).preprocess,
+                JaxImSpecPredictor(jnet, params, dim, verbose=False)
+                .preprocess)
+    # the port's RegPredictor hands its net NCHW, the JAX package's NHWC
+    port = RegPredictor(net, 1, verbose=False).preprocess
+    return (lambda d: port(d).permute(0, 2, 3, 1),
+            JaxRegPredictor(jnet, params, 1, verbose=False).preprocess)
+
+
+@pytest.mark.parametrize("stack", ["varied", "constant"])
+@pytest.mark.parametrize("case", ["seg", "ensemble_image",
+                                  "ensemble_spectra", "imspec_image",
+                                  "imspec_spectra", "reg"])
+def test_preprocess_normalises_whole_stack(nets, case, stack):
+    """Every predictor min-max normalises over the whole stack, on the
+    tensor's device, into the JAX package's input bit for bit; a constant
+    stack meets the 1e-12 floor and reads 0."""
+    spectra = case.endswith("spectra")
+    shape = (2, 16) if spectra else (2, 16, 16)
+    data = np.ones(shape) * np.array([2.0, 4.0]).reshape(
+        (2,) + (1,) * (len(shape) - 1))
+    if stack == "varied":
+        data[(0,) + (3,) * (len(shape) - 1)] = 0.0
+    else:
+        data[:] = 3.0
+    port, jax_pre = _preprocessors(nets, case)
+    x = port(data)
+    ref = np.asarray(jax_pre(data))
+    assert x.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_array_equal(x.numpy(), ref)
+    if stack == "varied":
+        assert x.min() == 0 and x.max() == 1 and x[1].min() == 1
+    else:
+        assert not x.any()
 
 
 def test_predict_with_resize_matches_jax(nets):
