@@ -31,8 +31,9 @@ Ported so far:
 Each TPU kernel of the JAX package has a hand-written CUDA counterpart in
 ``atomai_tpu_torch/csrc``: the labeller (``cc_label.cu``) and the rVAE's
 fused spatial-decoder MLP (rVAE, jrVAE), forward and backward
-(``spatial_mlp.cu``);
-every other op is stock PyTorch. The package imports ``torch`` and never
+(``spatial_mlp.cu``); one more pair, with no TPU counterpart, does the
+exact GP's factor, solve and gradient at N up to a few thousand
+(``spd_mll.cu``); every other op is stock PyTorch. The package imports ``torch`` and never
 JAX.
 
 Every fit and predictor also runs over a device mesh (``core.mesh``): one

@@ -32,7 +32,11 @@ learning (``trainers/gptrainer.py``, ``models/dklgp/dklgpr.py``):
 ``dkl.upload`` (``set_data``'s copies and a draw's noise),
 ``dkl.thompson`` (root: one draw and its argmax) and ``dkl.fetch`` (a
 draw to the host). Counters: ``labeller.launches``,
-``spatial_mlp.forward_launches``, ``spatial_mlp.backward_launches``, and
+``spatial_mlp.forward_launches``, ``spatial_mlp.backward_launches``,
+``spd_mll.forward_launches``, ``spd_mll.backward_launches``, the exact
+GP's training steps by the route of their MLL (``gp.mll_kernel``: the
+kernel pair of ``ops/spd_mll.py``; ``gp.mll_library``: cuSOLVER or LAPACK
+under autograd), and
 ``EnsemblePredictor``'s member forwards of a chunk, one of three each:
 ``predictor.eager_forward`` (eager: off the card, or a signature's first
 sighting), ``predictor.graph_capture`` (captured, then replayed),

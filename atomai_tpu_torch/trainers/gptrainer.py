@@ -17,7 +17,12 @@ the MLL is mean-reduced by N and the losses of several outputs summed.
 
 The factorisations use ``torch.linalg.cholesky_ex``: no host sync, and a
 factor that failed is set to NaN (what ``jnp.linalg.cholesky`` returns),
-so the loss goes NaN where the JAX package's does. The trainers run the
+so the loss goes NaN where the JAX package's does. The exact MLL's factor,
+solve and gradient of a float32 K on a card, N up to
+``spd_mll.MLL_KERNEL_MAX_N``, are instead the kernel pair of
+``ops/spd_mll.py`` (a closed-form gradient, NaN where the factor fails);
+a chunk of steps counts its route, ``gp.mll_kernel`` or
+``gp.mll_library``, replayed steps too. The trainers run the
 kernel matrices, factorisations and solves with TF32 off, forward and
 backward; the feature extractor runs in float32 under the policy's TF32
 switch (a two-stage backward: the GP part to the embedding, then the
@@ -72,6 +77,7 @@ from ..nets.gp import (KERNELS, MemberStack, StackedFeatureExtractor,
                        _as_tensor, compute_bounds_stats, constrain,
                        fcFeatureExtractor, init_gp_params, kernel_diag,
                        scale_to_bounds, softplus)
+from ..ops import spd_mll
 
 JITTER = 1e-5
 # eager steps of a run on a card before its step is captured
@@ -134,19 +140,30 @@ def _exact_factor(X, ls, os_, noise, kernel):
     return _cholesky(_add_diag(K, noise + JITTER))
 
 
+def _mll_terms(K: torch.Tensor, r: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(r^T K^-1 r, log det K / 2), each (b,), by the route
+    ``spd_mll.route`` picks: the kernel pair, or the library's factor and
+    solve under autograd."""
+    if spd_mll.route(K.device, K.dtype, K.shape[-1]) == "kernel":
+        return spd_mll.mll_terms(K, r)
+    L = _cholesky(K)
+    # r^T K^-1 r = |L^-1 r|^2: one solve, whose backward is an outer
+    # product (cho_solve's would be an N^3 product)
+    v = _tri(L, r[..., None])[..., 0]
+    return (torch.sum(v * v, dim=-1),
+            torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1))
+
+
 def neg_mll(params, X, y, kernel: Callable, lengthscale_constraints=None):
     """Exact-GP negative MLL, mean-reduced by N. X: (N, d) or (b, N, d),
     y: (N,) or (b, N)."""
     single, ls, os_, noise, mean = _batched_hyp(params,
                                                 lengthscale_constraints)
-    L = _exact_factor(X, ls, os_, noise, kernel)
-    N = L.shape[-1]
-    # r^T K^-1 r = |L^-1 r|^2: one solve, whose backward is an outer
-    # product (cho_solve's would be an N^3 product)
-    v = _tri(L, (y - mean[:, None])[..., None])[..., 0]
-    mll = (-0.5 * torch.sum(v * v, dim=-1)
-           - torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), -1)
-           - 0.5 * N * _LOG_2PI)
+    K = _add_diag(kernel(X, X, ls, os_), noise + JITTER)
+    N = K.shape[-1]
+    q, h = _mll_terms(K, y - mean[:, None])
+    mll = -0.5 * q - h - 0.5 * N * _LOG_2PI
     out = -mll / N
     return out[0] if single else out
 
@@ -423,7 +440,18 @@ class GPTrainer:
         self.optimizer.step()
         return all_sum(loss.detach(), self.model_mesh, MODEL_AXIS)
 
+    def _mll_route(self) -> Optional[str]:
+        """The route of the exact MLL's factor, solve and gradient in this
+        trainer's steps (``spd_mll.route``); None for SGPR."""
+        if self.inducing_points is not None:
+            return None
+        return spd_mll.route(self.device, self.dtype, self.X.shape[-2])
+
     def _run_chunk(self, n: int) -> None:
+        route = self._mll_route()
+        if route is not None:
+            # here, not in the step: a replayed step runs no Python
+            profiling.count(f"gp.mll_{route}", n)
         if self._graph is None:
             losses = [self._step() for _ in range(n)]
         else:

@@ -237,7 +237,23 @@ Phases, one JSON line each (all before the last line):
     way; and the size sweep behind
     ``GRAPH_MAX_PIXELS``: eager forwards of 1, 2, 4 and 8 frames, the
     host's time issuing a chunk against the card's time running it, and
-    the graphed chunk's time.
+    the graphed chunk's time;
+33. spd_mll: the exact MLL's kernel pair (``ops/spd_mll.py``) at N = 1,
+    31, 64, 65, 256, 1,024 and the route's limit, one output and three:
+    q, h, dK and dr of the kernels, of the float32 plain version and of
+    the library route (cuSOLVER under autograd) against the plain version
+    in float64, the kernels within ``SPD_FACTOR`` times the larger
+    distance of the two float32 references (dK symmetric bit for bit);
+    NaN on the output whose factor fails, as on the library route;
+    forwards on two streams at once equal to each alone; a dklGPR fit at
+    585 points on the
+    kernel route and the same fit with the route forced to the library,
+    each one's CUDA graph's replays equal to its eager steps bit for
+    bit, the route and launch counters; each kernel's device time at
+    N = 256, 585, 1,024 beside its FLOP bound and pivot chain, the plain
+    version's, the library route's and ``torch.cholesky_inverse``'s; and
+    the sweep behind ``MLL_KERNEL_MAX_N``: both routes' forward and
+    backward over N = 64 ... 4,096, at one output and at four.
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
 and the forward's with the ``served_from_jax`` ones, the labeller's with
@@ -367,6 +383,35 @@ ENS_LAYOUT_TOL = 1e-4
 ENS_GRAPH_FRAMES = (1, 3)
 ENS_GRAPH_CALLS = 50
 ENS_GRAPH_SWEEP = (1, 2, 4, 8)
+# phase 33: the exact MLL's kernel pair (ops/spd_mll.py) at the edges of a
+# tile (1, 31, 64, 65), dkl64's smallest and largest states (256, 1,024)
+# and the route's limit, one output and three. K: an RBF matrix of points
+# in [-1, 1]^2 (lengthscale 0.5) plus 0.05 on its diagonal (condition up
+# to ~2e4 at N = 1,024), r standard normal, g_q and g_h in [0.5, 1.5).
+# Each float32 route's q, h, dK and dr against the plain version in
+# float64 on the card (relative: largest difference over largest value).
+# The library route and the plain version in float32 are backward-stable
+# float32 factorisations, each within about N u kappa of it, and their
+# distances from it differ case by case by a few times; a priori the
+# kernels lie within SPD_FACTOR times the larger of the two plus SPD_FLOOR
+# (a few float32 roundings: h at N = 1 is one log), and so do their gaps
+# to the float32 plain version; their gaps to the library route within one
+# more of the library's distance.
+SPD_SIZES = (1, 31, 64, 65, 256, 1024)
+SPD_FACTOR, SPD_FLOOR = 4.0, 2e-6
+# timed at dkl64's smallest, middle and largest states; a graphed dklGPR
+# fit at the middle one, on each route
+SPD_TIMED = (256, 585, 1024)
+SPD_GRAPH_N = 585
+# the sweep of both routes behind MLL_KERNEL_MAX_N, at one output (a DKL
+# fit) and four (independent-output DKL, phase 17's mode)
+SPD_SWEEP = (64, 256, 512, 1024, 1536, 2048, 2560, 3072, 4096)
+SPD_SWEEP_B = (1, 4)
+# forwards queued on each of two streams at once
+SPD_CONCURRENT_CALLS = 8
+# the forward's chain of pivots: a shuffle, an rsqrt with its Newton step
+# and two multiply-adds each, ~70 cycles of the SM clock (1.98 GHz)
+SPD_PIVOT_CYCLES, SM_HZ = 70, 1.98e9
 # gp_fixture: the JAX runs of `tests/fixtures/torch_port_dklgp.npz`,
 # float32 (TF32 off). The DKL run's 590 K extractor weights get gradients
 # of rounding size where ReLUs are dead or nearly so, which Adam moves by
@@ -764,7 +809,7 @@ def phase_device(device):
 
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
-    from atomai_tpu_torch.ops import cc_kernel, spatial_mlp
+    from atomai_tpu_torch.ops import cc_kernel, spatial_mlp, spd_mll
 
     def timed(build):
         t = time.perf_counter()
@@ -772,9 +817,10 @@ def phase_build():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futures = {name: pool.submit(timed, mod.build) for name, mod in
-                   (("cc_label", cc_kernel), ("spatial_mlp", spatial_mlp))}
+                   (("cc_label", cc_kernel), ("spatial_mlp", spatial_mlp),
+                    ("spd_mll", spd_mll))}
         seconds = {name: f.result() for name, f in futures.items()}
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
          ptxas=ptxas_report())
@@ -4541,6 +4587,228 @@ def phase_ensemble_graph(device):
          sweep=sweep, host_bound_frames=host_bound)
 
 
+def spd_problem(n, b, device, seed, noise=0.05):
+    """(K, r, g_q, g_h) of phase 33, float64 on the card."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    X = torch.rand(b, n, 2, generator=g, dtype=torch.float64) * 2 - 1
+    K = torch.exp(-2.0 * ((X[:, :, None] - X[:, None]) ** 2).sum(-1)) \
+        + noise * torch.eye(n, dtype=torch.float64)
+    r = torch.randn(b, n, generator=g, dtype=torch.float64)
+    gq, gh = torch.rand(2, b, generator=g, dtype=torch.float64) + 0.5
+    return tuple(t.to(device) for t in (K, r, gq, gh))
+
+
+def library_mll_grads(K, r, gq, gh):
+    """(q, h, dK, dr) of the library route: ``gptrainer``'s factor and
+    solve under autograd, as ``neg_mll`` takes them above the limit."""
+    import torch
+    from atomai_tpu_torch.trainers.gptrainer import _cholesky, _tri
+    K = K.detach().requires_grad_()
+    r = r.detach().requires_grad_()
+    L = _cholesky(K)
+    v = _tri(L, r[..., None])[..., 0]
+    q = (v * v).sum(-1)
+    h = torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+    (gq * q + gh * h).sum().backward()
+    return q.detach(), h.detach(), 0.5 * (K.grad + K.grad.mT), r.grad
+
+
+def kernel_mll_grads(K, r, gq, gh):
+    from atomai_tpu_torch.ops import spd_mll
+    q, h, _, W = spd_mll.mll_forward_cuda(K, r)
+    return (q, h) + spd_mll.mll_backward_cuda(W, K.shape[-1], gq, gh)
+
+
+def plain_mll_grads(K, r, gq, gh):
+    from atomai_tpu_torch.ops import spd_mll
+    q, h, _, W = spd_mll.mll_factor_reference(K, r)
+    return (q, h) + spd_mll.mll_grad_reference(W, K.shape[-1], gq, gh)
+
+
+def spd_gap(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-300))
+
+
+def spd_check(n, b, device, seed):
+    """The kernels, the float32 plain version and the library route of one
+    case against the float64 plain version; the gates of phase 33."""
+    import torch
+    K, r, gq, gh = spd_problem(n, b, device, seed)
+    exact = plain_mll_grads(K, r, gq, gh)
+    f32 = [t.float() for t in (K, r, gq, gh)]
+    runs = {"kernel": kernel_mll_grads(*f32), "plain": plain_mll_grads(*f32),
+            "library": library_mll_grads(*f32)}
+    names = ("q", "h", "dK", "dr")
+    out = {"n": n, "b": b}
+    for name, got in runs.items():
+        out[name] = {k: spd_gap(x, y) for k, x, y in zip(names, got, exact)}
+    for other in ("plain", "library"):
+        out[f"kernel_to_{other}"] = {
+            k: spd_gap(x, y) for k, x, y in zip(names, runs["kernel"],
+                                                runs[other])}
+    for k in names:
+        bound = SPD_FACTOR * max(out["library"][k], out["plain"][k]) \
+            + SPD_FLOOR
+        check(out["kernel"][k] <= bound and out["kernel_to_plain"][k] <= bound
+              and out["kernel_to_library"][k] <= bound + out["library"][k],
+              f"spd_mll kernels at n={n}, b={b}, {k}: {out}")
+    dK = runs["kernel"][2]
+    check(torch.equal(dK, dK.mT), f"spd_mll dK not symmetric at n={n}")
+    return out
+
+
+def spd_nan_check(device):
+    """One output of three has a negative pivot: NaN in its q, h, dK and
+    dr on the kernels where the library route gives NaN, finite
+    elsewhere."""
+    import torch
+    K, r, gq, gh = (t.float() for t in spd_problem(70, 3, device, 7))
+    K[1, 40, 40] = -1.0
+    got = kernel_mll_grads(K, r, gq, gh)
+    want = library_mll_grads(K, r, gq, gh)
+    for x, y in zip(got, want):
+        nan_x = torch.isnan(x.reshape(3, -1)).any(-1)
+        check(torch.equal(nan_x, torch.isnan(y.reshape(3, -1)).any(-1))
+              and nan_x.tolist() == [False, True, False],
+              f"spd_mll NaN: {nan_x.tolist()}")
+    return True
+
+
+def spd_concurrent_check(device, n=1024, calls=SPD_CONCURRENT_CALLS):
+    """Forwards of two problems queued on two streams at once, each grid
+    a block an SM (its launch is cooperative, so a grid starts only once
+    all its blocks can be resident): each stream's outputs equal the same
+    problem's forward alone, bit for bit."""
+    import torch
+    from atomai_tpu_torch.ops import spd_mll
+    problems = [tuple(t.float() for t in spd_problem(n, 1, device, seed)[:2])
+                for seed in (11, 12)]
+    alone = [spd_mll.mll_forward_cuda(K, r) for K, r in problems]
+    streams = [torch.cuda.Stream(device) for _ in problems]
+    main = torch.cuda.current_stream(device)
+    runs = [[] for _ in problems]
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(calls):
+        for (K, r), s, out in zip(problems, streams, runs):
+            with torch.cuda.stream(s):
+                out.append(spd_mll.mll_forward_cuda(K, r))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize(device)
+    ok = all(torch.equal(x, y) for want, out in zip(alone, runs)
+             for got in out for x, y in zip(got, want))
+    check(ok, "spd_mll forwards on two streams differ from one alone")
+    return ok
+
+
+def spd_route_times(n, b, device, reps=20):
+    """Device ms of the forward and the backward kernel and of the library
+    route (forward and backward) at dkl64-like conditioning (phase 33's K
+    with 1e-3 on the diagonal), b outputs; with the problem."""
+    from atomai_tpu_torch.ops import spd_mll
+    K, r, gq, gh = (t.float() for t in spd_problem(n, b, device, 3, 1e-3))
+    W = spd_mll.mll_forward_cuda(K, r)[3]
+    out = {"n": n, "b": b,
+           "forward_ms": device_ms(lambda: spd_mll.mll_forward_cuda(K, r),
+                                   reps, device),
+           "backward_ms": device_ms(
+               lambda: spd_mll.mll_backward_cuda(W, n, gq, gh), reps, device),
+           "library_ms": device_ms(lambda: library_mll_grads(K, r, gq, gh),
+                                   reps, device)}
+    out["pair_ms"] = out["forward_ms"] + out["backward_ms"]
+    return out, (K, r, gq, gh)
+
+
+def spd_times(n, device):
+    """Both routes' device ms (``spd_route_times``, one output) beside the
+    kernels' bounds, the plain version's and ``torch.cholesky_inverse``'s."""
+    import torch
+    from atomai_tpu_torch.ops import spd_mll
+    out, (K, r, gq, gh) = spd_route_times(n, 1, device)
+    fwd_flops, bwd_flops = spd_mll.mll_flops(n)
+    out.update(
+        tile=spd_mll.MLL_TILE,
+        forward_flop_bound_ms=1e3 * fwd_flops / 67e12,
+        backward_flop_bound_ms=1e3 * bwd_flops / 67e12,
+        forward_pivot_chain_ms=1e3 * spd_mll.padded_size(n)
+        * SPD_PIVOT_CYCLES / SM_HZ,
+        plain_ms=device_ms(lambda: plain_mll_grads(K, r, gq, gh), 3, device),
+        cholesky_inverse_ms=device_ms(
+            lambda: torch.cholesky_inverse(torch.linalg.cholesky_ex(K)[0]),
+            20, device))
+    return out
+
+
+def spd_sweep(device):
+    """Both routes over ``SPD_SWEEP`` at each of ``SPD_SWEEP_B`` outputs;
+    per b, the largest N up to which the kernels' pair is faster than the
+    library route at every swept size."""
+    import torch
+    rows, wins_to = [], {}
+    for b in SPD_SWEEP_B:
+        wins, wins_to[b] = True, 0
+        for n in SPD_SWEEP:
+            row = spd_route_times(n, b, device, reps=10)[0]
+            rows.append(row)
+            wins = wins and row["pair_ms"] < row["library_ms"]
+            if wins:
+                wins_to[b] = n
+            torch.cuda.empty_cache()
+    return rows, wins_to
+
+
+def phase_spd_mll(device):
+    """The exact MLL's kernel pair against the plain version and the
+    library route, NaN where the factor fails, forwards on two streams at
+    once, a graphed dklGPR fit on each route bit for bit its eager steps,
+    the counters, times and the routes' sweep."""
+    import torch
+    from atomai_tpu_torch.ops import spd_mll
+    from atomai_tpu_torch.trainers import gptrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes = sorted(set(SPD_SIZES) | {spd_mll.MLL_KERNEL_MAX_N})
+    cases = [spd_check(n, b, device, 100 * n + b) for n in sizes
+             for b in (1, 3)]
+    nan_ok = spd_nan_check(device)
+    concurrent_ok = spd_concurrent_check(device)
+    rng = np.random.RandomState(5)
+    X = rng.randn(SPD_GRAPH_N, GP_DIM).astype(np.float32)
+    y = (X[:, 0] + 0.1 * rng.randn(SPD_GRAPH_N)).astype(np.float32)
+    names = ("gp.mll_kernel", "gp.mll_library", "spd_mll.forward_launches",
+             "spd_mll.backward_launches")
+    cycles = GP_FIRST + GP_WARM
+    # the graphed fit's eager steps and its capture, then the eager fit's
+    launches = gptrainer.GRAPH_WARMUP + 1 + cycles
+    graph_equal, counts = {}, {}
+    for route, limit, want in (
+            ("kernel", spd_mll.MLL_KERNEL_MAX_N,
+             (2 * cycles, 0, launches, launches)),
+            ("library", 0, (0, 2 * cycles, 0, 0))):
+        saved, spd_mll.MLL_KERNEL_MAX_N = spd_mll.MLL_KERNEL_MAX_N, limit
+        try:
+            zero_counters()
+            graph_equal[route] = graphed_fit_is_eager(X, y, device)
+            counts[route] = dict(zip(names, counted(*names)))
+        finally:
+            spd_mll.MLL_KERNEL_MAX_N = saved
+        check(graph_equal[route], f"a graphed fit on the {route} route "
+              "differs from its eager steps")
+        check(counts[route] == dict(zip(names, want)),
+              f"spd_mll counters, {route} route: {counts[route]}")
+    times = [spd_times(n, device) for n in SPD_TIMED]
+    sweep, wins_to = spd_sweep(device)
+    emit("spd_mll", tile=spd_mll.MLL_TILE,
+         max_n=spd_mll.MLL_KERNEL_MAX_N, cases=cases, nan_ok=nan_ok,
+         concurrent_ok=concurrent_ok, graphed_fit_equal=graph_equal, graph_n=SPD_GRAPH_N,
+         counters=counts, times=times, sweep=sweep,
+         kernels_win_to=wins_to,
+         gate={"factor": SPD_FACTOR, "floor": SPD_FLOOR})
+    return times
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4588,6 +4856,7 @@ def main():
     kernels[0]["ensemble_vmap_path"] = phase_ensemble_vmap_path(device,
                                                                 trained_net)
     phase_ensemble_graph(device)
+    phase_spd_mll(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
