@@ -8,8 +8,9 @@ arrays (``savefig`` writes the manifold as a PNG), input checks, the
 epoch loop of ``fit`` with a per-epoch (or per-chunk, with
 ``epochs_per_dispatch``) checkpoint and the optional manifold recording,
 and the VAE's class-conditional ELBO (one-hot labels concatenated to z).
-Plotting imports matplotlib, and the GIF of a recording PIL, inside the
-functions that draw.
+Spans (``core.profiling``): ``vae.fit`` around a fit, ``vae.fetch``
+around an epoch's ELBO copy to the host. Plotting imports matplotlib, and
+the GIF of a recording PIL, inside the functions that draw.
 """
 
 import os
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...core import profiling
 from ...core.checkpoint import flush_async_checkpoints
 from ...core.mlog import open_metrics_log
 from ...losses_metrics.vi_losses import vae_loss
@@ -384,57 +386,74 @@ class BaseVAE(viBaseTrainer):
             dx, rest = 0, z[:, 1:]
         return transform_coordinates(x_coord, z[:, 0], dx), rest
 
+    def _static_draws(self) -> bool:
+        """No discrete latents and no capacity schedule: a step's ELBO
+        reads its batch and Gaussian noise alone."""
+        return not self.discrete_dim and \
+            getattr(self, "kdict_", {}).get("capacity") is None
+
     def _fit_loop(self, X_train, y_train, X_test, y_test, loss, **kwargs):
         """The epoch loop of every VAE flavour: ``epochs_per_dispatch``
-        epochs at a time (1 by default), each trained with its ELBO left on
-        the device and evaluated; then the log, the prints and an
-        asynchronous checkpoint; a synchronous checkpoint at the end.
+        epochs at a time (1 by default), each dispatch one
+        :meth:`_fit_epochs`; a synchronous checkpoint at the end.
         ``recording`` (a model with 3 or 5 latents: an rVAE's) writes the
         manifold's PNG after every epoch and a GIF of them at the end."""
-        self.compile_trainer((X_train, y_train), (X_test, y_test),
-                             **kwargs)
-        self.loss = loss
-        if self.loss == "ce":
-            self.sigmoid_out = True
-            self.metadict["sigmoid_out"] = True
-        self.recording = kwargs.get("recording", False)
-        record = self.recording and self.z_dim in (3, 5)
-        epd = 1 if record else max(1, int(kwargs.get("epochs_per_dispatch",
-                                                     1)))
-        verbose = kwargs.get("verbose", True)
-        mlog = open_metrics_log(kwargs.get("metrics_log"))
-        try:
-            e = 0
-            while e < self.training_cycles:
-                k = min(epd, self.training_cycles - e)
-                self.current_epoch = e + k - 1
-                elbos, elbos_t = self.train_epochs_lazy(k)
-                self.loss_history["train_loss"].extend(elbos.unbind())
-                if elbos_t is not None:
-                    self.loss_history["test_loss"].extend(elbos_t.unbind())
-                if mlog is not None or verbose:
-                    tr = elbos.cpu().numpy()
-                    ts = None if elbos_t is None else elbos_t.cpu().numpy()
-                    if mlog is not None:
-                        mlog.log_many(e, train_elbo=tr, test_elbo=ts)
-                    if verbose:
-                        for i in range(k):
-                            self.print_statistics(
-                                e + i, tr[i], None if ts is None else ts[i])
-                if record:
-                    self.manifold2d(savefig=True, filename=str(e))
-                self.update_metadict()
-                self.save_model(self.filename, async_write=True)
-                e += k
-        finally:
-            self._finalize_loss_history()
-            flush_async_checkpoints()
+        with profiling.span("vae.fit"):
+            self.compile_trainer((X_train, y_train), (X_test, y_test),
+                                 **kwargs)
+            self.loss = loss
+            if self.loss == "ce":
+                self.sigmoid_out = True
+                self.metadict["sigmoid_out"] = True
+            self.recording = kwargs.get("recording", False)
+            record = self.recording and self.z_dim in (3, 5)
+            epd = 1 if record else max(1, int(kwargs.get(
+                "epochs_per_dispatch", 1)))
+            verbose = kwargs.get("verbose", True)
+            mlog = open_metrics_log(kwargs.get("metrics_log"))
+            try:
+                e = 0
+                while e < self.training_cycles:
+                    k = min(epd, self.training_cycles - e)
+                    self._fit_epochs(e, k, verbose, mlog, record)
+                    e += k
+            finally:
+                self._finalize_loss_history()
+                flush_async_checkpoints()
+                if mlog is not None:
+                    mlog.close()
+            self._sync_replicas()
+            self.save_model(self.filename)
+            if record:
+                self.visualize_manifold_learning("./vae_learning")
+
+    def _fit_epochs(self, e: int, k: int, verbose: bool = True, mlog=None,
+                    record: bool = False) -> None:
+        """Epochs ``e`` .. ``e + k - 1`` of a fit, one dispatch: trained
+        (and evaluated on a test set) with their ELBOs left on the device
+        and added to the loss history; then one fetch of the ELBOs for the
+        prints (``verbose``) or the metrics log, the manifold's PNG
+        (``record``), the metadict and an asynchronous checkpoint to
+        ``filename``."""
+        self.current_epoch = e + k - 1
+        elbos, elbos_t = self.train_epochs_lazy(k)
+        self.loss_history["train_loss"].extend(elbos.unbind())
+        if elbos_t is not None:
+            self.loss_history["test_loss"].extend(elbos_t.unbind())
+        if mlog is not None or verbose:
+            with profiling.span("vae.fetch"):
+                tr = elbos.cpu().numpy()
+                ts = None if elbos_t is None else elbos_t.cpu().numpy()
             if mlog is not None:
-                mlog.close()
-        self._sync_replicas()
-        self.save_model(self.filename)
+                mlog.log_many(e, train_elbo=tr, test_elbo=ts)
+            if verbose:
+                for i in range(k):
+                    self.print_statistics(
+                        e + i, tr[i], None if ts is None else ts[i])
         if record:
-            self.visualize_manifold_learning("./vae_learning")
+            self.manifold2d(savefig=True, filename=str(e))
+        self.update_metadict()
+        self.save_model(self.filename, async_write=True)
 
     def update_metadict(self) -> None:
         self.metadict["num_epochs"] = self.current_epoch

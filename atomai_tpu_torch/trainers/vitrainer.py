@@ -19,7 +19,18 @@ keeps:
   semantics of the JAX package's multi-epoch dispatch (`:406-465`);
 - the Gaussian and Gumbel-softmax reparameterisations and the log-pdfs
   (`:206-234`);
-- per-epoch checkpoints written by a background thread;
+- per-epoch checkpoints written by a background thread (the weights'
+  copy to the host on the caller's thread, the write on the thread);
+- on one card, the step of a plain VAE or an rVAE replayed from a CUDA
+  graph (``core/graphs.py``) after ``GRAPH_WARMUP`` eager steps
+  (:meth:`viBaseTrainer._graphed` says when): each step takes its index
+  slice and noise as the graph's static inputs. On a card these two
+  models draw an epoch's permutation and every batch's noise before its
+  first step on every route (a mesh, labels or remat run the eager loop),
+  so that a seed gives one fit whatever the route; on the CPU, and for the
+  joint models' Gumbel draws and capacity schedules, each step draws its
+  own as the JAX package does. Adam keeps its state on the card
+  (``capturable``), so eager and replayed steps are the same arithmetic;
 - data parallelism (`:139-175, 250-305`): in a world of several ranks
   ``compile_trainer(mesh=None)`` builds a data mesh sized to the largest
   rank count that divides the batch (``mesh=False`` opts out, a
@@ -36,6 +47,12 @@ keeps:
 Random numbers come from a :class:`GeneratorSeq` seeded once: one
 generator per epoch draws the permutation and every batch's noise, on the
 model's device.
+
+Spans (``core.profiling``): ``vae.epoch`` (an epoch's launches from the
+host), ``vae.checkpoint`` (an asynchronous checkpoint's host side) and
+its ``vae.checkpoint.fetch`` (the weights' copy to the host); the models
+add ``vae.fit`` and ``vae.fetch``. Counters, one a training step whatever the
+route: ``vae.eager_step``, ``vae.graph_capture``, ``vae.graph_replay``.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -44,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..core import graphs, profiling
 from ..core.checkpoint import (is_jax_tree, load_checkpoint,
                                save_checkpoint, save_checkpoint_async)
 from ..core.device import resolve_device
@@ -55,6 +73,12 @@ from ..core.prng import GeneratorSeq
 from ..nets.blocks import init_weights_
 from ..nets.remat import set_remat
 from ..parallel.sync_bn import global_batch_norm
+
+# eager steps of a graphed route before its capture (cuBLAS plans, the
+# kernels' workspaces and Adam's state are made there)
+GRAPH_WARMUP = 2
+_STAGE_COUNTERS = {"eager": "vae.eager_step", "capture": "vae.graph_capture",
+                   "replay": "vae.graph_replay"}
 
 
 class viBaseTrainer:
@@ -88,6 +112,9 @@ class viBaseTrainer:
         self.mesh = None
         self._mesh_pref = None
         self._local_elbo = False
+        # the graphed route's step and what it was captured for
+        self._graph: Optional[graphs.GraphedCall] = None
+        self._graph_key = None
 
     # ------------------------------------------------------------ models
     def set_model(self, encoder_net: nn.Module, decoder_net: nn.Module
@@ -174,13 +201,16 @@ class viBaseTrainer:
         if self.optimizer is None:
             self.optimizer = self._make_optimizer(optimizer)
         self.filename = kwargs.get("filename", "./model")
+        self._graph = None      # new data, priors and options: capture anew
 
     def _make_optimizer(self, optimizer: Any) -> torch.optim.Optimizer:
         if optimizer is not None and not isinstance(optimizer, str):
             return optimizer(self.parameters())
         name = optimizer or "adam"
         if name == "adam":
-            return torch.optim.Adam(self.parameters(), lr=1e-4, eps=1e-8)
+            # its state on the card there, so that a graph can replay it
+            return torch.optim.Adam(self.parameters(), lr=1e-4, eps=1e-8,
+                                    capturable=self.device.type == "cuda")
         if name == "sgd":
             return torch.optim.SGD(self.parameters(), lr=1e-4)
         raise ValueError(f"Unknown optimizer '{name}': use 'adam', 'sgd' or "
@@ -239,24 +269,61 @@ class viBaseTrainer:
         """Forward pass and ELBO of one batch; subclasses implement."""
         raise NotImplementedError
 
-    def _elbo(self, x, y, num_iter, generator):
+    def _elbo(self, x, y, num_iter, generator, eps=None):
         with self.precision.scope(self.device):
-            return self.forward_compute_elbo(x, y, num_iter, generator)
+            return self.forward_compute_elbo(x, y, num_iter, generator,
+                                             eps=eps)
 
     def _batches(self, N: int) -> Tuple[int, int]:
         bs = min(self.batch_size, N)
         return bs, max(N // bs, 1)
 
+    def _static_draws(self) -> bool:
+        """Whether a training step's ELBO is a function of its batch and
+        Gaussian noise alone: no Gumbel draw and no ``num_iter``. The
+        models say; the base trainer does not know its ELBO."""
+        return False
+
+    def _noise_up_front(self) -> bool:
+        """Whether an epoch draws every batch's noise before its first
+        step (:meth:`_epoch_draws`): on a card, for a model with static
+        draws, whatever the route, so that a seed gives one fit on every
+        route; elsewhere each step draws its own, as the JAX package's
+        loop does."""
+        return self.device.type == "cuda" and self._static_draws()
+
+    def _graphed(self) -> bool:
+        """Whether the epoch's steps replay from a CUDA graph: noise drawn
+        up front, no mesh, no labels, no remat, the model's own ELBO and
+        the trainer's capturable Adam."""
+        opt = self.optimizer
+        return (self._noise_up_front() and self.mesh is None
+                and self.y_train is None and not self.remat
+                and not self._local_elbo
+                and isinstance(opt, torch.optim.Adam)
+                and bool(opt.defaults.get("capturable")))
+
     def train_epoch_lazy(self) -> torch.Tensor:
         """Trains one epoch; returns its mean ELBO as a device scalar
         (no host synchronisation)."""
-        N = int(self.X_train.shape[0])
-        bs, nb = self._batches(N)
-        g = self.keys.next(device=self.device)
-        perm = torch.randperm(N, generator=g, device=self.device)
-        perm = perm[:nb * bs].view(nb, bs)
-        self.encoder_net.train()
-        self.decoder_net.train()
+        with profiling.span("vae.epoch"):
+            N = int(self.X_train.shape[0])
+            bs, nb = self._batches(N)
+            g = self.keys.next(device=self.device)
+            perm, noise = self._epoch_draws(g, N, bs, nb)
+            self.encoder_net.train()
+            self.decoder_net.train()
+            if self._graphed():
+                elbo = self._train_epoch_graphed(perm, noise, bs)
+            else:
+                elbo = self._train_epoch_eager(perm, noise, g)
+            self.num_iter += nb
+            return elbo
+
+    def _train_epoch_eager(self, perm: torch.Tensor,
+                           noise: Optional[torch.Tensor],
+                           g: torch.Generator) -> torch.Tensor:
+        nb, bs = perm.shape
         split = splits(self.mesh, DATA_AXIS) and \
             bs % axis_size(self.mesh, DATA_AXIS) == 0
         mesh = self.mesh if split else None
@@ -264,20 +331,68 @@ class viBaseTrainer:
         for i in range(nb):
             idx = shard_batch(mesh, perm[i])
             y_i = self.y_train[idx] if self.y_train is not None else None
+            eps = None if noise is None else shard_batch(mesh, noise[i])
             self.optimizer.zero_grad(set_to_none=True)
             with self.precision.tf32_scope(), split_batch(mesh), \
                     global_batch_norm(self.encoder_net), \
                     global_batch_norm(self.decoder_net):
                 elbo = self._elbo(self.X_train[idx], y_i, self.num_iter + i,
-                                  g)
+                                  g, eps)
                 if self._local_elbo:
                     elbo = split_mean(elbo)
                 (-elbo).backward()     # the backward's GEMMs under TF32 too
             mean_gradients(self.parameters(), self.mesh)
             self.optimizer.step()
             elbo_sum = elbo_sum + elbo.detach()
-        self.num_iter += nb
+        profiling.count("vae.eager_step", nb)
         return elbo_sum / nb
+
+    def _epoch_draws(self, g: torch.Generator, N: int, bs: int, nb: int
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """An epoch's draws from its generator: the permutation's first
+        nb * bs indices as (nb, bs), then, where the noise is drawn up
+        front (:meth:`_noise_up_front`), every batch's reparameterisation
+        noise (nb, bs, z_dim), else None."""
+        perm = torch.randperm(N, generator=g, device=self.device)
+        eps = torch.randn((nb, bs, self.z_dim), generator=g,
+                          device=self.device) \
+            if self._noise_up_front() else None
+        return perm[:nb * bs].view(nb, bs), eps
+
+    def _graph_step(self, idx: torch.Tensor, eps: torch.Tensor
+                    ) -> torch.Tensor:
+        """One Adam step on the batch ``X_train[idx]`` with the noise
+        ``eps``: the ELBO, its backward under the policy's TF32 switch and
+        the optimizer's step; returns the ELBO, detached."""
+        self.optimizer.zero_grad(set_to_none=True)
+        with self.precision.tf32_scope():
+            with self.precision.scope(self.device):
+                elbo = self.forward_compute_elbo(self.X_train[idx], None,
+                                                 self.num_iter, eps=eps)
+            (-elbo).backward()
+        self.optimizer.step()
+        return elbo.detach()
+
+    def _train_epoch_graphed(self, perm: torch.Tensor, noise: torch.Tensor,
+                             bs: int) -> torch.Tensor:
+        # what a graph bakes in: the data's storage, the batch, the nets,
+        # the optimizer, the policy and the decoder's route
+        fused = getattr(self.decoder_net, "fused", None)
+        key = (self.X_train.data_ptr(), tuple(self.X_train.shape), bs,
+               id(self.encoder_net), id(self.decoder_net),
+               id(self.optimizer), self.precision,
+               fused() if callable(fused) else None)
+        if self._graph is None or self._graph_key != key:
+            # a private pool: the graph outlives other captures on the card
+            self._graph = graphs.GraphedCall(GRAPH_WARMUP, private=True)
+            self._graph_key = key
+        graph = self._graph
+        elbos = []
+        for idx, eps in zip(perm, noise):
+            profiling.count(_STAGE_COUNTERS[graph.stage])
+            with graph.stream(self.device):
+                elbos.append(graph(self._graph_step, idx, eps))
+        return torch.stack(elbos).mean()
 
     def train_epoch(self) -> float:
         """Trains one epoch; returns its mean ELBO."""
@@ -356,15 +471,19 @@ class viBaseTrainer:
 
     def save_model(self, *args: str, async_write: bool = False) -> str:
         """Writes the metadict and the weights to ``<name>.aoit``;
-        ``async_write`` leaves the copy and the write to the background
-        thread (flushed at the end of ``fit``)."""
+        ``async_write`` copies the weights to the host and leaves the
+        write to the background thread (flushed at the end of ``fit``)."""
         savepath = args[0] if args else self.filename
         meta = {k: v for k, v in self.metadict.items()
                 if k not in ("encoder", "decoder", "optimizer")}
-        arrays = {"params": self._state()}
         if async_write:
-            return save_checkpoint_async(savepath, meta, arrays)
-        return save_checkpoint(savepath, meta, arrays)
+            with profiling.span("vae.checkpoint"):
+                with profiling.span("vae.checkpoint.fetch"):
+                    arrays = {"params": {
+                        part: {k: v.detach().cpu() for k, v in sd.items()}
+                        for part, sd in self._state().items()}}
+                return save_checkpoint_async(savepath, meta, arrays)
+        return save_checkpoint(savepath, meta, {"params": self._state()})
 
     def save_weights(self, *args: str) -> str:
         savepath = args[0] if args else (self.filename + "weights")

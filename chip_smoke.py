@@ -253,12 +253,21 @@ Phases, one JSON line each (all before the last line):
     N = 256, 585, 1,024 beside its FLOP bound and pivot chain, the plain
     version's, the library route's and ``torch.cholesky_inverse``'s; and
     the sweep behind ``MLL_KERNEL_MAX_N``: both routes' forward and
-    backward over N = 64 ... 4,096, at one output and at four.
+    backward over N = 64 ... 4,096, at one output and at four;
+34. vae_graph: the rVAE fit of the benchmark's ``rvae48.fit`` cell
+    (AtomAI's widths on a 2048² frame's 48² atom windows, batch 100): two
+    epochs on the graphed route (``viBaseTrainer._graphed``: eager steps,
+    the capture, replays) against the same two epochs all eager from the
+    same state, permutation and noise, ELBOs and weights within
+    ``TOL_VAE_GRAPH`` (bit for bit expected); the step counters; each
+    epoch's time on both routes; and the spatial-MLP kernels timed at B =
+    100, n = 2,304 beside their roofline bounds.
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
 and the forward's with the ``served_from_jax`` ones, the labeller's with
 the ``stat_path``, ``graph_path``, ``remat_path``, ``mesh_path`` and
-``ensemble_vmap_path`` ones), and as the last line
+``ensemble_vmap_path`` ones; the spatial-MLP records' ``vae_graph``
+timings at the rvae48 shapes), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. It imports neither JAX nor ``atomai_tpu``.
 """
@@ -646,6 +655,15 @@ def emit(phase, **fields):
 # the spatial-MLP kernels' counters (forward, backward)
 MLP_LAUNCHES = ("spatial_mlp.forward_launches",
                 "spatial_mlp.backward_launches")
+
+
+def mlp_steps():
+    """The spatial-MLP forward and backward runs since
+    :func:`zero_counters`: the counted launches, plus one of each a
+    training step replayed from the VAE trainer's CUDA graph (a replay runs
+    the captured launches without counting them)."""
+    fwd, bwd, replays = counted(*MLP_LAUNCHES, "vae.graph_replay")
+    return [fwd + replays, bwd + replays]
 
 
 def zero_counters():
@@ -3748,7 +3766,7 @@ def _vae_remat_pair(cls, kw, X, device):
                   remat=remat, verbose=False,
                   filename=os.path.join(tmp, f"v{remat}"))
             torch.cuda.synchronize(device)
-            launches = list(counted(*MLP_LAUNCHES))
+            launches = mlp_steps()
             base = torch.cuda.memory_allocated(device)
             torch.cuda.reset_peak_memory_stats(device)
             m.train_epoch()
@@ -4002,7 +4020,7 @@ def _mesh_rvae(device, data_mesh, tmp, plain):
                   mesh=mesh, verbose=False, filename=os.path.join(tmp, name))
         torch.cuda.synchronize(device)
         runs[name] = {"elbo": list(m.loss_history["train_loss"]),
-                      "launches": list(counted(*MLP_LAUNCHES)),
+                      "launches": mlp_steps(),
                       "seconds": time.perf_counter() - t0,
                       "mesh": None if m.mesh is None else list(m.mesh.shape)}
     steps = MESH_VAE_EPOCHS * (len(X) // RVAE_BATCH)
@@ -4809,6 +4827,103 @@ def phase_spd_mll(device):
     return times
 
 
+# vae_graph: the benchmark's rvae48.fit shapes (AtomAI's widths, 48² windows
+# around the atoms of a 2048² frame, batch 100). A graphed epoch replays
+# the eager steps' kernels in the same order on the same inputs: bit for
+# bit expected, gated at float32 rounding of the ELBO and a hundredth of
+# Adam's step (lr 1e-4) on any weight
+VAE_GRAPH_FRAME = dict(n_images=1, size=2048, spacing=16, seed=11)
+VAE_GRAPH_WINDOW = 48
+VAE_GRAPH_BATCH = 100
+VAE_GRAPH_EPOCHS = 2
+TOL_VAE_GRAPH = {"elbo_rel": 1e-6, "weights_abs": 1e-6}
+
+
+def rvae48_windows():
+    """The 48² windows around the atoms of one 2048² lattice frame (the
+    port's ``extract_subimages``), as the benchmark's cell makes them."""
+    from atomai_tpu_torch.utils import extract_subimages, make_lattice_stack
+    imgs, _, xy = make_lattice_stack(**VAE_GRAPH_FRAME)
+    return extract_subimages(imgs[0], xy[0], VAE_GRAPH_WINDOW)[0][..., 0]
+
+
+def phase_vae_graph(device):
+    """Two rVAE epochs on the graphed route against the same two epochs
+    all eager, the counters, both routes' epoch times, and the kernels at
+    these shapes."""
+    import torch
+    from atomai_tpu_torch.models import rVAE
+    from atomai_tpu_torch.ops import roofline
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    from atomai_tpu_torch.trainers import vitrainer
+    X = rvae48_windows()
+    steps = len(X) // VAE_GRAPH_BATCH
+    total = VAE_GRAPH_EPOCHS * steps
+    names = ("vae.eager_step", "vae.graph_capture", "vae.graph_replay")
+
+    def epochs(warmup):
+        m = rVAE((VAE_GRAPH_WINDOW,) * 2, latent_dim=2, seed=5,
+                 device=device)
+        m.dx_prior = 0.1
+        m.kdict_["phi_prior"] = np.pi / 2
+        m.compile_trainer((X, None), training_cycles=VAE_GRAPH_EPOCHS,
+                          batch_size=VAE_GRAPH_BATCH)
+        check(m._graphed(), "the rVAE's fit does not take the graphed route")
+        saved, vitrainer.GRAPH_WARMUP = vitrainer.GRAPH_WARMUP, warmup
+        try:
+            zero_counters()
+            runs = [timed_result(m.train_epoch_lazy, device)
+                    for _ in range(VAE_GRAPH_EPOCHS)]
+        finally:
+            vitrainer.GRAPH_WARMUP = saved
+        return m, [float(e) for _, e in runs], [t for t, _ in runs], \
+            counted(*names)
+
+    g, g_elbo, g_s, g_counts = epochs(vitrainer.GRAPH_WARMUP)
+    e, e_elbo, e_s, e_counts = epochs(10 ** 9)
+    w = vitrainer.GRAPH_WARMUP
+    check(g_counts == (w, 1, total - w - 1), f"graphed counters {g_counts}")
+    check(e_counts == (total, 0, 0), f"eager counters {e_counts}")
+    elbo_rel = max(abs(a / b - 1) for a, b in zip(g_elbo, e_elbo))
+    weights_abs = max(float((p.detach() - q.detach()).abs().max())
+                      for p, q in zip(g.parameters(), e.parameters()))
+    bitwise = g_elbo == e_elbo and all(
+        torch.equal(p, q) for p, q in zip(g.parameters(), e.parameters()))
+    check(elbo_rel <= TOL_VAE_GRAPH["elbo_rel"] and weights_abs <=
+          TOL_VAE_GRAPH["weights_abs"], f"graphed epochs off the eager "
+          f"ones: ELBO {elbo_rel}, weights {weights_abs}")
+
+    # the kernels at these shapes, on the fitted model's decoder inputs
+    x = torch.from_numpy(X[:VAE_GRAPH_BATCH]).to(device)
+    args = decoder_args(g, x, device)
+    gy = torch.randn((VAE_GRAPH_BATCH, 1, VAE_GRAPH_WINDOW ** 2),
+                     generator=torch.Generator(device).manual_seed(0),
+                     device=device) * 1e-2
+    fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err = mlp_kernel_ms(
+        args, gy, device)
+    dims = (VAE_GRAPH_BATCH, VAE_GRAPH_WINDOW ** 2, args[2].shape[1],
+            args[4].shape[0])
+    flops = sm.spatial_mlp_flops(*dims)
+    bounds = [roofline.bound(f, b)
+              for f, b in zip(flops, sm.spatial_mlp_bytes(*dims))]
+    emit("vae_graph", windows=list(X.shape), batch=VAE_GRAPH_BATCH,
+         steps_per_epoch=steps, elbo_graphed=g_elbo, elbo_eager=e_elbo,
+         elbo_rel=elbo_rel, weights_abs=weights_abs, bitwise=bitwise,
+         counters={"graphed": g_counts, "eager": e_counts},
+         epoch_s={"graphed": g_s, "eager": e_s},
+         fwd_kernel_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+         bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+         fwd_bound_ms=bounds[0][0], bwd_bound_ms=bounds[1][0],
+         fwd_share_of_bound=bounds[0][0] / fwd_ms,
+         bwd_share_of_bound=bounds[1][0] / bwd_ms,
+         flops={"fwd": flops[0], "bwd": flops[1]},
+         path_inputs_scaled_err=y_err, tolerance=TOL_VAE_GRAPH)
+    return [{"shape": list(dims), "ms": ms, "plain_ms": plain,
+             "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms}
+            for ms, plain, b in ((fwd_ms, fwd_plain_ms, bounds[0]),
+                                 (bwd_ms, bwd_plain_ms, bounds[1]))]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4857,6 +4972,8 @@ def main():
                                                                 trained_net)
     phase_ensemble_graph(device)
     phase_spd_mll(device)
+    kernels[1]["vae_graph"], kernels[2]["vae_graph"] = \
+        phase_vae_graph(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
