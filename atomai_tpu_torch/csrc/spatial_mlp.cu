@@ -34,21 +34,68 @@
 //     accumulator, after bias, tanh.approx and the cast to bf16, is already
 //     the register A operand of the next product. h0 is K = 2 FMAs, the
 //     head a register dot product and a quad shuffle;
-//   - the backward's blocks are two warpgroups on 128-row tiles. Each
-//     recomputes its 64 rows' h1..hL, keeps h1..h(L-1) and G in shared
-//     memory as bf16 (h0 is recomputed into h1's tile when the last level
-//     needs it), forms G = dh (1 - h^2) in registers, and gets
-//     dh = G Ws[l]^T from the weight image through the B descriptor's
-//     transpose bit. dWs[l] += h_l^T G (K = the tile's 128 rows, both
-//     operands in shared memory) is split into 64 x 64 blocks between the
-//     warpgroups. Its f32 partials stay in shared memory, row-swizzled, for
-//     all of the block's tiles (128 KB at config C); beside them the
-//     weights do not fit (267 KB in all), so they stream through a two-stage ring
-//     of bulk-copied 8 KB pieces. Column sums (dbs, dbc, dWc, dWo, dzb) and
-//     dx come from registers by warp and quad shuffles;
+//   - the backward (bwd_wgmma, HP 64 or 128, L up to 6 or 2): one
+//     persistent block an SM, each walking a contiguous run of
+//     B * ceil(n / 128) / SMs 128-row tiles (runs cross sample
+//     boundaries); 64 rows of a tile to each of two consumer warpgroups,
+//     plus a producer warpgroup (384 threads; setmaxnreg moves registers
+//     to the consumers, 232 a thread). Each consumer recomputes its
+//     rows' h1..hL, keeps h1..h(L-1) and G in shared memory as bf16 (h0 is
+//     recomputed into h1's tile when the last level needs it), forms
+//     G = dh (1 - h^2) in registers, and gets dh = G Ws[l]^T from the
+//     weight image through the B descriptor's transpose bit;
+//   - one producer thread streams the weight pieces (layers 0..L-1 for the
+//     recompute, then L-1..0 for dh, per tile) with bulk copies into a ring
+//     of 3 to 8 stages, as many as fit (3 at HP 128 L 2 and at HP 64 L 6),
+//     each with a full and an empty mbarrier. A consumer warpgroup waits on
+//     full, starts the piece's four m64n64k16, and hands the stage back
+//     (one arrival a warp on empty) once wgmma.wait_group 1 shows the
+//     group done, so the next piece's group is already in flight. Pieces
+//     go output block by output block, and a block's epilogue (the
+//     recompute's bias and tanh, dh's (1 - h^2)) runs while the next
+//     block's group is in flight;
+//   - dWs[l] += h_l^T G over the tile's 128 rows (K = both warpgroups'
+//     rows, both operands in shared memory): at HP 128 each warpgroup
+//     owns 64 rows of dW, one m64n128k16 a 16-row step; at HP 64 the
+//     layer's parity picks the warpgroup. The hand-off between the two is
+//     named barriers of the 256 consumers only: X_w (warpgroup w's G and h
+//     tiles are stored) is arrived at before its dh product and waited on
+//     by the other after it; Y_w (w's dW product has read the tiles) is
+//     arrived at after the product and waited on before the other next
+//     overwrites a tile. 2L such waits a tile, none for the weights;
+//   - dW's f32 partial lives in shared memory, row-swizzled, for the
+//     block's whole run: L * HP^2 * 4 bytes. A warpgroup reads its 64 x HP
+//     rows into the wgmma accumulator, adds the tile's K = 128, and writes
+//     them back: one round trip per 128 rows (32 KB each way a warpgroup,
+//     layer and tile at HP 128). At HP 128 L 2 the partial is 128 KB, the
+//     ring 3 x 8 KB, the tiles 2 warpgroups x 2 slots x 16 KB and the
+//     biases 2.5 KB: 224,816 of 232,448 bytes; at HP 64 L 6, 96 + 24 + 96
+//     + 2.3 KB: 224,560. So neither the 64 KB image can be resident nor a
+//     second tile's K = 256 kept (64 KB more of tiles), and a layer's
+//     partial in registers would take 64 more a consumer thread, beyond
+//     its 232. The product is in flight while the warpgroup forms the
+//     next level's column sums;
+//   - column sums (dbs, dbc, dzb, dWc, dWo) are reduce-scattered over the
+//     eight lanes of a column group (28 shuffles for 32 values at HP 128)
+//     and kept in registers, HP / 32 columns a lane, for the whole run: no
+//     barrier. dzb's sums go out a warp at a time when the run leaves a
+//     sample, one piece per (block, sample); dx by quad shuffles;
 //   - per-block partials go to global memory once per block, and a second
-//     launch sums them in block order: no atomics, so the backward is
-//     bit-identical run to run.
+//     launch (reduce_kernel) sums them, and each sample's dzb pieces, in
+//     one fixed order: no atomics, so the backward is bit-identical run
+//     to run.
+//   At rvae48's shapes (B 100, n 2,304, H 128, L 2) that is 1,800 tiles,
+//   13 or 14 a block on all 132 SMs. A tile holds 6,144 cycles of tensor
+//   work (25.2 MFLOP at an SM's share of the peak), but the two consumers
+//   run their epilogues in step, so what bounds the kernel is the rate at
+//   which they get through the epilogues' instructions, not the tensor
+//   cores, nor the weights' latency (measured on an H100 80GB HBM3, 700 W: 15 us a tile and 11 us
+//   a block fixed; removing every wgmma saves 13% of the time, the column
+//   sums' shuffles 11%, the dW round trips 11%, the (1 - h^2) and the
+//   recompute's bias-and-tanh epilogues 7% each, h0's recompute 5%, the
+//   full-barrier waits nothing). The ring's depth is what shared memory
+//   leaves: the 128 KB dW partial is what keeps the image from being
+//   resident and the consumers from running out of phase.
 // Shapes outside that range (H above 256 forward or above 128 backward,
 // or L deep enough that the shared memory does not fit) take the staged
 // path below it: wmma 16x16x16
@@ -136,9 +183,11 @@ struct Layout {
 struct BwdPlan {
   int T;          // tiles per sample
   int total;      // tiles in all
-  int per;        // tiles per block: a divisor of T, or a multiple of T
-  int seg_len;    // tiles per dzb segment: min(per, T)
-  int segs;       // dzb segments per sample
+  int per;        // staged: tiles per block, a divisor of T or a multiple of T
+  int seg_len;    // staged: tiles per dzb segment, min(per, T)
+  int segs;       // dzb segments per sample (at most; pipelined: blocks a sample spans)
+  int ways;       // dzb partials a segment: 1, or the pipelined kernel's warps
+  int runs;       // 1: the pipelined kernel's contiguous runs, one block an SM
   int nblocks;
   int P;          // floats per block partial (rounded up to 8)
   int P_used;     // L*H*H + L*H + H + 1 + 2*H + H
@@ -484,22 +533,49 @@ bwd_kernel(const float* __restrict__ xT, const float* __restrict__ zb,
   }
 }
 
-// Second launch of the backward: sums the per-block partials (in block
-// order) into the weight gradients and the dzb segments into dzb.
-__global__ void reduce_kernel(const float* __restrict__ part, int nblocks, int P,
-                              int P_used, float* __restrict__ dW,
-                              const float* __restrict__ dzb_part, int segs, int BH,
-                              int H, float* __restrict__ dzb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// Second launch of the backward: sums the per-block partials into the
+// weight gradients and each sample's dzb pieces into dzb. A sample has
+// `segs` pieces of `ways` partials (the staged kernel's segments); with
+// `runs`, as many pieces as blocks its tiles fall in (the pipelined
+// kernel's contiguous runs). A block of kReduceThreads sums 32 outputs:
+// each of its 8 warps a contiguous eighth of the terms, in order, with
+// several loads in flight, then the eighths in order, so the sums are the
+// same run to run.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_kernel(const float* __restrict__ part, int nblocks, int P, int P_used,
+              float* __restrict__ dW, const float* __restrict__ dzb_part, int segs,
+              int ways, int runs, int T, int total, int BH, int H,
+              float* __restrict__ dzb) {
+  __shared__ float eighth[8][32];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float a = 0.f;
   if (i < P_used) {
-    float a = 0.f;
-    for (int b = 0; b < nblocks; ++b) a += part[(size_t)b * P + i];
-    dW[i] = a;
+    const int b1 = (w + 1) * nblocks / 8;
+#pragma unroll 8
+    for (int b = w * nblocks / 8; b < b1; ++b) a += part[(size_t)b * P + i];
   } else if (i - P_used < BH) {
     const int k = i - P_used, s = k / H, c = k % H;
-    float a = 0.f;
-    for (int q = 0; q < segs; ++q) a += dzb_part[((size_t)s * segs + q) * H + c];
-    dzb[k] = a;
+    int pieces = segs;
+    if (runs) {
+      const long long t0 = (long long)s * T;
+      pieces = (int)(((t0 + T) * nblocks - 1) / total - ((t0 + 1) * nblocks - 1) / total) + 1;
+    }
+    const int terms = pieces * ways, r1 = (w + 1) * terms / 8;
+    for (int r = w * terms / 8; r < r1; ++r)
+      a += dzb_part[((size_t)s * segs * ways + r) * H + c];
+  }
+  eighth[w][lane] = a;
+  __syncthreads();
+  if (w == 0) {
+#pragma unroll
+    for (int e = 1; e < 8; ++e) a += eighth[e][lane];
+    if (i < P_used)
+      dW[i] = a;
+    else if (i - P_used < BH)
+      dzb[i - P_used] = a;
   }
 }
 
@@ -695,28 +771,9 @@ __device__ __forceinline__ void bias_tanh(float* acc, const Geo& g, const float*
     for (int e = 0; e < 4; ++e) acc[4 * j + e] = tanh_fast(acc[4 * j + e] + b[8 * j + 2 * g.q + (e & 1)]);
 }
 
-// Stores the accumulator as bf16 into a swizzled 64 x HP tile.
-template <int HP>
-__device__ __forceinline__ void store_tile(const float* acc, const Geo& g, unsigned char* tile) {
-#pragma unroll
-  for (int j = 0; j < HP / 8; ++j) {
-    const int c = 8 * j + 2 * g.q;
-    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA, c)) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA + 8, c)) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Sum over the eight lanes that hold the same columns (same q).
-__device__ __forceinline__ float rows_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
 // Index of dW[i][o] in the backward's f32 partial: rows of HP floats whose
@@ -821,159 +878,336 @@ __host__ __device__ inline size_t fwd_smem_bytes(int HP, int L) {
   return 1024 + (size_t)L * HP * HP * 2 + sizeof(float) * (4 + L) * HP + 16;
 }
 
-// The backward's weight ring: kStages stages of one 8 KB piece of a layer
-// image, refilled by bulk copies. Per 128-row tile the pieces go layer
-// 0..L-1 (the recompute), then layer L-1..0 (dh), each layer in image
-// order; every thread of the block walks the same sequence.
-constexpr int kStages = 2;
+// The backward's pipelined kernel: a producer thread streams the weight
+// pieces through a ring; two consumer warpgroups compute (header).
+constexpr int kConsumers = 256;                 // two warpgroups
+constexpr int kBwdThreads = kConsumers + 128;   // and the producer's warpgroup
+constexpr int kBwdWarps = kConsumers / 32;      // consumer warps
+// registers a thread: the consumers take what the producer's warpgroup,
+// one thread of it busy, gives up (2 x 128 x 232 + 128 x 40 <= 65,536)
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kMinStages = 3;
+constexpr int kMaxStages = 8;
+// Named barriers of the consumers (0 is __syncthreads): kBarX + w, the
+// stores of warpgroup w's tiles are done; kBarY + w, warpgroup w's dW
+// product has read both warpgroups' tiles; kBarAll, all consumers.
+constexpr int kBarX = 1, kBarY = 3, kBarAll = 5;
 
-struct Ring {
-  unsigned char* buf;
-  uint64_t* bar;
-  const unsigned char* img;
-  int L, pieces;                 // pieces of one layer: (HP / 64)^2
-  long long q, total;
-  size_t layer;
-
-  __device__ const unsigned char* src(long long k) const {
-    int idx = (int)(k % (2 * L * pieces)), l;
-    if (idx < L * pieces) {
-      l = idx / pieces;
-    } else {
-      idx -= L * pieces;
-      l = L - 1 - idx / pieces;
-    }
-    return img + l * layer + (size_t)(idx % pieces) * kPiece;
-  }
-  __device__ void fetch(long long k) {
-    const int st = (int)(k % kStages);
-    if (k < total) bulk_load(buf + st * kPiece, src(k), kPiece, bar + st);
-  }
-  __device__ uint32_t acquire() {
-    const int st = (int)(q % kStages);
-    mbar_wait(bar + st, (uint32_t)((q / kStages) & 1));
-    return smem_addr(buf + st * kPiece);
-  }
-  // every thread is done with the stage: refill it kStages pieces ahead
-  __device__ void release() {
-    __syncthreads();
-    if (threadIdx.x == 0) fetch(q + kStages);
-    ++q;
-  }
-};
-
-// Per-warp column sums of f(j, e) (a thread's two rows at column
-// 8 j + 2 q + e) into cp[warp * HP + column].
-template <int HP, typename F>
-__device__ __forceinline__ void col_partial(const Geo& g, float* cp, F f) {
-#pragma unroll
-  for (int j = 0; j < HP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float v = rows_sum(f(j, e));
-      if (g.lane < 4) cp[g.warp * HP + 8 * j + 2 * g.q + e] = v;
-    }
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+// Lane 0 arrives on bar: a predicate, not a branch, so that no divergent
+// path lies between the wgmma groups in flight.
+__device__ __forceinline__ void mbar_arrive_lane0(uint64_t* bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(smem_addr(bar)), "r"(lane) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait_n() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// The eight warps' partials of column c, summed in warp order.
-template <int HP>
-__device__ __forceinline__ float warps_sum(const float* cp, int c) {
-  float v = cp[c];
-#pragma unroll
-  for (int w = 1; w < 8; ++w) v += cp[w * HP + c];
-  return v;
+#define WG_D64(d) WG_D32(d), WG_D32((d + 32))
+#define WG_REGS64                                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128) += A @ B, both from shared memory and MN-major; B's two
+// 64-column halves lie kPiece apart (the descriptor's leading offset).
+__device__ __forceinline__ void mma_ss_mn128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : WG_D64(d)
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// Column sums of f over the block's 128 rows, added to dst (all threads;
-// synchronises the block twice).
-template <int HP, typename F>
-__device__ __forceinline__ void col_sums(const Geo& g, float* cp, float* dst, F f) {
-  col_partial<HP>(g, cp, f);
-  __syncthreads();
-  for (int c = threadIdx.x; c < HP; c += 256) dst[c] += warps_sum<HP>(cp, c);
-  __syncthreads();
-}
+// The deepest stack the kernel takes at each width (shared memory).
+__host__ __device__ constexpr int bwd_lmax(int HP) { return HP == 64 ? 6 : 2; }
 
 // Tiles of 64 x HP bf16 a warpgroup keeps: G, then h_1..h_(L-1); h_0 is
 // recomputed into h_1's tile (its own for L = 1) when the last level needs
 // it.
 __host__ __device__ inline int bwd_slots(int L) { return L == 0 ? 1 : (L < 2 ? 2 : L); }
 
-template <int HP>
-__host__ __device__ inline size_t bwd_smem_bytes(int L) {
-  return 1024 + (size_t)kStages * kPiece + (size_t)2 * bwd_slots(L) * HP * 128 +
-         (size_t)L * HP * HP * 4 +
-         sizeof(float) * ((size_t)(3 + L) * HP + (size_t)(L + 4) * HP + 8 * HP + 16) +
-         8 * kStages;
+// Shared memory but the ring: alignment, the tiles, the f32 dW partial,
+// and wc0, wc1, bc, bs padded to HP.
+__host__ __device__ inline size_t bwd_fixed_bytes(int HP, int L) {
+  return 1024 + (size_t)2 * bwd_slots(L) * HP * 128 + (size_t)L * HP * HP * 4 +
+         sizeof(float) * (size_t)(3 + L) * HP;
 }
 
-// Backward: persistent blocks of two warpgroups; a block walks 128-row
-// tiles, 64 rows to a warpgroup. The f32 dW partials stay in shared memory
-// for all of the block's tiles; the 64 x 64 blocks of each layer's
-// h_l^T G product (K = the tile's 128 rows) are split between the
-// warpgroups.
+// Ring stages: as many 8 KB pieces (each with a full and an empty
+// barrier) as fit beside the rest, at most kMaxStages.
+__host__ __device__ inline int bwd_stages(int HP, int L) {
+  const size_t fixed = bwd_fixed_bytes(HP, L);
+  if (fixed >= (size_t)kSmemLimit) return 0;
+  const int ns = (int)(((size_t)kSmemLimit - fixed) / (kPiece + 16));
+  return ns < kMaxStages ? ns : kMaxStages;
+}
+
+__host__ __device__ inline size_t bwd_smem_bytes(int HP, int L) {
+  return bwd_fixed_bytes(HP, L) + (size_t)bwd_stages(HP, L) * (kPiece + 16);
+}
+
+// Image piece (input-row block, output-column block) of the i-th piece a
+// layer product takes off the ring: output block by output block, so that
+// a block's epilogue can run while the next block's pieces are in flight.
+// The recompute's output blocks are the image's columns; dh's (G W^T) its
+// rows.
+template <int KC>
+__host__ __device__ __forceinline__ int piece_of(int i, bool dh) {
+  return dh ? i : (i % KC) * KC + i / KC;
+}
+
+// One layer product off the ring: acc = A (registers a) @ the layer's
+// image (kDh: @ its transpose, dh = G W^T), one 8 KB piece a group. Each
+// stage goes back to the producer as soon as the group that read it is
+// done, one group behind the newest; then, once an output block of acc
+// (32 floats, 64 columns) is complete, epi(block) runs on it while the
+// next block's group is still in flight.
+template <int HP, bool kDh, typename Epi>
+__device__ __forceinline__ void ring_product(float* acc, const uint32_t* a,
+                                             unsigned char* ring, uint64_t* full,
+                                             uint64_t* empty, int NS, int& st,
+                                             uint32_t& ph, int lane, Epi epi) {
+  constexpr int KC = HP / 64;
+#pragma unroll
+  for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
+  int prev = 0;
+#pragma unroll
+  for (int p = 0; p < KC * KC; ++p) {
+    const int img = piece_of<KC>(p, kDh);
+    const int ib = img / KC, ob = img % KC;   // input-row and output-column blocks
+    mbar_wait(full + st, ph);
+    wg_fence();
+    const uint32_t base = smem_addr(ring + (size_t)st * kPiece);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if constexpr (kDh)   // K-major through the transpose bit; output block ib
+        mma_rs<0>(acc + 32 * ib, a + 4 * (4 * ob + k), desc(base + k * 32, 16, 1024));
+      else
+        mma_rs<1>(acc + 32 * ob, a + 4 * (4 * ib + k), desc(base + k * 2048, kPiece, 1024));
+    }
+    wg_commit();
+    if (p > 0) {
+      wg_wait_n<1>();
+      mbar_arrive_lane0(empty + prev, lane);
+      if ((p - 1) % KC == KC - 1) {       // piece p - 1 completed its output block
+        const int blk = (p - 1) / KC;
+        fence_regs<32>(acc + 32 * blk);
+        epi(blk);
+      }
+    }
+    prev = st;
+    if (++st == NS) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  wg_wait_n<0>();
+  mbar_arrive_lane0(empty + prev, lane);
+  fence_regs<32>(acc + 32 * (KC - 1));
+  epi(KC - 1);
+}
+
+// One round of the lanes' reduce-scatter: the lanes that differ in bit
+// kMask each keep one half of v, adding the partner's copy of it.
+template <int kHalf, int kMask>
+__device__ __forceinline__ void scatter_round(float* v, int lane) {
+  const bool up = lane & kMask;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = up ? v[i] : v[i + kHalf];
+    const float keep = up ? v[i + kHalf] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kMask);
+  }
+}
+
+// Column of the i-th of the HP / 32 sums a lane holds after col_sum.
 template <int HP>
-__global__ void __launch_bounds__(256, 1)
+__device__ __forceinline__ int scatter_col(const Geo& g, int i) {
+  const int k = (g.lane >> 2) * (HP / 32) + i;
+  return 8 * (k >> 1) + 2 * g.q + (k & 1);
+}
+
+// Sums over the warp's 16 rows of f(j, e) (a thread's two rows at column
+// 8 j + 2 q + e), reduce-scattered over the eight lanes of each q: out[i]
+// is column scatter_col(i). 14 or 28 shuffles for HP / 4 values.
+template <int HP, typename F>
+__device__ __forceinline__ void col_sum(const Geo& g, float* out, F f) {
+  constexpr int H1 = HP / 8;
+  float v[H1];
+  const bool up = g.lane & 16;
+#pragma unroll
+  for (int i = 0; i < H1; ++i) {
+    const float lo = f(i >> 1, i & 1), hi = f((i + H1) >> 1, (i + H1) & 1);
+    v[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, 16);
+  }
+  scatter_round<H1 / 2, 8>(v, g.lane);
+  scatter_round<H1 / 4, 4>(v, g.lane);
+#pragma unroll
+  for (int i = 0; i < HP / 32; ++i) out[i] = v[i];
+}
+
+// Stores the bf16 A operand (to_a_operand's layout) into a swizzled tile.
+template <int HP>
+__device__ __forceinline__ void store_a_tile(const uint32_t* a, const Geo& g, unsigned char* tile) {
+#pragma unroll
+  for (int k = 0; k < HP / 16; ++k) {
+    const int c = 16 * k + 2 * g.q;
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA, c)) = a[4 * k];
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA + 8, c)) = a[4 * k + 1];
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA, c + 8)) = a[4 * k + 2];
+    *reinterpret_cast<uint32_t*>(tile + swz(g.rowA + 8, c + 8)) = a[4 * k + 3];
+  }
+}
+
+// h0 = tanh(x0 Wc[0] + x1 Wc[1] + bc + zb) at columns c, c + 1 (c even)
+// of the thread's two rows: {(rowA, c), (rowA, c + 1), (rowA + 8, c),
+// (rowA + 8, c + 1)}; the arithmetic of first_layer_regs, with 8-byte
+// loads.
+__device__ __forceinline__ float4 h0_pair(int c, const float* wc0, const float* wc1,
+                                          const float* bcv, const float* zrow, int H,
+                                          float xa0, float xa1, float xb0, float xb1) {
+  const float2 w0 = *reinterpret_cast<const float2*>(wc0 + c);
+  const float2 w1 = *reinterpret_cast<const float2*>(wc1 + c);
+  float2 b = *reinterpret_cast<const float2*>(bcv + c);
+  if (c < H) {
+    const float2 z = __ldg(reinterpret_cast<const float2*>(zrow + c));
+    b.x += z.x;
+    b.y += z.y;
+  }
+  return make_float4(tanh_fast(fmaf(xa0, w0.x, fmaf(xa1, w1.x, b.x))),
+                     tanh_fast(fmaf(xa0, w0.y, fmaf(xa1, w1.y, b.y))),
+                     tanh_fast(fmaf(xb0, w0.x, fmaf(xb1, w1.x, b.x))),
+                     tanh_fast(fmaf(xb0, w0.y, fmaf(xb1, w1.y, b.y))));
+}
+
+// The block's contiguous run of 128-row tiles: [run_begin(b), run_begin(b + 1)).
+__host__ __device__ __forceinline__ int run_begin(int b, int nblocks, int total) {
+  return (int)((long long)b * total / nblocks);
+}
+
+// The block whose run holds tile t.
+__host__ __device__ __forceinline__ int run_of(long long t, int nblocks, int total) {
+  return (int)(((t + 1) * nblocks - 1) / total);
+}
+
+// Backward: one persistent block an SM walks a contiguous run of 128-row
+// tiles (64 rows to a consumer warpgroup), across sample boundaries, while
+// its producer thread streams the weight pieces (header).
+template <int HP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
 bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
           const float* __restrict__ Wc, const float* __restrict__ bc,
           const bf16* __restrict__ img, const float* __restrict__ bs,
           const float* __restrict__ Wo, const float* __restrict__ gy,
           float* __restrict__ dx, float* __restrict__ part, float* __restrict__ dzb_part,
-          int n, int H, int L, int T, int total, int per, int seg_len, int segs, int P) {
+          int n, int H, int L, int T, int total, int segs, int P) {
   constexpr int KC = HP / 64;
   constexpr int TILE = HP * 128;           // bytes of a 64 x HP bf16 tile
+  constexpr int NC = HP / 32;              // column sums a lane keeps
+  constexpr int LMAX = bwd_lmax(HP);
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring_buf = align1024(smem_raw);
-  const int S = bwd_slots(L);
-  unsigned char* tiles = ring_buf + kStages * kPiece;   // [warpgroup][slot]
-  float* dW = reinterpret_cast<float*>(tiles + 2 * S * TILE);
+  unsigned char* ring = align1024(smem_raw);
+  const int S = bwd_slots(L), NS = bwd_stages(HP, L);
+  unsigned char* tiles = ring + (size_t)NS * kPiece;    // [warpgroup][slot]
+  float* dW = reinterpret_cast<float*>(tiles + (size_t)2 * S * TILE);
   float* wc0 = dW + (size_t)L * HP * HP;
   float* wc1 = wc0 + HP;
   float* bcv = wc1 + HP;
   float* bsv = bcv + HP;                   // L * HP
-  float* dbs = bsv + L * HP;               // L * HP, then dbc, dwc0, dwc1, dwo
-  float* dbc = dbs + L * HP;
-  float* dwc0 = dbc + HP;
-  float* dwc1 = dwc0 + HP;
-  float* dwo = dwc1 + HP;
-  float* cp = dwo + HP;                    // 8 warps x HP
-  float* scal = cp + 8 * HP;               // [0] dbo, [8..15] per warp
-  uint64_t* bar = reinterpret_cast<uint64_t*>(scal + 16);   // kStages
-  const Geo g;
-  const int wg = threadIdx.x / 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bsv + L * HP);
+  uint64_t* empty = full + NS;
   const int tid = threadIdx.x;
-  auto tile = [&](int w, int slot) { return tiles + (w * S + slot) * TILE; };
-  // h_l's tile: slot l for l >= 1, slot 1 for h_0; G in slot 0
-  auto h_slot = [&](int l) { return l == 0 ? 1 : l; };
+  const int b = blockIdx.x, nb = gridDim.x;
+  const int t_begin = run_begin(b, nb, total), t_end = run_begin(b + 1, nb, total);
 
   if (tid == 0)
-    for (int st = 0; st < kStages; ++st) mbar_init(bar + st, 1);
-  for (int c = tid; c < HP; c += 256) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kBwdWarps);
+    }
+  for (int c = tid; c < HP; c += kBwdThreads) {
     const bool ok = c < H;
     wc0[c] = ok ? Wc[c] : 0.f;
     wc1[c] = ok ? Wc[H + c] : 0.f;
     bcv[c] = ok ? bc[c] : 0.f;
   }
-  for (int e = tid; e < L * HP; e += 256) {
+  for (int e = tid; e < L * HP; e += kBwdThreads) {
     const int l = e / HP, c = e % HP;
     bsv[e] = c < H ? bs[(size_t)l * H + c] : 0.f;
   }
-  for (size_t e = tid; e < (size_t)L * HP * HP; e += 256) dW[e] = 0.f;
-  for (int e = tid; e < (L + 4) * HP; e += 256) dbs[e] = 0.f;
-  if (tid < 16) scal[tid] = 0.f;
+  for (size_t e = tid; e < (size_t)L * HP * HP; e += kBwdThreads) dW[e] = 0.f;
   __syncthreads();
 
-  const int t_begin = blockIdx.x * per;
-  const int t_end = min(t_begin + per, total);
-  Ring ring{ring_buf, bar, reinterpret_cast<const unsigned char*>(img), L, KC * KC, 0,
-            (long long)(t_end - t_begin) * 2 * L * KC * KC, (size_t)HP * HP * 2};
-  if (tid == 0)
-    for (int st = 0; st < kStages; ++st) ring.fetch(st);
+  // warpgroup index, made warp-uniform for the compiler (a broadcast)
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == 2) {
+    // The producer: a tile's pieces are layers 0..L-1 (the recompute),
+    // then L-1..0 (dh), each in image order; a stage is refilled once all
+    // eight consumer warps have released it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (tid == kConsumers) {
+      const int kk = KC * KC, per_tile = 2 * L * kk;
+      const long long count = (long long)(t_end - t_begin) * per_tile;
+      const unsigned char* src0 = reinterpret_cast<const unsigned char*>(img);
+      int st = 0, idx = 0;
+      uint32_t ph = 0;
+      for (long long k = 0; k < count; ++k) {
+        if (k >= NS) mbar_wait(empty + st, ph ^ 1);
+        const bool dh = idx >= L * kk;
+        const int layer = dh ? L - 1 - (idx - L * kk) / kk : idx / kk;
+        bulk_load(ring + (size_t)st * kPiece,
+                  src0 + (size_t)layer * HP * HP * 2 +
+                      (size_t)piece_of<KC>(idx % kk, dh) * kPiece,
+                  kPiece, full + st);
+        if (++idx == per_tile) idx = 0;
+        if (++st == NS) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const Geo g;
+  const int other = 1 - wg;
+  auto tile = [&](int w, int slot) { return tiles + (size_t)(w * S + slot) * TILE; };
+  // h_l's tile: slot l for l >= 1, slot 1 for h_0; G in slot 0
+  auto h_slot = [&](int l) { return l == 0 ? 1 : l; };
+  int st = 0;                              // the ring position, as the producer's
+  uint32_t ph = 0;
+
+  // this warp's column sums over its rows of the run, HP / 32 columns a lane
+  float dbs_acc[LMAX][NC], dwo_acc[NC], dbc_acc[NC], dwc0_acc[NC], dwc1_acc[NC], dzb_acc[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+#pragma unroll
+    for (int l = 0; l < LMAX; ++l) dbs_acc[l][i] = 0.f;
+    dwo_acc[i] = dbc_acc[i] = dwc0_acc[i] = dwc1_acc[i] = dzb_acc[i] = 0.f;
+  }
+  float dbo_acc = 0.f;
+  auto add_dbs = [&](int l, const float* v) {
+#pragma unroll
+    for (int i = 0; i < LMAX; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) dbs_acc[i][c] += i == l ? v[c] : 0.f;
+  };
 
   for (int t = t_begin; t < t_end; ++t) {
     const int s = t / T, jt = t % T, r0 = jt * 128 + 64 * wg;
-    const bool first_in_seg = t == t_begin || jt % seg_len == 0;
-    float* dzb_seg = dzb_part + ((size_t)s * segs + jt / seg_len) * H;
     const int ra = r0 + g.rowA, rb = ra + 8;
     const float* xs = xT + (size_t)s * 2 * n;
     // masked rows get x = 0 and gy = 0: they add nothing
@@ -982,43 +1216,39 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
     const float ga = ra < n ? gy[(size_t)s * n + ra] : 0.f;
     const float gb = rb < n ? gy[(size_t)s * n + rb] : 0.f;
     const float* zrow = zb + (size_t)s * H;
+    // the other warpgroup's last dW product is done with this one's tiles
+    if (L > 0 && t > t_begin) bar_sync(kBarY + other);
 
     float acc[HP / 2];
     uint32_t a[HP / 4];
-    first_layer_regs<HP>(acc, g, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
-    for (int l = 0; l < L; ++l) {          // recompute h1..hL
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j) {
+      const float4 h = h0_pair(8 * j + 2 * g.q, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+      acc[4 * j] = h.x;
+      acc[4 * j + 1] = h.y;
+      acc[4 * j + 2] = h.z;
+      acc[4 * j + 3] = h.w;
+    }
+    for (int l = 0; l < L; ++l) {          // recompute h1..hL; keep h1..h(L-1)
       to_a_operand<HP>(acc, a);
+      if (l > 0) store_a_tile<HP>(a, g, tile(wg, h_slot(l)));
+      const float* bl = bsv + l * HP;
+      ring_product<HP, false>(acc, a, ring, full, empty, NS, st, ph, g.lane, [&](int blk) {
 #pragma unroll
-      for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
+        for (int j = 8 * blk; j < 8 * blk + 8; ++j)
 #pragma unroll
-      for (int p = 0; p < KC * KC; ++p) {  // piece (input block kc, output block nc)
-        const int kc = p / KC, nc = p % KC;
-        const uint32_t base = ring.acquire();
-        wg_fence();
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          mma_rs<1>(acc + 32 * nc, a + 4 * (4 * kc + k), desc(base + k * 2048, kPiece, 1024));
-        wg_commit();
-        wg_wait();
-        fence_regs<HP / 2>(acc);
-        ring.release();
-      }
-      bias_tanh<HP>(acc, g, bsv + l * HP);
-      if (l + 1 < L) store_tile<HP>(acc, g, tile(wg, h_slot(l + 1)));
+          for (int e = 0; e < 4; ++e)
+            acc[4 * j + e] = tanh_fast(acc[4 * j + e] + bl[8 * j + 2 * g.q + (e & 1)]);
+      });
     }
 
     // head: dWo += hL^T gy, dbo += sum gy, G_L = gy Wo^T (1 - hL^2)
+    dbo_acc += g.q == 0 ? ga + gb : 0.f;
     {
-      float v = g.q == 0 ? ga + gb : 0.f;
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (g.lane == 0) scal[8 + g.warp] = v;
-    }
-    col_sums<HP>(g, cp, dwo, [&](int j, int e) {
-      return acc[4 * j + e] * ga + acc[4 * j + 2 + e] * gb; });
-    if (tid == 0) {
-      float v = scal[8];
-      for (int w = 1; w < 8; ++w) v += scal[8 + w];
-      scal[0] += v;
+      float v[NC];
+      col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] * ga + acc[4 * j + 2 + e] * gb; });
+#pragma unroll
+      for (int i = 0; i < NC; ++i) dwo_acc[i] += v[i];
     }
 #pragma unroll
     for (int j = 0; j < HP / 8; ++j)
@@ -1032,99 +1262,8 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
         v = gb * w * (1.f - v * v);
       }
 
-    for (int m = L; m >= 1; --m) {
-      const int l = m - 1;                 // the layer that maps h_l to h_m
-      col_sums<HP>(g, cp, dbs + l * HP, [&](int j, int e) {
-        return acc[4 * j + e] + acc[4 * j + 2 + e]; });
-      if (l == 0) {                        // h_0 again, into its tile
-        unsigned char* h0t = tile(wg, h_slot(0));
-#pragma unroll
-        for (int j = 0; j < HP / 8; ++j) {
-          const int c = 8 * j + 2 * g.q;
-          float ha[2], hb[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float b = bcv[c + e] + (c + e < H ? __ldg(zrow + c + e) : 0.f);
-            ha[e] = tanh_fast(fmaf(xa0, wc0[c + e], fmaf(xa1, wc1[c + e], b)));
-            hb[e] = tanh_fast(fmaf(xb0, wc0[c + e], fmaf(xb1, wc1[c + e], b)));
-          }
-          *reinterpret_cast<uint32_t*>(h0t + swz(g.rowA, c)) = pack_bf16(ha[0], ha[1]);
-          *reinterpret_cast<uint32_t*>(h0t + swz(g.rowA + 8, c)) = pack_bf16(hb[0], hb[1]);
-        }
-      }
-      store_tile<HP>(acc, g, tile(wg, 0));
-      fence_async_smem();
-      __syncthreads();
-      // dWs[l] += h_l^T G over the tile's 128 rows: 64 x 64 blocks of the
-      // block's f32 partial, alternating between the warpgroups
-      float* dw = dW + (size_t)l * HP * HP;
-#pragma unroll 1
-      for (int c = wg; c < KC * KC; c += 2) {
-        const int mc = c / KC, nc = c % KC;
-        float d[32];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int o = 64 * nc + 8 * jj + 2 * g.q;
-          const float2 u = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o));
-          const float2 v = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o));
-          d[4 * jj] = u.x;
-          d[4 * jj + 1] = u.y;
-          d[4 * jj + 2] = v.x;
-          d[4 * jj + 3] = v.y;
-        }
-        wg_fence();
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          const uint32_t h_l = smem_addr(tile(k >> 2, h_slot(l)));
-          const uint32_t gt = smem_addr(tile(k >> 2, 0));
-          mma_ss_mn(d, desc(h_l + mc * kPiece + (k & 3) * 2048, kPiece, 1024),
-                    desc(gt + nc * kPiece + (k & 3) * 2048, kPiece, 1024));
-        }
-        wg_commit();
-        wg_wait();
-        fence_regs<32>(d);
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int o = 64 * nc + 8 * jj + 2 * g.q;
-          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o)) =
-              make_float2(d[4 * jj], d[4 * jj + 1]);
-          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o)) =
-              make_float2(d[4 * jj + 2], d[4 * jj + 3]);
-        }
-      }
-      // dh_l = G @ Ws[l]^T: the same image, K-major through the transpose bit
-      to_a_operand<HP>(acc, a);
-#pragma unroll
-      for (int e = 0; e < HP / 2; ++e) acc[e] = 0.f;
-#pragma unroll
-      for (int p = 0; p < KC * KC; ++p) {  // piece (output block kc, input block ob)
-        const int kc = p / KC, ob = p % KC;
-        const uint32_t base = ring.acquire();
-        wg_fence();
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          mma_rs<0>(acc + 32 * kc, a + 4 * (4 * ob + k), desc(base + k * 32, 16, 1024));
-        wg_commit();
-        wg_wait();
-        fence_regs<HP / 2>(acc);
-        ring.release();
-      }
-      // G at level l = dh_l (1 - h_l^2)
-      const unsigned char* ht = tile(wg, h_slot(l));
-#pragma unroll
-      for (int j = 0; j < HP / 8; ++j) {
-        const int c = 8 * j + 2 * g.q;
-        const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA, c)));
-        const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA + 8, c)));
-        acc[4 * j] *= 1.f - fa.x * fa.x;
-        acc[4 * j + 1] *= 1.f - fa.y * fa.y;
-        acc[4 * j + 2] *= 1.f - fb.x * fb.x;
-        acc[4 * j + 3] *= 1.f - fb.y * fb.y;
-      }
-    }
-
-    // level 0: dx from G0 by rows; dbc, dzb and dWc by columns
-    {
+    // level 0: dx by rows; dbc, dzb and dWc by columns
+    auto level0 = [&]() {
       float da0 = 0.f, da1 = 0.f, db0 = 0.f, db1 = 0.f;
 #pragma unroll
       for (int j = 0; j < HP / 8; ++j)
@@ -1145,37 +1284,182 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
         if (ra < n) { dxs[ra] = da0; dxs[n + ra] = da1; }
         if (rb < n) { dxs[rb] = db0; dxs[n + rb] = db1; }
       }
+      float v[NC];
+      col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        dbc_acc[i] += v[i];
+        dzb_acc[i] += v[i];
+      }
+      col_sum<HP>(g, v, [&](int j, int e) {
+        return fmaf(xa0, acc[4 * j + e], xb0 * acc[4 * j + 2 + e]); });
+#pragma unroll
+      for (int i = 0; i < NC; ++i) dwc0_acc[i] += v[i];
+      col_sum<HP>(g, v, [&](int j, int e) {
+        return fmaf(xa1, acc[4 * j + e], xb1 * acc[4 * j + 2 + e]); });
+#pragma unroll
+      for (int i = 0; i < NC; ++i) dwc1_acc[i] += v[i];
+    };
+
+    if (L > 0) {
+      float v[NC];
+      col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
+      add_dbs(L - 1, v);
+    } else {
+      level0();
     }
-    col_partial<HP>(g, cp, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
-    __syncthreads();
-    for (int c = tid; c < HP; c += 256) {
-      const float sum = warps_sum<HP>(cp, c);
-      dbc[c] += sum;
-      if (c < H) dzb_seg[c] = first_in_seg ? sum : dzb_seg[c] + sum;
+
+    for (int m = L; m >= 1; --m) {
+      const int l = m - 1;                 // the layer that maps h_l to h_m
+      if (m < L) bar_sync(kBarY + other);  // both dW[m] products are done with the tiles
+      if (l == 0) {                        // h_0 again, into its tile
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j) {
+          const float4 h = h0_pair(8 * j + 2 * g.q, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+          a[4 * (j >> 1) + 2 * (j & 1)] = pack_bf16(h.x, h.y);
+          a[4 * (j >> 1) + 2 * (j & 1) + 1] = pack_bf16(h.z, h.w);
+        }
+        store_a_tile<HP>(a, g, tile(wg, h_slot(0)));
+      }
+      to_a_operand<HP>(acc, a);            // G_m, bf16: dh's A operand and dW's B tile
+      store_a_tile<HP>(a, g, tile(wg, 0));
+      fence_async_smem();
+      bar_arrive(kBarX + wg);
+
+      // dh_l = G_m Ws[l]^T, then G_l = dh_l (1 - h_l^2), an output block at
+      // a time
+      const unsigned char* ht = tile(wg, h_slot(l));
+      ring_product<HP, true>(acc, a, ring, full, empty, NS, st, ph, g.lane, [&](int blk) {
+#pragma unroll
+        for (int j = 8 * blk; j < 8 * blk + 8; ++j) {
+          const int c = 8 * j + 2 * g.q;
+          const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA, c)));
+          const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA + 8, c)));
+          acc[4 * j] *= 1.f - fa.x * fa.x;
+          acc[4 * j + 1] *= 1.f - fa.y * fa.y;
+          acc[4 * j + 2] *= 1.f - fb.x * fb.x;
+          acc[4 * j + 3] *= 1.f - fb.y * fb.y;
+        }
+      });
+
+      // dWs[l] += h_l^T G_m over the tile's 128 rows (both warpgroups'):
+      // rows 64 mc.. of the f32 partial, all HP columns; at HP = 128 each
+      // warpgroup owns one half, at HP = 64 the layer's parity picks one
+      bar_sync(kBarX + other);
+      const bool mine = KC == 2 || (l & 1) == wg;
+      const int mc = KC == 2 ? wg : 0;
+      float* dw = dW + (size_t)l * HP * HP;
+      float d[HP / 2];
+      if (mine) {
+#pragma unroll
+        for (int jj = 0; jj < HP / 8; ++jj) {
+          const int o = 8 * jj + 2 * g.q;
+          const float2 u = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o));
+          const float2 v = *reinterpret_cast<const float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o));
+          d[4 * jj] = u.x;
+          d[4 * jj + 1] = u.y;
+          d[4 * jj + 2] = v.x;
+          d[4 * jj + 3] = v.y;
+        }
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const uint32_t hl = smem_addr(tile(k >> 2, h_slot(l))) + mc * kPiece + (k & 3) * 2048;
+          const uint32_t gt = smem_addr(tile(k >> 2, 0)) + (k & 3) * 2048;
+          if constexpr (KC == 2)
+            mma_ss_mn128(d, desc(hl, kPiece, 1024), desc(gt, kPiece, 1024));
+          else
+            mma_ss_mn(d, desc(hl, kPiece, 1024), desc(gt, kPiece, 1024));
+        }
+        wg_commit();
+      }
+      // the next level's column sums while the product runs
+      if (l > 0) {
+        float v[NC];
+        col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
+        add_dbs(l - 1, v);
+      } else {
+        level0();
+      }
+      if (mine) {
+        wg_wait();
+        fence_regs<HP / 2>(d);
+#pragma unroll
+        for (int jj = 0; jj < HP / 8; ++jj) {
+          const int o = 8 * jj + 2 * g.q;
+          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA, o)) =
+              make_float2(d[4 * jj], d[4 * jj + 1]);
+          *reinterpret_cast<float2*>(dw + dw_index(HP, 64 * mc + g.rowA + 8, o)) =
+              make_float2(d[4 * jj + 2], d[4 * jj + 3]);
+        }
+      }
+      bar_arrive(kBarY + wg);
     }
-    __syncthreads();
-    col_sums<HP>(g, cp, dwc0, [&](int j, int e) {
-      return fmaf(xa0, acc[4 * j + e], xb0 * acc[4 * j + 2 + e]); });
-    col_sums<HP>(g, cp, dwc1, [&](int j, int e) {
-      return fmaf(xa1, acc[4 * j + e], xb1 * acc[4 * j + 2 + e]); });
+
+    // the run's last tile of sample s: this warp's dzb piece of the sample
+    if (jt == T - 1 || t == t_end - 1) {
+      const int first = run_of((long long)s * T, nb, total);
+      float* dst = dzb_part + (((size_t)s * segs + (b - first)) * kBwdWarps + g.warp) * H;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = scatter_col<HP>(g, i);
+        if (c < H) dst[c] = dzb_acc[i];
+        dzb_acc[i] = 0.f;
+      }
+    }
   }
+  if (L > 0 && t_end > t_begin) bar_sync(kBarY + other);
+  bar_sync(kBarAll);                       // every dW product and store is done
+
+  // the warps' column sums, through the tiles' memory: [warp][quantity][HP]
+  // with quantities dbs (L), dWo, dbc, dWc[0], dWc[1]; then dbo a warp
+  const int Q = L + 4;
+  float* sw = reinterpret_cast<float*>(tiles);
+  float* sdbo = sw + (size_t)kBwdWarps * Q * HP;
+  auto put = [&](int qn, const float* v) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) sw[(g.warp * Q + qn) * HP + scatter_col<HP>(g, i)] = v[i];
+  };
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l)
+    if (l < L) put(l, dbs_acc[l]);
+  put(L, dwo_acc);
+  put(L + 1, dbc_acc);
+  put(L + 2, dwc0_acc);
+  put(L + 3, dwc1_acc);
+  const float dbo_w = warp_sum(dbo_acc);
+  if (g.lane == 0) sdbo[g.warp] = dbo_w;
+  bar_sync(kBarAll);
+  auto warps_sum = [&](int qn, int c) {
+    float v = sw[qn * HP + c];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w) v += sw[(w * Q + qn) * HP + c];
+    return v;
+  };
 
   // the block's partials, once: [dWs | dbs | dWo | dbo | dWc | dbc]
-  float* out = part + (size_t)blockIdx.x * P;
-  for (size_t e = tid; e < (size_t)L * H * H; e += 256) {
-    const int l = (int)(e / ((size_t)H * H)), r = (int)(e % ((size_t)H * H));
-    out[e] = dW[(size_t)l * HP * HP + dw_index(HP, r / H, r % H)];
+  // (by rows of H a warp: no division of an index by H)
+  float* out = part + (size_t)b * P;
+  for (int r = g.warp; r < L * H; r += kBwdWarps) {
+    const int l = r / H, i = r - l * H;
+    const float* src = dW + (size_t)l * HP * HP;
+    for (int o = g.lane; o < H; o += 32) out[(size_t)r * H + o] = src[dw_index(HP, i, o)];
   }
   out += (size_t)L * H * H;
-  for (int e = tid; e < L * H; e += 256) out[e] = dbs[(e / H) * HP + e % H];
+  for (int r = g.warp; r < L; r += kBwdWarps)
+    for (int c = g.lane; c < H; c += 32) out[r * H + c] = warps_sum(r, c);
   out += L * H;
-  for (int c = tid; c < H; c += 256) {
-    out[c] = dwo[c];
-    out[H + 1 + c] = dwc0[c];
-    out[2 * H + 1 + c] = dwc1[c];
-    out[3 * H + 1 + c] = dbc[c];
+  for (int c = tid; c < H; c += kConsumers) {
+    out[c] = warps_sum(L, c);
+    out[H + 1 + c] = warps_sum(L + 2, c);
+    out[2 * H + 1 + c] = warps_sum(L + 3, c);
+    out[3 * H + 1 + c] = warps_sum(L + 1, c);
   }
-  if (tid == 0) out[H] = scal[0];
+  if (tid == 0) {
+    float v = sdbo[0];
+    for (int w = 1; w < kBwdWarps; ++w) v += sdbo[w];
+    out[H] = v;
+  }
 }
 
 int grad_floats(int H, int L) { return L * H * H + L * H + 4 * H + 1; }
@@ -1186,14 +1470,12 @@ bool fwd_fast(int H, int L) {
   return HP <= 256 && fwd_smem_bytes(HP, L) <= (size_t)kSmemLimit;
 }
 
-size_t bwd_fast_smem(int H, int L) {
+// The pipelined backward takes HP 64 and 128 wherever a ring of at least
+// kMinStages fits beside its tiles and partials.
+bool bwd_fast(int H, int L) {
   const int HP = round64(H);
-  if (HP == 64) return bwd_smem_bytes<64>(L);
-  if (HP == 128) return bwd_smem_bytes<128>(L);
-  return SIZE_MAX;
+  return (HP == 64 || HP == 128) && L <= bwd_lmax(HP) && bwd_stages(HP, L) >= kMinStages;
 }
-
-bool bwd_fast(int H, int L) { return bwd_fast_smem(H, L) <= (size_t)kSmemLimit; }
 
 size_t image_bytes(int H, int L) {
   const int HP = round64(H);
@@ -1238,7 +1520,8 @@ int current_device(int* dev, int* sms) {
   return 0;
 }
 
-// Sets the kernel's dynamic shared memory once and returns its blocks per SM.
+// Sets the kernel's dynamic shared memory ceiling once and returns its
+// blocks per SM at `smem`.
 int prepare(const void* fn, int dev, int smem, int threads, int* occ) {
   std::lock_guard<std::mutex> lock(g_mu);
   for (int i = 0; i < g_n_prepared; ++i) {
@@ -1248,7 +1531,10 @@ int prepare(const void* fn, int dev, int smem, int threads, int* occ) {
       return 0;
     }
   }
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the attribute is a ceiling: at the limit, so that a smaller request of
+  // the same kernel never lowers it below a larger one's
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, threads, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1274,29 +1560,49 @@ int make_plan(int B, int n, int H, int L, BwdPlan* p) {
   }
   const bool fast = bwd_fast(H, L);
   Layout lay(H, L, true);
-  err = fast ? prepare(bwd_fast_fn(round64(H)), dev, (int)bwd_fast_smem(H, L), 256, &occ)
+  const int HP = round64(H);
+  err = fast ? prepare(bwd_fast_fn(HP), dev, (int)bwd_smem_bytes(HP, L), kBwdThreads, &occ)
              : prepare((const void*)bwd_kernel, dev, (int)lay.total, kThreads, &occ);
   if (err) return err;
-  const int target = sms * (occ < 2 ? occ : 2);
-  const int rows = fast ? 128 : kTM;   // rows of a tile
-  p->T = (n + rows - 1) / rows;
-  p->total = B * p->T;
-  const int want = (p->total + target - 1) / target;
-  if (want <= p->T) {
-    int per = want;
-    while (p->T % per) ++per;   // smallest divisor of T that is >= want
-    p->per = per;
+  if (fast) {
+    // one block an SM, each a contiguous run of 128-row tiles; a sample's
+    // dzb has a piece from each block its tiles fall in, one a warp
+    p->T = (n + 127) / 128;
+    p->total = B * p->T;
+    p->nblocks = p->total < sms * occ ? p->total : sms * occ;
+    p->per = p->seg_len = 0;
+    p->segs = 1;
+    for (int s = 0; s < B; ++s) {
+      const long long t0 = (long long)s * p->T;
+      const int pieces = run_of(t0 + p->T - 1, p->nblocks, p->total) -
+                         run_of(t0, p->nblocks, p->total) + 1;
+      if (pieces > p->segs) p->segs = pieces;
+    }
+    p->ways = kBwdWarps;
+    p->runs = 1;
   } else {
-    p->per = (want + p->T - 1) / p->T * p->T;
+    const int target = sms * (occ < 2 ? occ : 2);
+    p->T = (n + kTM - 1) / kTM;
+    p->total = B * p->T;
+    const int want = (p->total + target - 1) / target;
+    if (want <= p->T) {
+      int per = want;
+      while (p->T % per) ++per;   // smallest divisor of T that is >= want
+      p->per = per;
+    } else {
+      p->per = (want + p->T - 1) / p->T * p->T;
+    }
+    p->seg_len = p->per < p->T ? p->per : p->T;
+    p->segs = p->T / p->seg_len;
+    p->nblocks = (p->total + p->per - 1) / p->per;
+    p->ways = 1;
+    p->runs = 0;
   }
-  p->seg_len = p->per < p->T ? p->per : p->T;
-  p->segs = p->T / p->seg_len;
-  p->nblocks = (p->total + p->per - 1) / p->per;
   p->P_used = grad_floats(H, L);
   p->P = (p->P_used + 7) / 8 * 8;
   p->img_bytes = fast ? image_bytes(H, L) : 0;
   p->part_bytes = round128(sizeof(float) * (size_t)p->nblocks * p->P);
-  p->dzb_bytes = round128(sizeof(float) * (size_t)B * p->segs * H);
+  p->dzb_bytes = round128(sizeof(float) * (size_t)B * p->segs * p->ways * H);
   p->scratch_bytes = !fast && lay.acts_global
       ? round128(sizeof(bf16) * (size_t)p->nblocks * (L + 3) * lay.act_tile_elems())
       : 0;
@@ -1382,12 +1688,15 @@ int spatial_mlp_forward(const float* xT, const float* zb, const float* Wc,
 
 // dx (B, 2, n), dzb (B, H), and dW = [dWs (L,H,H) | dbs (L,H) | dWo (H) |
 // dbo (1) | dWc (2,H) | dbc (H)] flat, from the inputs and gy (B, 1, n).
+// *pipelined is set to 1 when the launch took bwd_wgmma, 0 for the staged
+// bwd_kernel.
 int spatial_mlp_backward(const float* xT, const float* zb, const float* Wc,
                          const float* bc, const float* Ws, const float* bs,
                          const float* Wo, const float* bo, const float* gy,
                          float* dx, float* dzb, float* dW, void* workspace,
                          long long workspace_bytes, int B, int n, int H, int L,
-                         void* stream) {
+                         void* stream, int* pipelined) {
+  *pipelined = 0;
   if (!shape_ok(B, n, H, L)) return kErrShape;
   BwdPlan p;
   int err = make_plan(B, n, H, L, &p);
@@ -1398,18 +1707,19 @@ int spatial_mlp_backward(const float* xT, const float* zb, const float* Wc,
   float* part = reinterpret_cast<float*>(ws + p.img_bytes);
   float* dzb_part = reinterpret_cast<float*>(ws + p.img_bytes + p.part_bytes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bwd_fast(H, L)) {
+  if (p.runs) {
     err = pack_weights(Ws, img, H, L, st);
     if (err) return err;
-    const int smem = (int)bwd_fast_smem(H, L);
-    if (round64(H) == 64)
-      bwd_wgmma<64><<<p.nblocks, 256, smem, st>>>(
+    const int HP = round64(H);
+    const int smem = (int)bwd_smem_bytes(HP, L);
+    if (HP == 64)
+      bwd_wgmma<64><<<p.nblocks, kBwdThreads, smem, st>>>(
           xT, zb, Wc, bc, img, bs, Wo, gy, dx, part, dzb_part, n, H, L, p.T, p.total,
-          p.per, p.seg_len, p.segs, p.P);
+          p.segs, p.P);
     else
-      bwd_wgmma<128><<<p.nblocks, 256, smem, st>>>(
+      bwd_wgmma<128><<<p.nblocks, kBwdThreads, smem, st>>>(
           xT, zb, Wc, bc, img, bs, Wo, gy, dx, part, dzb_part, n, H, L, p.T, p.total,
-          p.per, p.seg_len, p.segs, p.P);
+          p.segs, p.P);
   } else {
     const Layout lay(H, L, true);
     bf16* scratch = lay.acts_global
@@ -1422,9 +1732,13 @@ int spatial_mlp_backward(const float* xT, const float* zb, const float* Wc,
   if (e != cudaSuccess) return (int)e;
   const int BH = B * H;
   const int items = p.P_used + BH;
-  reduce_kernel<<<(items + 255) / 256, 256, 0, st>>>(part, p.nblocks, p.P, p.P_used,
-                                                     dW, dzb_part, p.segs, BH, H, dzb);
-  return (int)cudaGetLastError();
+  reduce_kernel<<<(items + 31) / 32, kReduceThreads, 0, st>>>(
+      part, p.nblocks, p.P, p.P_used, dW, dzb_part, p.segs, p.ways, p.runs, p.T, p.total, BH,
+      H, dzb);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *pipelined = p.runs;
+  return 0;
 }
 
 const char* spatial_mlp_error_string(int code) {

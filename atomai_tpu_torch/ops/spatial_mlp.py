@@ -23,9 +23,11 @@ precision), H a multiple of 16 in [16, 512] (:func:`mlp_shapes_supported`),
 any L >= 0 and any n: the tail tile is masked, so rows need no padding.
 Their design is in the source's header: ``wgmma`` products with the
 activation chain in registers for H up to 256 (forward) and 128
-(backward), a staged ``wmma`` path beyond. Each call packs the weights to
-bf16 into a workspace that the wrapper keeps per device and pass, sized
-once per shape (:func:`_workspace`); the kernels allocate nothing.
+(backward: one block an SM, a producer streaming the weights to two
+consumer warpgroups), a staged ``wmma`` path beyond. Each call packs the
+weights to bf16 into a workspace that the wrapper keeps per device and
+pass, sized once per shape (:func:`_workspace`); the kernels allocate
+nothing.
 :func:`spatial_mlp_flops` and :func:`spatial_mlp_bytes` count the work for
 the bounds of ``roofline``.
 """
@@ -56,7 +58,7 @@ def _library() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_longlong)] * 2
         lib.spatial_mlp_workspace.restype = _I
         lib.spatial_mlp_backward.argtypes = [_P] * 13 + [ctypes.c_longlong] + \
-            [_I] * 4 + [_P]
+            [_I] * 4 + [_P, ctypes.POINTER(_I)]
         lib.spatial_mlp_backward.restype = _I
         lib.spatial_mlp_error_string.argtypes = [_I]
         lib.spatial_mlp_error_string.restype = ctypes.c_char_p
@@ -184,7 +186,9 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     """Launches the backward kernel (and its reduction); returns the
     gradients of the eight inputs (dx, dzb, dWc, dbc, dWs, dbs, dWo, dbo),
     float32, with the inputs' shapes. Counts
-    ``spatial_mlp.backward_launches``."""
+    ``spatial_mlp.backward_launches``, and
+    ``spatial_mlp.backward_pipelined_launches`` when the launch took the
+    pipelined ``bwd_wgmma`` (HP 64 or 128) rather than the staged kernel."""
     args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
     B, n, H, L = _dims(*args)
     if tuple(gy.shape) != (B, 1, n):
@@ -196,15 +200,18 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     dzb = torch.empty((B, H), dtype=torch.float32, device=dev)
     sizes = [L * H * H, L * H, H, 1, 2 * H, H]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    pipelined = _I(0)
     with torch.cuda.device(dev):
         ws, nbytes = _workspace(dev, 1, (B, n, H, L))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_mlp_backward(
             *(a.data_ptr() for a in args), gy.data_ptr(), dx.data_ptr(),
             dzb.data_ptr(), flat.data_ptr(), ws.data_ptr(), nbytes,
-            B, n, H, L, stream)
+            B, n, H, L, stream, ctypes.byref(pipelined))
     _raise_on(err, "backward launch")
     profiling.count("spatial_mlp.backward_launches")
+    if pipelined.value:
+        profiling.count("spatial_mlp.backward_pipelined_launches")
     dWs, dbs, dWo, dbo, dWc, dbc = torch.split(flat, sizes)
     return (dx, dzb, dWc.view(2, H), dbc.view(1, H), dWs.view(L, H, H),
             dbs.view(L, H), dWo.view(H, 1), dbo.view(1, 1))

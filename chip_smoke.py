@@ -317,10 +317,13 @@ FULL_SHAPES = [(2048, 2048), (509, 331)]
 RAGGED_SHAPES = [(33, 1), (1, 2048), (257, 33), (4099, 2)]
 RANDOM_STACK = (8, 255, 2048)   # tiled to (2048, 2048)
 SPIRAL = 1024
-# (B, n, H, L) of the spatial MLP phase; the first is config C's
+# (B, n, H, L) of the spatial MLP phase; the first is config C's. Then
+# rvae48.fit's, and two whose 128-row tiles fall unevenly on the SMs, so
+# that blocks' runs cross samples: 126 tiles of 18, and 399 of 3
 MLP_SHAPES = [(128, 1024, 128, 2), (128, 784, 128, 2), (32, 2560, 128, 2),
               (32, 1024, 256, 2), (16, 1024, 512, 2), (6, 300, 48, 0),
-              (5, 333, 64, 3), (300, 64, 32, 1)]
+              (5, 333, 64, 3), (300, 64, 32, 1), (100, 2304, 128, 2),
+              (7, 2304, 128, 2), (133, 300, 128, 2)]
 RVAE_EPOCHS = 20
 RVAE_BATCH = 128
 MLP_NAMES = ["dx", "dzb", "dWc", "dbc", "dWs", "dbs", "dWo", "dbo"]
@@ -655,6 +658,40 @@ def emit(phase, **fields):
 # the spatial-MLP kernels' counters (forward, backward)
 MLP_LAUNCHES = ("spatial_mlp.forward_launches",
                 "spatial_mlp.backward_launches")
+
+
+MLP_BACKWARD = ("spatial_mlp.backward_launches",
+                "spatial_mlp.backward_pipelined_launches")
+# every depth at both widths of the pipelined backward (HP 64: L <= 6, HP
+# 128: L <= 2), at H below and at HP, and the first depths beyond it
+MLP_RANGE_SHAPES = [(3, 200, H, L) for H in (48, 64) for L in range(8)] + \
+    [(3, 200, H, L) for H in (112, 128) for L in range(4)]
+
+
+def takes_pipelined(H, L):
+    """Whether the backward at hidden width H and depth L takes the
+    pipelined ``bwd_wgmma``: HP (H rounded up to 64) 64 with L <= 6, or
+    128 with L <= 2, the shapes the kernel took before its redesign."""
+    HP = -(-H // 64) * 64
+    return (HP == 64 and L <= 6) or (HP == 128 and L <= 2)
+
+
+def backward_routes(before):
+    """Backward launches since the counters read ``before``
+    (``counted(*MLP_BACKWARD)``): all of them, and the pipelined ones."""
+    return tuple(b - a for a, b in zip(before, counted(*MLP_BACKWARD)))
+
+
+def check_pipelined(args, gy):
+    """One spatial-MLP backward on ``args``, checked to take the pipelined
+    kernel by its counter; returns True."""
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    before = counted(*MLP_BACKWARD)
+    sm.spatial_mlp_backward_cuda(*args, gy)
+    delta = backward_routes(before)
+    check(delta == (1, 1), f"spatial_mlp backward on {tuple(args[0].shape)}, "
+          f"H {args[2].shape[1]}: launches {delta}, not the pipelined kernel")
+    return True
 
 
 def mlp_steps():
@@ -1179,15 +1216,34 @@ def phase_spatial_mlp(device):
     rows = []
     for i, (B, n, H, L) in enumerate(MLP_SHAPES):
         args, gy = mlp_inputs(B, n, H, L, i, device)
+        before = counted(*MLP_BACKWARD)
         row = mlp_kernels_on(args, gy, device)
         grads = sm.spatial_mlp_backward_cuda(*args, gy)
         again = sm.spatial_mlp_backward_cuda(*args, gy)
         check(all(torch.equal(a, b) for a, b in zip(grads, again)),
               f"spatial_mlp {(B, n, H, L)}: two backward runs differ")
+        launches, pipelined = backward_routes(before)
+        want = launches if takes_pipelined(H, L) else 0
+        check(pipelined == want, f"spatial_mlp {(B, n, H, L)}: {pipelined} "
+              f"of {launches} backward launches pipelined, {want} expected")
         rows.append({"shape": [B, n, H, L], "scaled_err": row["scaled_err"],
                      "max_abs_err_fwd": row["max_abs_err_fwd"],
-                     "max_abs_err_bwd": row["max_abs_err_bwd"]})
-    emit("spatial_mlp", cases=rows, deterministic=True,
+                     "max_abs_err_bwd": row["max_abs_err_bwd"],
+                     "pipelined": pipelined == launches})
+    # the pipelined kernel's whole range of depths, and the staged kernel
+    # just beyond it: the route each takes and its errors
+    ranged = []
+    for i, (B, n, H, L) in enumerate(MLP_RANGE_SHAPES):
+        args, gy = mlp_inputs(B, n, H, L, 100 + i, device)
+        before = counted(*MLP_BACKWARD)
+        row = mlp_kernels_on(args, gy, device)
+        launches, pipelined = backward_routes(before)
+        check(pipelined == (launches if takes_pipelined(H, L) else 0),
+              f"spatial_mlp {(B, n, H, L)}: {pipelined} of {launches} "
+              "backward launches pipelined")
+        ranged.append({"shape": [B, n, H, L], "pipelined": pipelined == 1,
+                       "worst_scaled_err": max(row["scaled_err"].values())})
+    emit("spatial_mlp", cases=rows, range_cases=ranged, deterministic=True,
          tolerance_scaled=TOL_MLP_SCALED)
     return rows[0]["max_abs_err_fwd"], rows[0]["max_abs_err_bwd"]
 
@@ -1408,6 +1464,7 @@ def phase_rvae_path(device, mlp_errs):
                      device=device) * 1e-2
     fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err = mlp_kernel_ms(
         args, gy, device)
+    pipelined = check_pipelined(args, gy)
 
     # the whole decoder call, forward and forward + autograd backward, on
     # each route under the model's bf16 policy
@@ -1467,7 +1524,7 @@ def phase_rvae_path(device, mlp_errs):
          bwd_share_of_bound=bounds[1][0] / bwd_ms,
          flops={"fwd": flops[0], "bwd": flops[1]},
          decoder_route_ms=route_ms, decoder_routes_scaled_err=routes_err,
-         path_inputs_scaled_err=y_err,
+         path_inputs_scaled_err=y_err, bwd_pipelined=pipelined,
          precision=str(Precision.mixed().compute_dtype))
     source = "atomai_tpu_torch/csrc/spatial_mlp.cu"
     # no one PyTorch call computes the fused MLP: no library time; the
@@ -1485,7 +1542,7 @@ def phase_rvae_path(device, mlp_errs):
              "ms": bwd_ms, "plain_ms": bwd_plain_ms,
              "bound_ms": bounds[1][0], "bound_by": bounds[1][1],
              "share_of_bound": bounds[1][0] / bwd_ms, "library_ms": None,
-             "stock_ms": stock_bwd_ms}]
+             "stock_ms": stock_bwd_ms, "pipelined": pipelined}]
 
 
 def timed(fn, device):
@@ -4901,6 +4958,7 @@ def phase_vae_graph(device):
                      device=device) * 1e-2
     fwd_ms, fwd_plain_ms, bwd_ms, bwd_plain_ms, y_err = mlp_kernel_ms(
         args, gy, device)
+    pipelined = check_pipelined(args, gy)
     dims = (VAE_GRAPH_BATCH, VAE_GRAPH_WINDOW ** 2, args[2].shape[1],
             args[4].shape[0])
     flops = sm.spatial_mlp_flops(*dims)
@@ -4916,12 +4974,14 @@ def phase_vae_graph(device):
          fwd_bound_ms=bounds[0][0], bwd_bound_ms=bounds[1][0],
          fwd_share_of_bound=bounds[0][0] / fwd_ms,
          bwd_share_of_bound=bounds[1][0] / bwd_ms,
-         flops={"fwd": flops[0], "bwd": flops[1]},
+         flops={"fwd": flops[0], "bwd": flops[1]}, bwd_pipelined=pipelined,
          path_inputs_scaled_err=y_err, tolerance=TOL_VAE_GRAPH)
-    return [{"shape": list(dims), "ms": ms, "plain_ms": plain,
+    rows = [{"shape": list(dims), "ms": ms, "plain_ms": plain,
              "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms}
             for ms, plain, b in ((fwd_ms, fwd_plain_ms, bounds[0]),
                                  (bwd_ms, bwd_plain_ms, bounds[1]))]
+    rows[1]["pipelined"] = pipelined
+    return rows
 
 
 def main():

@@ -15,6 +15,9 @@ The CUDA kernels themselves are held against the plain versions on the
 card by ``chip_smoke.py``.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -211,3 +214,83 @@ def test_bytes_and_bound_at_config_c():
     assert roofline.bound_ms(bwd_flops, bwd_bytes) == pytest.approx(
         2.632784e-2, rel=1e-6)
     assert roofline.bound(0, 3.35e9) == (pytest.approx(1.0), "bytes")
+
+
+# -- the backward's kernels, by name, against the benchmark's roofline reader
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "atomai_tpu_torch", "csrc", "spatial_mlp.cu")
+_BENCH = os.path.join(os.path.dirname(_CSRC), "..", "..", "benchmark")
+
+
+def _braced(src, start):
+    """The text from the first ``{`` at or after ``start`` to its match."""
+    i = src.index("{", start)
+    depth = 0
+    for j in range(i, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return src[i:j + 1]
+    raise AssertionError("unbalanced braces")
+
+
+def _function(src, name):
+    m = re.search(r"^\w[\w\s\*]*\b" + name + r"\(", src, re.M)
+    assert m, f"no function {name}"
+    return _braced(src, m.end())
+
+
+def _launched(body):
+    return set(re.findall(r"\b(\w+)(?:<[^<>;]*>)?<<<", body))
+
+
+def _fast_path_launches(src):
+    """Kernels that ``spatial_mlp_backward`` launches when its plan takes
+    the pipelined kernel: its body without the staged branch, plus the
+    launches of the helpers it calls there."""
+    body = _function(src, "spatial_mlp_backward")
+    staged = body.index("{", body.index("} else {", body.index("if (p.runs)")) + 1)
+    body = body[:staged] + body[staged + len(_braced(body, staged)):]
+    launched = _launched(body)
+    for helper in ("pack_weights",):
+        assert helper + "(" in body
+        launched |= _launched(_function(src, helper))
+    return launched
+
+
+def test_backward_fast_path_launches_only_the_measured_kernels():
+    """The pipelined backward launches ``pack_kernel``, ``bwd_wgmma`` and
+    ``reduce_kernel`` and nothing else, each a ``__global__`` of the
+    anonymous namespace, and the benchmark's roofline reader
+    (``spatial_mlp_bwd_roofline.BACKWARD`` and the forward reader's
+    ``PACK``) matches each of them as the profiler names it."""
+    with open(_CSRC) as f:
+        src = f.read()
+    launched = _fast_path_launches(src)
+    assert launched == {"pack_kernel", "bwd_wgmma", "reduce_kernel"}
+    anon = _braced(src, src.index("namespace {"))
+    for name in launched:
+        assert re.search(r"__global__[^;{]*\b" + name + r"\(", anon), name
+
+    import importlib.util
+    import sys
+    sys.path.insert(0, os.path.abspath(_BENCH))
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "bench_bwd_roofline_guard", os.path.join(
+                _BENCH, "metrics", "spatial_mlp_bwd_roofline.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(os.path.abspath(_BENCH))
+    profiled = {   # the demangled names a trace shows
+        "bwd_wgmma": "void (anonymous namespace)::bwd_wgmma<128>(float "
+                     "const*, float const*)",
+        "reduce_kernel": "(anonymous namespace)::reduce_kernel(float const*, "
+                         "int, int)",
+        "pack_kernel": "(anonymous namespace)::pack_kernel(float const*, "
+                       "__nv_bfloat16*, int, int, int)"}
+    for name in ("bwd_wgmma", "reduce_kernel"):
+        assert mod.BACKWARD.search(profiled[name]), name
+    assert mod._fwd.PACK.search(profiled["pack_kernel"])
+    assert not mod.BACKWARD.search(profiled["pack_kernel"])
