@@ -34,14 +34,23 @@ learning (``trainers/gptrainer.py``, ``models/dklgp/dklgpr.py``):
 draw to the host). Counters: ``labeller.launches``,
 ``spatial_mlp.forward_launches``, ``spatial_mlp.backward_launches``
 (``spatial_mlp.backward_pipelined_launches``: those that took the
-pipelined ``bwd_wgmma``), ``spd_mll.forward_launches``,
+pipelined ``bwd_wgmma``; ``spatial_mlp.skip_forward_launches`` and
+``spatial_mlp.skip_backward_launches``: those of the skip decoder's
+residual variant), ``spd_mll.forward_launches``,
 ``spd_mll.backward_launches``, the exact GP's training steps by the route of their MLL (``gp.mll_kernel``: the
 kernel pair of ``ops/spd_mll.py``; ``gp.mll_library``: cuSOLVER or LAPACK
 under autograd), and
 ``EnsemblePredictor``'s member forwards of a chunk, one of three each:
 ``predictor.eager_forward`` (eager: off the card, or a signature's first
 sighting), ``predictor.graph_capture`` (captured, then replayed),
-``predictor.graph_replay`` (replayed from its CUDA graph).
+``predictor.graph_replay`` (replayed from its CUDA graph). The VAE
+trainer's training steps (``trainers/vitrainer.py``, every model of the
+family, the joint ones included; counted by the trainer, so replayed
+steps count): by route, ``vae.eager_step``, ``vae.graph_capture``,
+``vae.graph_replay``; by a spatial decoder's route,
+``vae.decoder_fused_step`` (one spatial-MLP call: the kernels on a card)
+and ``vae.decoder_layerwise_step``. The kernels' launch counters count a
+graphed step once, at its capture.
 """
 
 import collections

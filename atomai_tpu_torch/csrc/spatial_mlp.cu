@@ -13,6 +13,21 @@
 // Layouts are the JAX kernel's: xT (B, 2, n), y and gy (B, 1, n), dx
 // (B, 2, n); weights float32 and contiguous.
 //
+// The residual variant (rDecoderNet(skip=True), AtomAI's generative skip
+// decoder) is this source built with SPATIAL_MLP_SKIP defined, into a
+// library of its own, with the same kernels under the same names:
+//
+//   h0 = x @ Wc + bc + zb[s]            (no tanh)
+//   hl = tanh(h(l-1) @ Ws[l] + bs[l]) + h0
+//
+// h0 is K = 2 work, so every use recomputes it in f32 rather than keeping
+// it. The backward's tanh' is 1 - t^2 with t = hl - h0, and h0 gathers
+// dh0 = a1 Ws[0]^T + sum_l dhl (a_l = dhl (1 - tl^2), no tanh' at h0).
+// Its consumers (dx, dbc, dzb, dWc) are linear in dh0, so each level's
+// share goes into their sums as the level is reached, and nothing the
+// size of a tile is kept: dh_L = gy Wo^T is rank one and is recomputed
+// into level 0's.
+//
 // What bounds it on an H100: the tensor cores. At the rVAE's config C
 // (B 128, n 1024, H 128, L 2) the forward is 8.7 GFLOP and the backward
 // 26.0 GFLOP against about 2 MB of inputs and outputs: 8.8 and 26.3 us at
@@ -119,12 +134,21 @@ using namespace nvcuda;
 
 namespace {
 
+#ifdef SPATIAL_MLP_SKIP
+constexpr bool kSkip = true;     // the residual variant (file comment)
+#else
+constexpr bool kSkip = false;
+#endif
+
 constexpr int kTM = 64;          // rows per tile
 constexpr int kWarps = 4;        // each owns 16 rows of the tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxFrag = 8;      // accumulator fragments a warp keeps: 128 columns
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use
 constexpr int kMaxH = 512;
+// column partials a warp of the staged backward keeps: sum G, sum x0 G and
+// sum x1 G; with the residual, the plain sum of dh besides
+constexpr int kColQ = kSkip ? 4 : 3;
 
 constexpr int kErrShape = 1001;  // H, L, n or B outside the kernel's range
 constexpr int kErrSmem = 1002;   // the forward's tile would not fit in shared memory
@@ -166,7 +190,7 @@ struct Layout {
     gys = off;     off += round128(sizeof(float) * kTM);
     bias0 = off;   off += round128(sizeof(float) * H);
     colpart = off;
-    if (backward) off += round128(sizeof(float) * kWarps * 3 * H);
+    if (backward) off += round128(sizeof(float) * kWarps * kColQ * H);
     dxacc = off;
     if (backward) off += round128(sizeof(float) * kTM * 2);
     acts = off;
@@ -256,23 +280,32 @@ __device__ void layer_product(const Layout& lay, const bf16* A, const float* __r
   }
 }
 
-// h0 = tanh(x @ Wc + bias0) for all kTM rows of the tile (all threads).
+// x @ Wc + bias0 at row r and column c of the tile: h0 before its tanh.
+__device__ __forceinline__ float h0_linear(const float* xs, const float* bias0,
+                                           const float* __restrict__ Wc, int H, int r, int c) {
+  return fmaf(xs[r], __ldg(Wc + c), fmaf(xs[kTM + r], __ldg(Wc + H + c), bias0[c]));
+}
+
+// h0 = tanh(x @ Wc + bias0) (with the residual, no tanh) for all kTM rows
+// of the tile (all threads).
 __device__ void first_layer(const Layout& lay, const float* xs, const float* bias0,
                             const float* __restrict__ Wc, bf16* h0) {
   const int H = lay.H, ldh = lay.ldh;
   for (int e = threadIdx.x; e < kTM * H; e += kThreads) {
     const int r = e / H, c = e % H;
-    const float v = fmaf(xs[r], __ldg(Wc + c), fmaf(xs[kTM + r], __ldg(Wc + H + c), bias0[c]));
-    h0[r * ldh + c] = __float2bfloat16(tanhf(v));
+    const float v = h0_linear(xs, bias0, Wc, H, r, c);
+    h0[r * ldh + c] = __float2bfloat16(kSkip ? v : tanhf(v));
   }
 }
 
 // Recomputes (backward) or computes (forward) h1..hL from h0 = acts[0]:
-// acts[l + 1] = tanh(acts[l] @ Ws[l] + bs[l]). With `pingpong` only two
-// buffers are used (acts[l & 1]); returns the buffer holding hL.
+// acts[l + 1] = tanh(acts[l] @ Ws[l] + bs[l]) (plus h0 in f32, from xs,
+// bias0 and Wc, with the residual). With `pingpong` only two buffers are
+// used (acts[l & 1]); returns the buffer holding hL.
 __device__ bf16* hidden_layers(const Layout& lay, bf16* acts0, bool pingpong,
                                const float* __restrict__ Ws, const float* __restrict__ bs,
-                               bf16* wt, float* stage) {
+                               bf16* wt, float* stage, const float* xs, const float* bias0,
+                               const float* __restrict__ Wc) {
   const int H = lay.H, CC = lay.CC, ldh = lay.ldh, lds = lay.lds;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t tile = lay.act_tile_elems();
@@ -285,7 +318,9 @@ __device__ bf16* hidden_layers(const Layout& lay, bf16* acts0, bool pingpong,
       bf16* out = nxt + (warp * 16) * ldh + c0;
       for (int e = lane; e < 16 * CC; e += 32) {
         const int r = e / CC, c = e % CC;
-        out[r * ldh + c] = __float2bfloat16(tanhf(st[r * lds + c] + __ldg(b + c0 + c)));
+        float v = tanhf(st[r * lds + c] + __ldg(b + c0 + c));
+        if constexpr (kSkip) v += h0_linear(xs, bias0, Wc, H, warp * 16 + r, c0 + c);
+        out[r * ldh + c] = __float2bfloat16(v);
       }
     });
     cur = nxt;
@@ -318,7 +353,7 @@ fwd_kernel(const float* __restrict__ xT, const float* __restrict__ zb,
   for (int c = threadIdx.x; c < H; c += kThreads) bias0[c] = bc[c] + zb[(size_t)s * H + c];
   __syncthreads();
   first_layer(lay, xs, bias0, Wc, acts);
-  const bf16* hL = hidden_layers(lay, acts, true, Ws, bs, wt, stage);
+  const bf16* hL = hidden_layers(lay, acts, true, Ws, bs, wt, stage, xs, bias0, Wc);
   __syncthreads();
   const int ldh = lay.ldh;
   const float b_out = bo[0];
@@ -388,27 +423,15 @@ bwd_kernel(const float* __restrict__ xT, const float* __restrict__ zb,
     for (int c = threadIdx.x; c < H; c += kThreads) bias0[c] = bc[c] + zb[(size_t)s * H + c];
     __syncthreads();
     first_layer(lay, xs, bias0, Wc, acts);
-    hidden_layers(lay, acts, false, Ws, bs, wt, stage);
+    hidden_layers(lay, acts, false, Ws, bs, wt, stage, xs, bias0, Wc);
     __syncthreads();
 
-    // G = dh * (1 - h^2) at `level` (the pre-activation gradient of
-    // h_level), for this warp's rows and the chunk in `stage` (dh on
-    // entry, G on exit). Writes G as bf16 to gout for the next products,
-    // the warp's column sums to colpart and, at level 0, the x-weighted
-    // sums (dWc) and the rows' dx.
-    auto epilogue_g = [&](int level, int c0, bf16* gout) {
-      float* st = stage + (warp * 16) * lds;
-      const bf16* h = acts + level * tile + (warp * 16) * ldh + c0;
-      for (int e = lane; e < 16 * CC; e += 32) {
-        const int r = e / CC, c = e % CC;
-        const float hv = __bfloat162float(h[r * ldh + c]);
-        const float g = st[r * lds + c] * (1.f - hv * hv);
-        st[r * lds + c] = g;
-        if (level > 0) gout[(warp * 16 + r) * ldh + c0 + c] = __float2bfloat16(g);
-      }
-      __syncwarp();
-      const float* xw0 = xs + warp * 16;
-      const float* xw1 = xs + kTM + warp * 16;
+    float* st = stage + (warp * 16) * lds;
+    const float* xw0 = xs + warp * 16;
+    const float* xw1 = xs + kTM + warp * 16;
+    // The chunk in `stage`'s sums by column: plain into slot `plain`, and
+    // x-weighted (dWc's) into slots 1 and 2.
+    auto column_sums = [&](int c0, int plain, bool weighted) {
       for (int c = lane; c < CC; c += 32) {
         float a = 0.f, b0 = 0.f, b1 = 0.f;
         for (int r = 0; r < 16; ++r) {
@@ -417,47 +440,93 @@ bwd_kernel(const float* __restrict__ xT, const float* __restrict__ zb,
           b0 = fmaf(xw0[r], g, b0);
           b1 = fmaf(xw1[r], g, b1);
         }
-        colpart[(warp * 3) * H + c0 + c] = a;
-        colpart[(warp * 3 + 1) * H + c0 + c] = b0;
-        colpart[(warp * 3 + 2) * H + c0 + c] = b1;
-      }
-      if (level == 0) {
-        for (int r = 0; r < 16; ++r) {
-          float d0 = 0.f, d1 = 0.f;
-          for (int c = lane; c < CC; c += 32) {
-            const float g = st[r * lds + c];
-            d0 = fmaf(__ldg(Wc + c0 + c), g, d0);
-            d1 = fmaf(__ldg(Wc + H + c0 + c), g, d1);
-          }
-          d0 = warp_sum(d0);
-          d1 = warp_sum(d1);
-          if (lane == 0) {
-            dxacc[2 * (warp * 16 + r)] += d0;
-            dxacc[2 * (warp * 16 + r) + 1] += d1;
-          }
+        colpart[(warp * kColQ + plain) * H + c0 + c] = a;
+        if (weighted) {
+          colpart[(warp * kColQ + 1) * H + c0 + c] = b0;
+          colpart[(warp * kColQ + 2) * H + c0 + c] = b1;
         }
       }
+    };
+    // The rows' dx from the chunk in `stage`, added to dxacc.
+    auto dx_rows = [&](int c0) {
+      for (int r = 0; r < 16; ++r) {
+        float d0 = 0.f, d1 = 0.f;
+        for (int c = lane; c < CC; c += 32) {
+          const float g = st[r * lds + c];
+          d0 = fmaf(__ldg(Wc + c0 + c), g, d0);
+          d1 = fmaf(__ldg(Wc + H + c0 + c), g, d1);
+        }
+        d0 = warp_sum(d0);
+        d1 = warp_sum(d1);
+        if (lane == 0) {
+          dxacc[2 * (warp * 16 + r)] += d0;
+          dxacc[2 * (warp * 16 + r) + 1] += d1;
+        }
+      }
+    };
+
+    // G = dh * (1 - h^2) at `level` (the pre-activation gradient of
+    // h_level), for this warp's rows and the chunk in `stage` (dh on
+    // entry, G on exit). Writes G as bf16 to gout for the next products,
+    // the warp's column sums to colpart and, at level 0, the x-weighted
+    // sums (dWc) and the rows' dx. With the residual, dh above level 0
+    // reaches h0 as it is: its sums (slot 3 and the x-weighted) and dx go
+    // first, then G = dh (1 - t^2), t = h - h0; at level 0, G = dh.
+    auto epilogue_g = [&](int level, int c0, bf16* gout) {
+      const bf16* h = acts + level * tile + (warp * 16) * ldh + c0;
+      const bool resid = kSkip && level > 0;
+      if (resid) {
+        column_sums(c0, 3, true);
+        dx_rows(c0);
+        __syncwarp();
+      }
+      for (int e = lane; e < 16 * CC; e += 32) {
+        const int r = e / CC, c = e % CC;
+        const float hv = __bfloat162float(h[r * ldh + c]);
+        float f = 1.f - hv * hv;
+        if constexpr (kSkip) {
+          const float t = hv - h0_linear(xs, bias0, Wc, H, warp * 16 + r, c0 + c);
+          f = level > 0 ? 1.f - t * t : 1.f;
+        }
+        const float g = st[r * lds + c] * f;
+        st[r * lds + c] = g;
+        if (level > 0) gout[(warp * 16 + r) * ldh + c0 + c] = __float2bfloat16(g);
+      }
+      __syncwarp();
+      column_sums(c0, 0, !resid);
+      if (level == 0) dx_rows(c0);
       __syncwarp();
     };
 
     // Sums the warps' column partials in warp order into the block's
-    // partials of `level`: dbs[level - 1], or dbc, dWc and dzb at level 0.
+    // partials of `level`: dbs[level - 1], or dbc, dWc and dzb at level 0;
+    // with the residual, each level's share of h0's too (the tile's first
+    // share, at level L, stores on the block's first tile).
     // Called after a block barrier.
     auto consume = [&](int level) {
       for (int c = threadIdx.x; c < H; c += kThreads) {
-        float a = 0.f, b0 = 0.f, b1 = 0.f;
+        float a = 0.f, b0 = 0.f, b1 = 0.f, d = 0.f;
         for (int w = 0; w < kWarps; ++w) {
-          a += colpart[(w * 3) * H + c];
-          b0 += colpart[(w * 3 + 1) * H + c];
-          b1 += colpart[(w * 3 + 2) * H + c];
+          a += colpart[(w * kColQ) * H + c];
+          b0 += colpart[(w * kColQ + 1) * H + c];
+          b1 += colpart[(w * kColQ + 2) * H + c];
+          if constexpr (kSkip) d += colpart[(w * kColQ + 3) * H + c];
         }
         if (level > 0) {
           accum(dbs_p + (size_t)(level - 1) * H + c, a, first);
+          if constexpr (kSkip) {
+            const bool lead = level == L;
+            accum(dbc_p + c, d, first && lead);
+            accum(dWc_p + c, b0, first && lead);
+            accum(dWc_p + H + c, b1, first && lead);
+            accum(dzb_seg + c, d, first_in_seg && lead);
+          }
         } else {
-          accum(dbc_p + c, a, first);
-          accum(dWc_p + c, b0, first);
-          accum(dWc_p + H + c, b1, first);
-          accum(dzb_seg + c, a, first_in_seg);
+          const bool lead = !kSkip || L == 0;
+          accum(dbc_p + c, a, first && lead);
+          accum(dWc_p + c, b0, first && lead);
+          accum(dWc_p + H + c, b1, first && lead);
+          accum(dzb_seg + c, a, first_in_seg && lead);
         }
       }
     };
@@ -477,7 +546,6 @@ bwd_kernel(const float* __restrict__ xT, const float* __restrict__ zb,
     bf16* gcur = acts + (L + 1) * tile;
     bf16* gnext = acts + (L + 2) * tile;
     for (int c0 = 0; c0 < H; c0 += CC) {
-      float* st = stage + (warp * 16) * lds;
       for (int e = lane; e < 16 * CC; e += 32) {
         const int r = e / CC, c = e % CC;
         st[r * lds + c] = __ldg(Wo + c0 + c) * gys[warp * 16 + r];
@@ -732,7 +800,8 @@ struct Geo {
   }
 };
 
-// h0 = tanh(x0 Wc[0] + x1 Wc[1] + bc + zb) into the accumulator layout.
+// h0 = tanh(x0 Wc[0] + x1 Wc[1] + bc + zb) (with the residual, no tanh)
+// into the accumulator layout.
 template <int HP>
 __device__ __forceinline__ void first_layer_regs(float* acc, const Geo& g, const float* wc0,
                                                  const float* wc1, const float* bias,
@@ -744,9 +813,74 @@ __device__ __forceinline__ void first_layer_regs(float* acc, const Geo& g, const
     for (int e = 0; e < 2; ++e) {
       const int c = 8 * j + 2 * g.q + e;
       const float b = bias[c] + (c < H ? __ldg(zrow + c) : 0.f);
-      acc[4 * j + e] = tanh_fast(fmaf(xa0, wc0[c], fmaf(xa1, wc1[c], b)));
-      acc[4 * j + 2 + e] = tanh_fast(fmaf(xb0, wc0[c], fmaf(xb1, wc1[c], b)));
+      const float va = fmaf(xa0, wc0[c], fmaf(xa1, wc1[c], b));
+      const float vb = fmaf(xb0, wc0[c], fmaf(xb1, wc1[c], b));
+      acc[4 * j + e] = kSkip ? va : tanh_fast(va);
+      acc[4 * j + 2 + e] = kSkip ? vb : tanh_fast(vb);
     }
+  }
+}
+
+// h0 = x0 Wc[0] + x1 Wc[1] + bc + zb, then tanh where kAct, at columns c,
+// c + 1 (c even) of the thread's two rows: {(rowA, c), (rowA, c + 1),
+// (rowA + 8, c), (rowA + 8, c + 1)}; the arithmetic of first_layer_regs,
+// with 8-byte loads. Without tanh (the residual forward's, in every layer's
+// epilogue) the load of zb is not branched around: a padded column reads
+// zb[0] and drops it (measured 7% faster a forward at rvae48's shapes).
+template <bool kAct>
+__device__ __forceinline__ float4 h0_pair(int c, const float* wc0, const float* wc1,
+                                          const float* bcv, const float* zrow, int H,
+                                          float xa0, float xa1, float xb0, float xb1) {
+  const float2 w0 = *reinterpret_cast<const float2*>(wc0 + c);
+  const float2 w1 = *reinterpret_cast<const float2*>(wc1 + c);
+  float2 b = *reinterpret_cast<const float2*>(bcv + c);
+  if constexpr (kAct) {
+    if (c < H) {
+      const float2 z = __ldg(reinterpret_cast<const float2*>(zrow + c));
+      b.x += z.x;
+      b.y += z.y;
+    }
+  } else {
+    const float2 z = __ldg(reinterpret_cast<const float2*>(zrow + (c < H ? c : 0)));
+    const float keep = c < H ? 1.f : 0.f;
+    b.x = fmaf(keep, z.x, b.x);
+    b.y = fmaf(keep, z.y, b.y);
+  }
+  const float4 v = make_float4(fmaf(xa0, w0.x, fmaf(xa1, w1.x, b.x)),
+                               fmaf(xa0, w0.y, fmaf(xa1, w1.y, b.y)),
+                               fmaf(xb0, w0.x, fmaf(xb1, w1.x, b.x)),
+                               fmaf(xb0, w0.y, fmaf(xb1, w1.y, b.y)));
+  if constexpr (kAct)
+    return make_float4(tanh_fast(v.x), tanh_fast(v.y), tanh_fast(v.z), tanh_fast(v.w));
+  return v;
+}
+
+// h0 = x0 Wc[0] + x1 Wc[1] + bz at columns c, c + 1 (c even) of the
+// thread's two rows (h0_pair's layout), bz = bc + zb of the rows' sample
+// in shared memory: h0_pair<false>'s value, with no global load and no
+// branch.
+__device__ __forceinline__ float4 h0_lin(int c, const float* wc0, const float* wc1,
+                                         const float* bz, float xa0, float xa1, float xb0,
+                                         float xb1) {
+  const float2 w0 = *reinterpret_cast<const float2*>(wc0 + c);
+  const float2 w1 = *reinterpret_cast<const float2*>(wc1 + c);
+  const float2 b = *reinterpret_cast<const float2*>(bz + c);
+  return make_float4(fmaf(xa0, w0.x, fmaf(xa1, w1.x, b.x)), fmaf(xa0, w0.y, fmaf(xa1, w1.y, b.y)),
+                     fmaf(xb0, w0.x, fmaf(xb1, w1.x, b.x)), fmaf(xb0, w0.y, fmaf(xb1, w1.y, b.y)));
+}
+
+// With the residual: acc += h0 over the thread's column pairs j0..j1 - 1.
+__device__ __forceinline__ void add_h0(float* acc, int j0, int j1, const Geo& g,
+                                       const float* wc0, const float* wc1, const float* bcv,
+                                       const float* zrow, int H, float xa0, float xa1,
+                                       float xb0, float xb1) {
+#pragma unroll
+  for (int j = j0; j < j1; ++j) {
+    const float4 h = h0_pair<false>(8 * j + 2 * g.q, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+    acc[4 * j] += h.x;
+    acc[4 * j + 1] += h.y;
+    acc[4 * j + 2] += h.z;
+    acc[4 * j + 3] += h.w;
   }
 }
 
@@ -855,6 +989,8 @@ fwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
       wg_wait();
       fence_regs<HP / 2>(acc);
       bias_tanh<HP>(acc, g, bsv + l * HP);
+      if constexpr (kSkip)
+        add_h0(acc, 0, HP / 8, g, wc0, wc1, bcv, zb + (size_t)s * H, H, xa0, xa1, xb0, xb1);
     }
     float pa = 0.f, pb = 0.f;
 #pragma unroll
@@ -892,9 +1028,14 @@ constexpr int kMaxStages = 8;
 // stores of warpgroup w's tiles are done; kBarY + w, warpgroup w's dW
 // product has read both warpgroups' tiles; kBarAll, all consumers.
 constexpr int kBarX = 1, kBarY = 3, kBarAll = 5;
+// with the residual, kBarZ + w: warpgroup w's own threads (its bz copy)
+constexpr int kBarZ = 6;
 
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_sync_wg(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
@@ -939,10 +1080,11 @@ __host__ __device__ constexpr int bwd_lmax(int HP) { return HP == 64 ? 6 : 2; }
 __host__ __device__ inline int bwd_slots(int L) { return L == 0 ? 1 : (L < 2 ? 2 : L); }
 
 // Shared memory but the ring: alignment, the tiles, the f32 dW partial,
-// and wc0, wc1, bc, bs padded to HP.
+// and wc0, wc1, bc, bs padded to HP (with the residual, bc + zb of each
+// warpgroup's sample too).
 __host__ __device__ inline size_t bwd_fixed_bytes(int HP, int L) {
   return 1024 + (size_t)2 * bwd_slots(L) * HP * 128 + (size_t)L * HP * HP * 4 +
-         sizeof(float) * (size_t)(3 + L) * HP;
+         sizeof(float) * (size_t)(3 + L + (kSkip ? 2 : 0)) * HP;
 }
 
 // Ring stages: as many 8 KB pieces (each with a full and an empty
@@ -1071,27 +1213,6 @@ __device__ __forceinline__ void store_a_tile(const uint32_t* a, const Geo& g, un
   }
 }
 
-// h0 = tanh(x0 Wc[0] + x1 Wc[1] + bc + zb) at columns c, c + 1 (c even)
-// of the thread's two rows: {(rowA, c), (rowA, c + 1), (rowA + 8, c),
-// (rowA + 8, c + 1)}; the arithmetic of first_layer_regs, with 8-byte
-// loads.
-__device__ __forceinline__ float4 h0_pair(int c, const float* wc0, const float* wc1,
-                                          const float* bcv, const float* zrow, int H,
-                                          float xa0, float xa1, float xb0, float xb1) {
-  const float2 w0 = *reinterpret_cast<const float2*>(wc0 + c);
-  const float2 w1 = *reinterpret_cast<const float2*>(wc1 + c);
-  float2 b = *reinterpret_cast<const float2*>(bcv + c);
-  if (c < H) {
-    const float2 z = __ldg(reinterpret_cast<const float2*>(zrow + c));
-    b.x += z.x;
-    b.y += z.y;
-  }
-  return make_float4(tanh_fast(fmaf(xa0, w0.x, fmaf(xa1, w1.x, b.x))),
-                     tanh_fast(fmaf(xa0, w0.y, fmaf(xa1, w1.y, b.y))),
-                     tanh_fast(fmaf(xb0, w0.x, fmaf(xb1, w1.x, b.x))),
-                     tanh_fast(fmaf(xb0, w0.y, fmaf(xb1, w1.y, b.y))));
-}
-
 // The block's contiguous run of 128-row tiles: [run_begin(b), run_begin(b + 1)).
 __host__ __device__ __forceinline__ int run_begin(int b, int nblocks, int total) {
   return (int)((long long)b * total / nblocks);
@@ -1126,7 +1247,8 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
   float* wc1 = wc0 + HP;
   float* bcv = wc1 + HP;
   float* bsv = bcv + HP;                   // L * HP
-  uint64_t* full = reinterpret_cast<uint64_t*>(bsv + L * HP);
+  float* bzv = bsv + L * HP;               // with the residual: 2 * HP
+  uint64_t* full = reinterpret_cast<uint64_t*>(bzv + (kSkip ? 2 * HP : 0));
   uint64_t* empty = full + NS;
   const int tid = threadIdx.x;
   const int b = blockIdx.x, nb = gridDim.x;
@@ -1184,6 +1306,7 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
   const Geo g;
   const int other = 1 - wg;
+  float* bz = bzv + wg * HP;               // with the residual
   auto tile = [&](int w, int slot) { return tiles + (size_t)(w * S + slot) * TILE; };
   // h_l's tile: slot l for l >= 1, slot 1 for h_0; G in slot 0
   auto h_slot = [&](int l) { return l == 0 ? 1 : l; };
@@ -1216,6 +1339,22 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
     const float ga = ra < n ? gy[(size_t)s * n + ra] : 0.f;
     const float gb = rb < n ? gy[(size_t)s * n + rb] : 0.f;
     const float* zrow = zb + (size_t)s * H;
+    if constexpr (kSkip) {
+      if (t == t_begin || jt == 0) {      // a new sample: bc + zb for h0
+        if (t > t_begin) bar_sync_wg(kBarZ + wg);   // the last one's readers are done
+        for (int c = tid - 128 * wg; c < HP; c += 128)
+          bz[c] = bcv[c] + (c < H ? zrow[c] : 0.f);
+        bar_sync_wg(kBarZ + wg);
+      }
+    }
+    // h0 at the thread's column pair c (h0_pair's layout): with the
+    // residual, linear and from bz; otherwise through its tanh
+    auto h0_at = [&](int c) {
+      if constexpr (kSkip)
+        return h0_lin(c, wc0, wc1, bz, xa0, xa1, xb0, xb1);
+      else
+        return h0_pair<true>(c, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+    };
     // the other warpgroup's last dW product is done with this one's tiles
     if (L > 0 && t > t_begin) bar_sync(kBarY + other);
 
@@ -1223,7 +1362,7 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
     uint32_t a[HP / 4];
 #pragma unroll
     for (int j = 0; j < HP / 8; ++j) {
-      const float4 h = h0_pair(8 * j + 2 * g.q, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+      const float4 h = h0_at(8 * j + 2 * g.q);
       acc[4 * j] = h.x;
       acc[4 * j + 1] = h.y;
       acc[4 * j + 2] = h.z;
@@ -1239,6 +1378,16 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[4 * j + e] = tanh_fast(acc[4 * j + e] + bl[8 * j + 2 * g.q + (e & 1)]);
+        if constexpr (kSkip) {
+#pragma unroll
+          for (int j = 8 * blk; j < 8 * blk + 8; ++j) {
+            const float4 h = h0_at(8 * j + 2 * g.q);
+            acc[4 * j] += h.x;
+            acc[4 * j + 1] += h.y;
+            acc[4 * j + 2] += h.z;
+            acc[4 * j + 3] += h.w;
+          }
+        }
       });
     }
 
@@ -1250,40 +1399,67 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
 #pragma unroll
       for (int i = 0; i < NC; ++i) dwo_acc[i] += v[i];
     }
+    if constexpr (kSkip) {
+      // dh_L = gy Wo^T; tanh' at t_L = h_L - h0 (none at h0 itself: L = 0)
 #pragma unroll
-    for (int j = 0; j < HP / 8; ++j)
+      for (int j = 0; j < HP / 8; ++j) {
+        const float4 h = h0_at(8 * j + 2 * g.q);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * g.q + e;
-        const float w = c < H ? __ldg(Wo + c) : 0.f;
-        float& u = acc[4 * j + e];
-        float& v = acc[4 * j + 2 + e];
-        u = ga * w * (1.f - u * u);
-        v = gb * w * (1.f - v * v);
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * g.q + e;
+          const float w = c < H ? __ldg(Wo + c) : 0.f;
+          const float tu = acc[4 * j + e] - (e ? h.y : h.x);
+          const float tv = acc[4 * j + 2 + e] - (e ? h.w : h.z);
+          acc[4 * j + e] = L > 0 ? ga * w * (1.f - tu * tu) : ga * w;
+          acc[4 * j + 2 + e] = L > 0 ? gb * w * (1.f - tv * tv) : gb * w;
+        }
       }
-
-    // level 0: dx by rows; dbc, dzb and dWc by columns
-    auto level0 = [&]() {
-      float da0 = 0.f, da1 = 0.f, db0 = 0.f, db1 = 0.f;
+    } else {
 #pragma unroll
       for (int j = 0; j < HP / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + 2 * g.q + e;
-          da0 = fmaf(acc[4 * j + e], wc0[c], da0);
-          da1 = fmaf(acc[4 * j + e], wc1[c], da1);
-          db0 = fmaf(acc[4 * j + 2 + e], wc0[c], db0);
-          db1 = fmaf(acc[4 * j + 2 + e], wc1[c], db1);
+          const float w = c < H ? __ldg(Wo + c) : 0.f;
+          float& u = acc[4 * j + e];
+          float& v = acc[4 * j + 2 + e];
+          u = ga * w * (1.f - u * u);
+          v = gb * w * (1.f - v * v);
         }
-      da0 = quad_sum(da0);
-      da1 = quad_sum(da1);
-      db0 = quad_sum(db0);
-      db1 = quad_sum(db1);
-      if (g.q == 0) {
-        float* dxs = dx + (size_t)s * 2 * n;
-        if (ra < n) { dxs[ra] = da0; dxs[n + ra] = da1; }
-        if (rb < n) { dxs[rb] = db0; dxs[n + rb] = db1; }
+    }
+
+    // h0's gradients from acc (G0, or with the residual a level's share of
+    // it): dx by rows (h0_dx), dbc, dzb and dWc by columns (h0_cols). With
+    // the residual, dx gathers the levels' shares in dxp and goes out at
+    // level 0 (`last`).
+    float dxp[4] = {0.f, 0.f, 0.f, 0.f};
+    auto h0_dx = [&](bool last) {
+      float sx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * g.q + e;
+          sx[0] = fmaf(acc[4 * j + e], wc0[c], sx[0]);
+          sx[1] = fmaf(acc[4 * j + e], wc1[c], sx[1]);
+          sx[2] = fmaf(acc[4 * j + 2 + e], wc0[c], sx[2]);
+          sx[3] = fmaf(acc[4 * j + 2 + e], wc1[c], sx[3]);
+        }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sx[k] = quad_sum(sx[k]);
+        if constexpr (kSkip) {
+          dxp[k] += sx[k];
+          sx[k] = dxp[k];
+        }
       }
+      if (last && g.q == 0) {
+        float* dxs = dx + (size_t)s * 2 * n;
+        if (ra < n) { dxs[ra] = sx[0]; dxs[n + ra] = sx[1]; }
+        if (rb < n) { dxs[rb] = sx[2]; dxs[n + rb] = sx[3]; }
+      }
+    };
+    auto h0_cols = [&]() {
       float v[NC];
       col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
 #pragma unroll
@@ -1306,7 +1482,8 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
       col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
       add_dbs(L - 1, v);
     } else {
-      level0();
+      h0_dx(true);
+      h0_cols();
     }
 
     for (int m = L; m >= 1; --m) {
@@ -1315,7 +1492,7 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
       if (l == 0) {                        // h_0 again, into its tile
 #pragma unroll
         for (int j = 0; j < HP / 8; ++j) {
-          const float4 h = h0_pair(8 * j + 2 * g.q, wc0, wc1, bcv, zrow, H, xa0, xa1, xb0, xb1);
+          const float4 h = h0_at(8 * j + 2 * g.q);
           a[4 * (j >> 1) + 2 * (j & 1)] = pack_bf16(h.x, h.y);
           a[4 * (j >> 1) + 2 * (j & 1) + 1] = pack_bf16(h.z, h.w);
         }
@@ -1327,9 +1504,10 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
       bar_arrive(kBarX + wg);
 
       // dh_l = G_m Ws[l]^T, then G_l = dh_l (1 - h_l^2), an output block at
-      // a time
+      // a time (with the residual, after dh_l's share of h0's gradients)
       const unsigned char* ht = tile(wg, h_slot(l));
       ring_product<HP, true>(acc, a, ring, full, empty, NS, st, ph, g.lane, [&](int blk) {
+        if constexpr (kSkip) return;
 #pragma unroll
         for (int j = 8 * blk; j < 8 * blk + 8; ++j) {
           const int c = 8 * j + 2 * g.q;
@@ -1341,6 +1519,41 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
           acc[4 * j + 3] *= 1.f - fb.y * fb.y;
         }
       });
+      if constexpr (kSkip) {
+        // before the dW product, whose accumulator would crowd the
+        // registers: dh_l's share of h0's gradients, then G_l = dh_l (1 -
+        // t_l^2), t_l = h_l (its tile) - h0; at level 0, G0 = dh_0 with
+        // dh_L = gy Wo^T folded in, the share no level has taken (rank
+        // one, so recomputed here), and dx (G0's column sums run in the
+        // product's shadow, as without the residual)
+        if (l > 0) {
+          h0_dx(false);
+          h0_cols();
+#pragma unroll
+          for (int j = 0; j < HP / 8; ++j) {
+            const int c = 8 * j + 2 * g.q;
+            const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA, c)));
+            const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ht + swz(g.rowA + 8, c)));
+            const float4 h = h0_at(c);
+            const float t0 = fa.x - h.x, t1 = fa.y - h.y, t2 = fb.x - h.z, t3 = fb.y - h.w;
+            acc[4 * j] *= 1.f - t0 * t0;
+            acc[4 * j + 1] *= 1.f - t1 * t1;
+            acc[4 * j + 2] *= 1.f - t2 * t2;
+            acc[4 * j + 3] *= 1.f - t3 * t3;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * g.q + e;
+              const float w = c < H ? __ldg(Wo + c) : 0.f;
+              acc[4 * j + e] = fmaf(ga, w, acc[4 * j + e]);
+              acc[4 * j + 2 + e] = fmaf(gb, w, acc[4 * j + 2 + e]);
+            }
+          h0_dx(true);                     // dx out: dxp is dead in the shadow
+        }
+      }
 
       // dWs[l] += h_l^T G_m over the tile's 128 rows (both warpgroups'):
       // rows 64 mc.. of the f32 partial, all HP columns; at HP = 128 each
@@ -1379,7 +1592,8 @@ bwd_wgmma(const float* __restrict__ xT, const float* __restrict__ zb,
         col_sum<HP>(g, v, [&](int j, int e) { return acc[4 * j + e] + acc[4 * j + 2 + e]; });
         add_dbs(l - 1, v);
       } else {
-        level0();
+        if constexpr (!kSkip) h0_dx(true);
+        h0_cols();
       }
       if (mine) {
         wg_wait();

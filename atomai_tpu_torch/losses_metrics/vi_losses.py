@@ -4,7 +4,10 @@ Counterpart of `atomai_tpu/losses_metrics/vi_losses.py:19-176`: the
 sum-reduced reconstruction loss, the closed-form normal KL, the discrete
 (Gumbel-Softmax against a uniform categorical) KL, the rotation-prior KL,
 the four ELBOs and Burgess-style information-capacity annealing. Each ELBO
-is returned as a value to maximise. ``num_iter`` is a Python number.
+is returned as a value to maximise. ``num_iter`` is a Python number, or a
+0-d integer tensor (a step count on the card, which a CUDA graph's replays
+read): the capacities are then clamped on the device, to the same float32
+values.
 Every mean over the batch is ``core.mesh.batch_mean``: in a step split
 over a data mesh it is the global batch's, so each rank's ELBO is the one
 of the whole batch (the capacity terms are not linear in it).
@@ -146,19 +149,30 @@ def joint_rvae_loss(recon_loss: str, in_dim, x, x_reconstr, *args,
                   alphas, kwargs)
 
 
+def _annealed(cap_max: float, num_iters, num_iter, ceiling: float):
+    """min(cap_max * (num_iter / num_iters), ceiling) in float64: a number
+    for a number ``num_iter``; for a tensor, clamped on its device and
+    rounded to float32, the value the number takes in a float32 ELBO."""
+    if isinstance(num_iter, torch.Tensor):
+        return torch.clamp(cap_max * (num_iter.double() / float(num_iters)),
+                           max=ceiling).float()
+    return min(cap_max * (num_iter / float(num_iters)), ceiling)
+
+
 def infocapacity(kl_cont_loss, cont_capacity: List[float],
                  kl_disc_loss=None, disc_capacity: Optional[List] = None,
                  disc_dims: Optional[List[int]] = None, num_iter=0):
     """Burgess capacity annealing: gamma * |KL - C(num_iter)|, with the
-    capacity C rising linearly to its maximum over ``num_iters``."""
+    capacity C rising linearly to its maximum over ``num_iters``
+    (``num_iter`` a number or a 0-d tensor: module docstring)."""
     cont_max, cont_num_iters, cont_gamma = cont_capacity
-    cont_cap = min(cont_max * (num_iter / float(cont_num_iters)), cont_max)
+    cont_cap = _annealed(cont_max, cont_num_iters, num_iter, cont_max)
     cont_capacity_loss = cont_gamma * torch.abs(kl_cont_loss - cont_cap)
     if kl_disc_loss is None:
         return cont_capacity_loss
     disc_max, disc_num_iters, disc_gamma = disc_capacity
     disc_theory_max = sum(float(np.log(d)) for d in disc_dims)
-    disc_cap = min(disc_max * (num_iter / float(disc_num_iters)), disc_max,
-                   disc_theory_max)
+    disc_cap = _annealed(disc_max, disc_num_iters, num_iter,
+                         min(disc_max, disc_theory_max))
     disc_capacity_loss = disc_gamma * torch.abs(disc_cap - kl_disc_loss)
     return cont_capacity_loss, disc_capacity_loss

@@ -5,6 +5,11 @@ decoder (the first continuous latent rotates the pixel grid, the next two
 shift it by ``translation_prior`` times their value) fed with the other
 continuous latents and the Gumbel-softmax samples of the discrete ones,
 and the joint ELBO with the rotation prior and both capacity schedules.
+With ``skip=True`` (the generative skip decoder) the decoder adds its
+first layer's output, with no tanh, after every hidden layer; it takes
+the fused route too (the spatial-MLP kernels' residual variant on a
+card). On a card its training step replays from the trainer's CUDA graph,
+its draws and step counts made up front (``trainers/vitrainer.py``).
 """
 
 from copy import deepcopy as dc

@@ -387,10 +387,11 @@ class BaseVAE(viBaseTrainer):
         return transform_coordinates(x_coord, z[:, 0], dx), rest
 
     def _static_draws(self) -> bool:
-        """No discrete latents and no capacity schedule: a step's ELBO
-        reads its batch and Gaussian noise alone."""
-        return not self.discrete_dim and \
-            getattr(self, "kdict_", {}).get("capacity") is None
+        """Every model of the family: a step's ELBO reads its batch, its
+        Gaussian noise, each discrete head's uniforms (a joint model's) and
+        its step count (the capacity schedules'), all of which
+        ``forward_compute_elbo`` takes."""
+        return True
 
     def _fit_loop(self, X_train, y_train, X_test, y_test, loss, **kwargs):
         """The epoch loop of every VAE flavour: ``epochs_per_dispatch``

@@ -385,12 +385,14 @@ class coord_latent(nn.Module):
 class rDecoderNet(nn.Module):
     """Spatial decoder with optional residual skips (`ed.py:336-409`).
 
-    Routing is by shape, decided before anything runs: without skips, with
-    one output channel and a hidden width the kernels take
+    Routing is by shape, decided before anything runs: with one output
+    channel and a hidden width the kernels take
     (:func:`mlp_shapes_supported`), the whole per-pixel MLP is one
     :func:`spatial_mlp` call (the CUDA kernels for CUDA tensors, the plain
-    version for CPU ones); otherwise the layers run one by one, as the JAX
-    package's XLA branch does. Both read the same parameters.
+    version for CPU ones; with ``skip``, their residual variant, where the
+    JAX package runs the skip decoder layer by layer); otherwise the
+    layers run one by one, as the JAX package's XLA branch does. Both read
+    the same parameters.
 
     With ``remat`` (set by ``set_remat``), a training call checkpoints the
     layer-by-layer route whole and the plain version of the fused route;
@@ -413,8 +415,7 @@ class rDecoderNet(nn.Module):
 
     def fused(self) -> bool:
         """Whether :meth:`forward` takes the fused :func:`spatial_mlp`."""
-        return (not self.skip and self.c == 1
-                and mlp_shapes_supported(self.out.in_features))
+        return self.c == 1 and mlp_shapes_supported(self.out.in_features)
 
     def forward(self, x_coord: torch.Tensor, z: torch.Tensor
                 ) -> torch.Tensor:
@@ -442,7 +443,8 @@ class rDecoderNet(nn.Module):
             y = spatial_mlp(
                 x_coord.float().transpose(1, 2), head_f32(cl.fc_latent, z),
                 cl.fc_coord.weight.T, cl.fc_coord.bias[None], Ws, bs,
-                self.out.weight.T, self.out.bias[None], remat=remat)
+                self.out.weight.T, self.out.bias[None], remat=remat,
+                skip=self.skip)
             return y[:, 0].reshape((B,) + reshape_)
         h = self.coord_latent(x_coord, z)
         if self.skip:

@@ -14,7 +14,8 @@ processes never load a half-written library (as
 There is no fallback: a missing compiler or a failed build raises, with
 the compiler's output. ``-Xptxas -v`` makes the assembler report each
 kernel's registers, shared memory and spills; a build in this process keeps
-that report in ``BUILD_LOG``.
+that report in ``BUILD_LOG``, under the source's name (and its macros, for
+a variant built with some: ``spatial_mlp.cu SPATIAL_MLP_SKIP``).
 """
 
 import ctypes
@@ -52,15 +53,21 @@ def _library_path(src_path: str, flags) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def library_path(source: str) -> str:
-    """Where the library built from ``csrc/<source>`` goes."""
-    return _library_path(os.path.join(CSRC_DIR, source), NVCC_FLAGS)
+def _nvcc_flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
-def compile_shared(src_path: str, compiler: str, flags) -> str:
+def library_path(source: str, defines=()) -> str:
+    """Where the library built from ``csrc/<source>`` (with the macros
+    ``defines``) goes."""
+    return _library_path(os.path.join(CSRC_DIR, source), _nvcc_flags(defines))
+
+
+def compile_shared(src_path: str, compiler: str, flags, label=None) -> str:
     """Compiles ``src_path`` with ``compiler`` and ``flags`` into a shared
     library in ``BUILD_DIR`` unless an up-to-date one exists; returns the
-    library's path."""
+    library's path. The compiler's output goes to ``BUILD_LOG[label]``
+    (the source's name by default)."""
     lib_path = _library_path(src_path, flags)
     if os.path.exists(lib_path):
         return lib_path
@@ -76,20 +83,22 @@ def compile_shared(src_path: str, compiler: str, flags) -> str:
                 f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}"
                 f"{proc.stderr}")
         os.replace(tmp_path, lib_path)
-        BUILD_LOG[name] = proc.stdout + proc.stderr
+        BUILD_LOG[label or name] = proc.stdout + proc.stderr
     finally:
         if os.path.exists(tmp_path):
             os.unlink(tmp_path)
     return lib_path
 
 
-def build(source: str) -> str:
-    """Compiles ``csrc/<source>`` unless an up-to-date library exists;
-    returns the library's path."""
+def build(source: str, defines=()) -> str:
+    """Compiles ``csrc/<source>`` with the macros ``defines`` defined
+    unless an up-to-date library exists; returns the library's path."""
     return compile_shared(os.path.join(CSRC_DIR, source), find_nvcc(),
-                          NVCC_FLAGS)
+                          _nvcc_flags(defines),
+                          " ".join((source,) + tuple(defines)))
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Builds (if needed) and loads the library of ``csrc/<source>``."""
-    return ctypes.CDLL(build(source))
+def load(source: str, defines=()) -> ctypes.CDLL:
+    """Builds (if needed) and loads the library of ``csrc/<source>`` (with
+    the macros ``defines``)."""
+    return ctypes.CDLL(build(source, defines))

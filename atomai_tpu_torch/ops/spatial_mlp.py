@@ -8,6 +8,13 @@ rows::
     hl = tanh(h(l-1) @ Ws[l] + bs[l])        l = 1..L
     y  = hL @ Wo + bo
 
+With ``skip`` (``rDecoderNet(skip=True)``, AtomAI's generative skip
+decoder; the JAX package runs it layer by layer), h0 has no tanh and is
+added after every hidden layer's: ``hl = tanh(h(l-1) @ Ws[l] + bs[l]) +
+h0``. Its kernels are the same source built with ``SPATIAL_MLP_SKIP``
+into a library of their own, built at the first skip call, so that the
+plain decoder's build is unchanged.
+
 - :func:`spatial_mlp` keeps the JAX signature and its (B, 2, n) in /
   (B, 1, n) out layout. A CPU tensor goes to :func:`spatial_mlp_reference`
   (autograd differentiates it); a CUDA tensor goes to the forward kernel of
@@ -42,15 +49,17 @@ from ..core import profiling
 from . import _build
 
 _SOURCE = "spatial_mlp.cu"
-_lib = None
+_SKIP_DEFINES = ("SPATIAL_MLP_SKIP",)
+_lib = None          # the plain decoder's library
+_skip_lib = None     # the residual variant's
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.load(_SOURCE)
+def _library(skip: bool = False) -> ctypes.CDLL:
+    global _lib, _skip_lib
+    if (_skip_lib if skip else _lib) is None:
+        lib = _build.load(_SOURCE, _SKIP_DEFINES if skip else ())
         lib.spatial_mlp_forward.argtypes = [_P] * 10 + [ctypes.c_longlong] \
             + [_I] * 4 + [_P]
         lib.spatial_mlp_forward.restype = _I
@@ -62,13 +71,17 @@ def _library() -> ctypes.CDLL:
         lib.spatial_mlp_backward.restype = _I
         lib.spatial_mlp_error_string.argtypes = [_I]
         lib.spatial_mlp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if skip:
+            _skip_lib = lib
+        else:
+            _lib = lib
+    return _skip_lib if skip else _lib
 
 
-def build() -> None:
-    """Builds and loads the kernel library now (otherwise at first use)."""
-    _library()
+def build(skip: bool = False) -> None:
+    """Builds and loads the kernel library (the residual variant's with
+    ``skip``) now, otherwise at first use."""
+    _library(skip)
 
 
 def mlp_shapes_supported(hidden: int) -> bool:
@@ -134,19 +147,19 @@ def _check_cuda(tensors, B, H) -> None:
         raise ValueError(f"batch {B} above the kernels' 65535")
 
 
-# workspace bytes (forward, backward) per (B, n, H, L, device), and one
-# workspace tensor per (device, pass), grown when a shape needs more: both
-# are made once, not on every call
+# workspace bytes (forward, backward) per (B, n, H, L, device, skip), and
+# one workspace tensor per (device, pass), grown when a shape needs more:
+# both are made once, not on every call
 _WS_BYTES = {}
 _WORKSPACES = {}
 
 
-def _workspace(dev: torch.device, which: int, dims) -> Tuple[torch.Tensor,
-                                                             int]:
-    key = dims + (dev.index,)
+def _workspace(dev: torch.device, which: int, dims, skip: bool = False
+               ) -> Tuple[torch.Tensor, int]:
+    key = dims + (dev.index, skip)
     if key not in _WS_BYTES:
         fwd, bwd = ctypes.c_longlong(0), ctypes.c_longlong(0)
-        _raise_on(_library().spatial_mlp_workspace(
+        _raise_on(_library(skip).spatial_mlp_workspace(
             *dims, ctypes.byref(fwd), ctypes.byref(bwd)), "workspace query")
         _WS_BYTES[key] = (fwd.value, bwd.value)
     nbytes = _WS_BYTES[key][which]
@@ -163,30 +176,37 @@ def _raise_on(err: int, what: str) -> None:
                            + _library().spatial_mlp_error_string(err).decode())
 
 
-def spatial_mlp_forward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
-    """Launches the forward kernel on contiguous float32 CUDA tensors;
-    returns y (B, 1, n). Counts ``spatial_mlp.forward_launches``."""
+def spatial_mlp_forward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo,
+                             skip: bool = False) -> torch.Tensor:
+    """Launches the forward kernel (the residual variant's with ``skip``)
+    on contiguous float32 CUDA tensors; returns y (B, 1, n). Counts
+    ``spatial_mlp.forward_launches`` and, with ``skip``,
+    ``spatial_mlp.skip_forward_launches``."""
     args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
     B, n, H, L = _dims(*args)
     _check_cuda(args, B, H)
-    lib = _library()
+    lib = _library(skip)
     y = torch.empty((B, 1, n), dtype=torch.float32, device=xT.device)
     with torch.cuda.device(xT.device):
-        ws, nbytes = _workspace(xT.device, 0, (B, n, H, L))
+        ws, nbytes = _workspace(xT.device, 0, (B, n, H, L), skip)
         stream = torch.cuda.current_stream(xT.device).cuda_stream
         err = lib.spatial_mlp_forward(*(a.data_ptr() for a in args),
                                       y.data_ptr(), ws.data_ptr(), nbytes,
                                       B, n, H, L, stream)
     _raise_on(err, "forward launch")
     profiling.count("spatial_mlp.forward_launches")
+    if skip:
+        profiling.count("spatial_mlp.skip_forward_launches")
     return y
 
 
-def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
-    """Launches the backward kernel (and its reduction); returns the
-    gradients of the eight inputs (dx, dzb, dWc, dbc, dWs, dbs, dWo, dbo),
-    float32, with the inputs' shapes. Counts
-    ``spatial_mlp.backward_launches``, and
+def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy,
+                              skip: bool = False):
+    """Launches the backward kernel (and its reduction; the residual
+    variant's with ``skip``); returns the gradients of the eight inputs
+    (dx, dzb, dWc, dbc, dWs, dbs, dWo, dbo), float32, with the inputs'
+    shapes. Counts ``spatial_mlp.backward_launches`` (and
+    ``spatial_mlp.skip_backward_launches`` with ``skip``), and
     ``spatial_mlp.backward_pipelined_launches`` when the launch took the
     pipelined ``bwd_wgmma`` (HP 64 or 128) rather than the staged kernel."""
     args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
@@ -194,7 +214,7 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     if tuple(gy.shape) != (B, 1, n):
         raise ValueError(f"gy must be {(B, 1, n)}, got {tuple(gy.shape)}")
     _check_cuda(args + (gy,), B, H)
-    lib = _library()
+    lib = _library(skip)
     dev = xT.device
     dx = torch.empty((B, 2, n), dtype=torch.float32, device=dev)
     dzb = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -202,7 +222,7 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     pipelined = _I(0)
     with torch.cuda.device(dev):
-        ws, nbytes = _workspace(dev, 1, (B, n, H, L))
+        ws, nbytes = _workspace(dev, 1, (B, n, H, L), skip)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_mlp_backward(
             *(a.data_ptr() for a in args), gy.data_ptr(), dx.data_ptr(),
@@ -210,6 +230,8 @@ def spatial_mlp_backward_cuda(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
             B, n, H, L, stream, ctypes.byref(pipelined))
     _raise_on(err, "backward launch")
     profiling.count("spatial_mlp.backward_launches")
+    if skip:
+        profiling.count("spatial_mlp.skip_backward_launches")
     if pipelined.value:
         profiling.count("spatial_mlp.backward_pipelined_launches")
     dWs, dbs, dWo, dbo, dWc, dbc = torch.split(flat, sizes)
@@ -223,20 +245,21 @@ class _SpatialMLP(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
-    def forward(ctx, *args):
+    def forward(ctx, skip, *args):
         args = tuple(a.contiguous() for a in args)
         ctx.save_for_backward(*args)
-        return spatial_mlp_forward_cuda(*args)
+        ctx.skip = skip
+        return spatial_mlp_forward_cuda(*args, skip=skip)
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, gy):
-        return spatial_mlp_backward_cuda(*ctx.saved_tensors,
-                                         gy.float().contiguous())
+        return (None,) + spatial_mlp_backward_cuda(
+            *ctx.saved_tensors, gy.float().contiguous(), skip=ctx.skip)
 
 
-def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo, remat: bool = False
-                ) -> torch.Tensor:
+def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo, remat: bool = False,
+                skip: bool = False) -> torch.Tensor:
     """Fused tanh-MLP over pixel rows.
 
     Args:
@@ -250,56 +273,69 @@ def spatial_mlp(xT, zb, Wc, bc, Ws, bs, Wo, bo, remat: bool = False
             recomputes on chip, once a step, with no second forward
             launch); the plain version is then run under
             ``torch.utils.checkpoint``.
+        skip: the residual variant: h0 with no tanh, added after every
+            hidden layer's tanh.
     Returns:
         (B, 1, n) float32: the plain version for CPU tensors, the CUDA
         kernels (differentiable) for CUDA tensors.
     """
+    args = (xT, zb, Wc, bc, Ws, bs, Wo, bo, skip)
     if xT.device.type == "cpu":
-        args = (xT, zb, Wc, bc, Ws, bs, Wo, bo)
         if remat:
             return checkpoint(spatial_mlp_reference, *args,
                               use_reentrant=False)
         return spatial_mlp_reference(*args)
     if xT.device.type == "cuda":
-        return _SpatialMLP.apply(xT, zb, Wc, bc, Ws, bs, Wo, bo)
+        return _SpatialMLP.apply(skip, *args[:-1])
     raise ValueError(f"spatial_mlp runs on 'cpu' or 'cuda' tensors, got "
                      f"device {xT.device}")
 
 
-def _hidden(xT, zb, Wc, bc, Ws, bs):
+def _hidden(xT, zb, Wc, bc, Ws, bs, skip=False):
+    """x (B, n, 2), h0..hL, and the hidden layers' tanh outputs t1..tL
+    (hl itself, or hl - h0 with ``skip``)."""
     x = xT.transpose(1, 2)                                   # (B, n, 2)
-    hs = [torch.tanh(x @ Wc + bc + zb[:, None, :])]
+    h0 = x @ Wc + bc + zb[:, None, :]
+    hs, ts = [h0 if skip else torch.tanh(h0)], []
     for l in range(Ws.shape[0]):
-        hs.append(torch.tanh(hs[-1] @ Ws[l] + bs[l]))
-    return x, hs
+        ts.append(torch.tanh(hs[-1] @ Ws[l] + bs[l]))
+        hs.append(ts[-1] + h0 if skip else ts[-1])
+    return x, hs, ts
 
 
-def spatial_mlp_reference(xT, zb, Wc, bc, Ws, bs, Wo, bo) -> torch.Tensor:
+def spatial_mlp_reference(xT, zb, Wc, bc, Ws, bs, Wo, bo, skip: bool = False
+                          ) -> torch.Tensor:
     """Plain torch forward, in the inputs' dtype (float32 in the tests)."""
-    _, hs = _hidden(xT, zb, Wc, bc, Ws, bs)
+    _, hs, _ = _hidden(xT, zb, Wc, bc, Ws, bs, skip)
     y = hs[-1] @ Wo + bo[0]
     return y.transpose(1, 2)                                 # (B, 1, n)
 
 
-def spatial_mlp_backward_reference(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy):
+def spatial_mlp_backward_reference(xT, zb, Wc, bc, Ws, bs, Wo, bo, gy,
+                                   skip: bool = False):
     """Plain torch gradients of sum(spatial_mlp(...) * gy) with respect to
     the eight inputs, by the explicit formulas of the TPU backward kernel
     (`pallas_mlp.py:94-144`): recompute h0..hL, then back-propagate
-    ``G = dh * (1 - h^2)`` layer by layer."""
-    x, hs = _hidden(xT, zb, Wc, bc, Ws, bs)
+    ``G = dh * (1 - t^2)`` layer by layer (t = h without ``skip``). With
+    ``skip``, every dhl (l >= 1) also reaches h0 through the residual, and
+    h0 has no tanh: G0 = dh0 + sum of the dhl."""
+    x, hs, ts = _hidden(xT, zb, Wc, bc, Ws, bs, skip)
     g = gy.transpose(1, 2)                                   # (B, n, 1)
     L = Ws.shape[0]
     dWo = torch.einsum("bnh,bno->ho", hs[L], g)
     dbo = g.sum().reshape(1, 1)
     dh = g @ Wo.T                                            # (B, n, H)
+    resid = torch.zeros_like(dh)
     dWs = torch.zeros_like(Ws)
     dbs = torch.zeros_like(bs)
     for l in range(L - 1, -1, -1):
-        G = dh * (1.0 - hs[l + 1] * hs[l + 1])
+        if skip:
+            resid = resid + dh
+        G = dh * (1.0 - ts[l] * ts[l])
         dWs[l] = torch.einsum("bni,bno->io", hs[l], G)
         dbs[l] = G.sum((0, 1))
         dh = G @ Ws[l].T
-    G0 = dh * (1.0 - hs[0] * hs[0])
+    G0 = dh + resid if skip else dh * (1.0 - hs[0] * hs[0])
     dWc = torch.einsum("bnk,bnh->kh", x, G0)
     dbc = G0.sum((0, 1))[None]
     dx = (G0 @ Wc.T).transpose(1, 2)                         # (B, 2, n)

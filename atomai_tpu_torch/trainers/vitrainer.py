@@ -21,16 +21,19 @@ keeps:
   (`:206-234`);
 - per-epoch checkpoints written by a background thread (the weights'
   copy to the host on the caller's thread, the write on the thread);
-- on one card, the step of a plain VAE or an rVAE replayed from a CUDA
-  graph (``core/graphs.py``) after ``GRAPH_WARMUP`` eager steps
-  (:meth:`viBaseTrainer._graphed` says when): each step takes its index
-  slice and noise as the graph's static inputs. On a card these two
-  models draw an epoch's permutation and every batch's noise before its
-  first step on every route (a mesh, labels or remat run the eager loop),
-  so that a seed gives one fit whatever the route; on the CPU, and for the
-  joint models' Gumbel draws and capacity schedules, each step draws its
-  own as the JAX package does. Adam keeps its state on the card
-  (``capturable``), so eager and replayed steps are the same arithmetic;
+- on one card, the step of every VAE of the family (the plain VAE, the
+  rVAE, the joint jVAE and jrVAE, with or without capacity schedules)
+  replayed from a CUDA graph (``core/graphs.py``) after ``GRAPH_WARMUP``
+  eager steps (:meth:`viBaseTrainer._graphed` says when): each step takes
+  its index slice, its Gaussian noise, each discrete head's Gumbel
+  uniforms and its step count (``num_iter``, which the capacity schedules
+  read, a device scalar there) as the graph's static inputs. On a card
+  these models draw an epoch's permutation, then every batch's noise,
+  then each head's uniforms, before its first step on every route (a
+  mesh, labels or remat run the eager loop), so that a seed gives one fit
+  whatever the route; on the CPU each step draws its own as the JAX
+  package does. Adam keeps its state on the card (``capturable``), so
+  eager and replayed steps are the same arithmetic;
 - data parallelism (`:139-175, 250-305`): in a world of several ranks
   ``compile_trainer(mesh=None)`` builds a data mesh sized to the largest
   rank count that divides the batch (``mesh=False`` opts out, a
@@ -45,14 +48,18 @@ keeps:
   whole on every rank.
 
 Random numbers come from a :class:`GeneratorSeq` seeded once: one
-generator per epoch draws the permutation and every batch's noise, on the
-model's device.
+generator per epoch draws the permutation and every batch's noise and
+uniforms, on the model's device.
 
 Spans (``core.profiling``): ``vae.epoch`` (an epoch's launches from the
 host), ``vae.checkpoint`` (an asynchronous checkpoint's host side) and
 its ``vae.checkpoint.fetch`` (the weights' copy to the host); the models
-add ``vae.fit`` and ``vae.fetch``. Counters, one a training step whatever the
-route: ``vae.eager_step``, ``vae.graph_capture``, ``vae.graph_replay``.
+add ``vae.fit`` and ``vae.fetch``. Counters, each a training step, counted
+here since a replay runs no host code in the nets: by the step's route,
+``vae.eager_step``, ``vae.graph_capture``, ``vae.graph_replay``; and, for
+a spatial decoder, by the decoder's, ``vae.decoder_fused_step`` (one
+:func:`spatial_mlp` call: the kernels on a card) or
+``vae.decoder_layerwise_step``.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -90,7 +97,9 @@ class viBaseTrainer:
         self.keys = GeneratorSeq(seed)
         self.precision = default_precision(self.device)
         self.in_dim: Optional[Tuple[int, ...]] = None
+        # every latent, and the discrete heads' sizes among them
         self.z_dim = 1
+        self.discrete_dim: Optional[List[int]] = None
         self.encoder_net: Optional[nn.Module] = None
         self.decoder_net: Optional[nn.Module] = None
         self.initialized = False
@@ -269,31 +278,39 @@ class viBaseTrainer:
         """Forward pass and ELBO of one batch; subclasses implement."""
         raise NotImplementedError
 
-    def _elbo(self, x, y, num_iter, generator, eps=None):
+    def _elbo(self, x, y, num_iter, generator, eps=None, u=None):
         with self.precision.scope(self.device):
             return self.forward_compute_elbo(x, y, num_iter, generator,
-                                             eps=eps)
+                                             **self._draw_kwargs(eps, u))
+
+    @staticmethod
+    def _draw_kwargs(eps, u) -> Dict[str, Any]:
+        """A step's drawn numbers as ``forward_compute_elbo`` takes them:
+        ``eps``, and ``u`` (a list, one tensor a head) for a joint model."""
+        return {"eps": eps} if u is None else {"eps": eps, "u": list(u)}
 
     def _batches(self, N: int) -> Tuple[int, int]:
         bs = min(self.batch_size, N)
         return bs, max(N // bs, 1)
 
     def _static_draws(self) -> bool:
-        """Whether a training step's ELBO is a function of its batch and
-        Gaussian noise alone: no Gumbel draw and no ``num_iter``. The
+        """Whether a training step's ELBO is a function of its batch, its
+        Gaussian noise, each discrete head's Gumbel uniforms (the layouts
+        of :meth:`_epoch_draws` and :meth:`_uniform_draws`) and its step
+        count alone, each of which ``forward_compute_elbo`` takes. The
         models say; the base trainer does not know its ELBO."""
         return False
 
     def _noise_up_front(self) -> bool:
-        """Whether an epoch draws every batch's noise before its first
-        step (:meth:`_epoch_draws`): on a card, for a model with static
-        draws, whatever the route, so that a seed gives one fit on every
-        route; elsewhere each step draws its own, as the JAX package's
-        loop does."""
+        """Whether an epoch draws every batch's noise and uniforms before
+        its first step (:meth:`_epoch_draws`, :meth:`_uniform_draws`): on
+        a card, for a model with static draws, whatever the route, so that
+        a seed gives one fit on every route; elsewhere each step draws its
+        own, as the JAX package's loop does."""
         return self.device.type == "cuda" and self._static_draws()
 
     def _graphed(self) -> bool:
-        """Whether the epoch's steps replay from a CUDA graph: noise drawn
+        """Whether the epoch's steps replay from a CUDA graph: draws made
         up front, no mesh, no labels, no remat, the model's own ELBO and
         the trainer's capturable Adam."""
         opt = self.optimizer
@@ -311,17 +328,23 @@ class viBaseTrainer:
             bs, nb = self._batches(N)
             g = self.keys.next(device=self.device)
             perm, noise = self._epoch_draws(g, N, bs, nb)
+            u = self._uniform_draws(g, nb, bs)
             self.encoder_net.train()
             self.decoder_net.train()
             if self._graphed():
-                elbo = self._train_epoch_graphed(perm, noise, bs)
+                elbo = self._train_epoch_graphed(perm, noise, u, bs)
             else:
-                elbo = self._train_epoch_eager(perm, noise, g)
+                elbo = self._train_epoch_eager(perm, noise, u, g)
+            fused = getattr(self.decoder_net, "fused", None)
+            if callable(fused):
+                profiling.count("vae.decoder_fused_step" if fused()
+                                else "vae.decoder_layerwise_step", nb)
             self.num_iter += nb
             return elbo
 
     def _train_epoch_eager(self, perm: torch.Tensor,
                            noise: Optional[torch.Tensor],
+                           u: Optional[List[torch.Tensor]],
                            g: torch.Generator) -> torch.Tensor:
         nb, bs = perm.shape
         split = splits(self.mesh, DATA_AXIS) and \
@@ -332,12 +355,13 @@ class viBaseTrainer:
             idx = shard_batch(mesh, perm[i])
             y_i = self.y_train[idx] if self.y_train is not None else None
             eps = None if noise is None else shard_batch(mesh, noise[i])
+            u_i = None if u is None else [shard_batch(mesh, t[i]) for t in u]
             self.optimizer.zero_grad(set_to_none=True)
             with self.precision.tf32_scope(), split_batch(mesh), \
                     global_batch_norm(self.encoder_net), \
                     global_batch_norm(self.decoder_net):
                 elbo = self._elbo(self.X_train[idx], y_i, self.num_iter + i,
-                                  g, eps)
+                                  g, eps, u_i)
                 if self._local_elbo:
                     elbo = split_mean(elbo)
                 (-elbo).backward()     # the backward's GEMMs under TF32 too
@@ -349,32 +373,50 @@ class viBaseTrainer:
 
     def _epoch_draws(self, g: torch.Generator, N: int, bs: int, nb: int
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """An epoch's draws from its generator: the permutation's first
-        nb * bs indices as (nb, bs), then, where the noise is drawn up
-        front (:meth:`_noise_up_front`), every batch's reparameterisation
-        noise (nb, bs, z_dim), else None."""
+        """An epoch's first draws from its generator: the permutation's
+        first nb * bs indices as (nb, bs), then, where the draws are made
+        up front (:meth:`_noise_up_front`), every batch's Gaussian
+        reparameterisation noise (nb, bs, the continuous latents), else
+        None."""
         perm = torch.randperm(N, generator=g, device=self.device)
-        eps = torch.randn((nb, bs, self.z_dim), generator=g,
-                          device=self.device) \
+        eps = torch.randn((nb, bs, self.z_dim - sum(self.discrete_dim or ())),
+                          generator=g, device=self.device) \
             if self._noise_up_front() else None
         return perm[:nb * bs].view(nb, bs), eps
 
-    def _graph_step(self, idx: torch.Tensor, eps: torch.Tensor
+    def _uniform_draws(self, g: torch.Generator, nb: int, bs: int
+                       ) -> Optional[List[torch.Tensor]]:
+        """Where the draws are made up front, after :meth:`_epoch_draws`'
+        the Gumbel-softmax uniforms of every batch, each discrete head's in
+        turn: [(nb, bs, k) for k in ``discrete_dim``]; else (or without
+        discrete latents) None."""
+        if not (self.discrete_dim and self._noise_up_front()):
+            return None
+        return [torch.rand((nb, bs, k), generator=g, device=self.device)
+                for k in self.discrete_dim]
+
+    def _graph_step(self, idx: torch.Tensor, eps: torch.Tensor,
+                    num_iter: Optional[torch.Tensor] = None, *u: torch.Tensor
                     ) -> torch.Tensor:
         """One Adam step on the batch ``X_train[idx]`` with the noise
-        ``eps``: the ELBO, its backward under the policy's TF32 switch and
-        the optimizer's step; returns the ELBO, detached."""
+        ``eps`` (and each discrete head's uniforms ``u``) at the step count
+        ``num_iter`` (a device scalar; ``self.num_iter`` if None): the
+        ELBO, its backward under the policy's TF32 switch and the
+        optimizer's step; returns the ELBO, detached."""
         self.optimizer.zero_grad(set_to_none=True)
+        it = self.num_iter if num_iter is None else num_iter
         with self.precision.tf32_scope():
             with self.precision.scope(self.device):
-                elbo = self.forward_compute_elbo(self.X_train[idx], None,
-                                                 self.num_iter, eps=eps)
+                elbo = self.forward_compute_elbo(
+                    self.X_train[idx], None, it,
+                    **self._draw_kwargs(eps, u or None))
             (-elbo).backward()
         self.optimizer.step()
         return elbo.detach()
 
     def _train_epoch_graphed(self, perm: torch.Tensor, noise: torch.Tensor,
-                             bs: int) -> torch.Tensor:
+                             u: Optional[List[torch.Tensor]], bs: int
+                             ) -> torch.Tensor:
         # what a graph bakes in: the data's storage, the batch, the nets,
         # the optimizer, the policy and the decoder's route
         fused = getattr(self.decoder_net, "fused", None)
@@ -387,11 +429,14 @@ class viBaseTrainer:
             self._graph = graphs.GraphedCall(GRAPH_WARMUP, private=True)
             self._graph_key = key
         graph = self._graph
+        # the steps' counts on the card, which a replay reads
+        iters = torch.arange(len(perm), device=self.device) + self.num_iter
+        heads = list(zip(*u)) if u is not None else [()] * len(perm)
         elbos = []
-        for idx, eps in zip(perm, noise):
+        for idx, eps, it, u_i in zip(perm, noise, iters, heads):
             profiling.count(_STAGE_COUNTERS[graph.stage])
             with graph.stream(self.device):
-                elbos.append(graph(self._graph_step, idx, eps))
+                elbos.append(graph(self._graph_step, idx, eps, it, *u_i))
         return torch.stack(elbos).mean()
 
     def train_epoch(self) -> float:

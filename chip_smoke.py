@@ -261,7 +261,18 @@ Phases, one JSON line each (all before the last line):
     same state, permutation and noise, ELBOs and weights within
     ``TOL_VAE_GRAPH`` (bit for bit expected); the step counters; each
     epoch's time on both routes; and the spatial-MLP kernels timed at B =
-    100, n = 2,304 beside their roofline bounds.
+    100, n = 2,304 beside their roofline bounds;
+35. jrvae_graph: the spatial-MLP kernels' residual variant (the skip
+    decoder's, a library of its own) against its plain version at
+    ``MLP_SHAPES`` and at the ``rvae48.fit`` shapes, within
+    ``TOL_MLP_SCALED`` and bit-identical run to run, its launches counted
+    by ``spatial_mlp.skip_*_launches``; then the jrVAE fit of the
+    benchmark's ``jrvae48.fit`` cell (``jrVAE((48, 48), discrete_dim=[2],
+    skip=True)`` on phase 34's windows, batch 100, both capacity
+    schedules): two epochs on the graphed route (the draws, uniforms and
+    step counts as the graph's inputs) against the same two epochs all
+    eager, within ``TOL_VAE_GRAPH`` (bit for bit expected), the step and
+    decoder-route counters; and the skip kernels timed at these shapes.
 Then one JSON line on the kernels (the spatial-MLP records with their
 ``jrvae_path``, ``remat_path`` and ``mesh_path`` numbers, the labeller's
 and the forward's with the ``served_from_jax`` ones, the labeller's with
@@ -872,10 +883,13 @@ def phase_build():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        futures = {name: pool.submit(timed, mod.build) for name, mod in
-                   (("cc_label", cc_kernel), ("spatial_mlp", spatial_mlp),
-                    ("spd_mll", spd_mll))}
+    with ThreadPoolExecutor(4) as pool:
+        futures = {name: pool.submit(timed, build) for name, build in
+                   (("cc_label", cc_kernel.build),
+                    ("spatial_mlp", spatial_mlp.build),
+                    ("spatial_mlp_skip",
+                     lambda: spatial_mlp.build(skip=True)),
+                    ("spd_mll", spd_mll.build))}
         seconds = {name: f.result() for name, f in futures.items()}
     emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
          ptxas=ptxas_report())
@@ -887,7 +901,9 @@ def ptxas_report():
     import re
     from atomai_tpu_torch.ops import _build
     report = {}
-    for log in _build.BUILD_LOG.values():
+    for source, log in _build.BUILD_LOG.items():
+        # a variant built with macros: its kernels under "name (macros)"
+        variant = source.partition(" ")[2]
         name = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -898,6 +914,7 @@ def ptxas_report():
                 k = k or re.search(r"_Z\d+([a-z_]+)()", m.group(1))
                 name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
                         if k else m.group(1))
+                name += f" ({variant})" if variant else ""
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m and name:
@@ -2978,10 +2995,10 @@ def phase_jvae_path(device, mlp_errs):
               "the kernels")
         zero_counters()
         out["jrvae"] = joint_path_run(m, X, os.path.join(tmp, "jrv"), device)
-        launches = counted(*MLP_LAUNCHES)
+        launches = tuple(mlp_steps())
         steps = out["jrvae"]["steps"]
         check(launches == (steps, steps), f"the jrVAE's {steps} steps "
-              f"launched the kernels {launches} times")
+              f"ran the kernels {launches} times")
         out["jrvae"]["busy_share"] = busy_share(m.train_epoch_lazy, device)
 
     # the kernels at this path's shapes (the decoder's 2 + 4 latents)
@@ -3205,8 +3222,8 @@ def phase_served_from_jax(device):
     check(mlp_launches == 2, f"decode and manifold2d launched the forward "
           f"kernel {mlp_launches} times")
     fused = ed.spatial_mlp
-    ed.spatial_mlp = lambda *args, remat=False: sm.spatial_mlp_reference(
-        *args)
+    ed.spatial_mlp = lambda *args, remat=False, skip=False: \
+        sm.spatial_mlp_reference(*args, skip=skip)
     try:
         plain = v.manifold2d(), v.decode(z)
     finally:
@@ -4044,10 +4061,10 @@ def first_backward_inputs(box):
     from atomai_tpu_torch.ops import spatial_mlp as sm
     launch = sm.spatial_mlp_backward_cuda
 
-    def keep(*args):
+    def keep(*args, **kwargs):
         if not box:
             box.extend(a.detach().clone() for a in args)
-        return launch(*args)
+        return launch(*args, **kwargs)
 
     sm.spatial_mlp_backward_cuda = keep
     try:
@@ -4984,6 +5001,119 @@ def phase_vae_graph(device):
     return rows
 
 
+JRVAE_GRAPH_KW = dict(latent_dim=2, discrete_dim=[2], skip=True)
+JRVAE_GRAPH_FIT = dict(temperature=0.67, cont_capacity=[5.0, 25000, 30],
+                       disc_capacity=[5.0, 25000, 30])
+MLP_SKIP = ("spatial_mlp.skip_forward_launches",
+            "spatial_mlp.skip_backward_launches")
+
+
+def phase_jrvae_graph(device):
+    """The skip kernels against their plain version, then two jrVAE (skip
+    decoder) epochs on the graphed route against the same two epochs all
+    eager, the counters, and the skip kernels timed at these shapes."""
+    import torch
+    from atomai_tpu_torch.core import Precision
+    from atomai_tpu_torch.models import jrVAE
+    from atomai_tpu_torch.ops import roofline
+    from atomai_tpu_torch.ops import spatial_mlp as sm
+    from atomai_tpu_torch.trainers import vitrainer
+    rows = []
+    for i, (B, n, H, L) in enumerate(MLP_SHAPES):
+        args, gy = mlp_inputs(B, n, H, L, 200 + i, device)
+        zero_counters()
+        with Precision.full().scope(device):
+            y = sm.spatial_mlp_forward_cuda(*args, skip=True)
+            grads = sm.spatial_mlp_backward_cuda(*args, gy, skip=True)
+            again = sm.spatial_mlp_backward_cuda(*args, gy, skip=True)
+            torch.cuda.synchronize(device)
+            y_ref = sm.spatial_mlp_reference(*args, skip=True)
+            g_ref = sm.spatial_mlp_backward_reference(*args, gy, skip=True)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"skip spatial_mlp {(B, n, H, L)}: two backward runs differ")
+        check(counted(*MLP_SKIP) == (1, 2), f"skip spatial_mlp "
+              f"{(B, n, H, L)}: launches {counted(*MLP_SKIP)}")
+        errs = {"y": scaled_err(y, y_ref)}
+        errs.update({name: scaled_err(a, b) for name, a, b in
+                     zip(MLP_NAMES, grads, g_ref) if b.numel()})
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= TOL_MLP_SCALED, f"skip spatial_mlp "
+              f"{(B, n, H, L)}: {worst} off by {errs[worst]} of its scale")
+        rows.append({"shape": [B, n, H, L], "worst": worst,
+                     "scaled_err": errs[worst]})
+
+    X = rvae48_windows()
+    steps = len(X) // VAE_GRAPH_BATCH
+    total = VAE_GRAPH_EPOCHS * steps
+    names = ("vae.eager_step", "vae.graph_capture", "vae.graph_replay",
+             "vae.decoder_fused_step")
+
+    def epochs(warmup):
+        m = jrVAE((VAE_GRAPH_WINDOW,) * 2, seed=5, device=device,
+                  **JRVAE_GRAPH_KW)
+        m.dx_prior = 0.1
+        m.kdict_.update(phi_prior=np.pi / 2, **JRVAE_GRAPH_FIT)
+        m.compile_trainer((X, None), training_cycles=VAE_GRAPH_EPOCHS,
+                          batch_size=VAE_GRAPH_BATCH)
+        check(m._graphed() and m.decoder_net.fused(), "the jrVAE's fit "
+              "does not take the graphed route and the skip kernels")
+        saved, vitrainer.GRAPH_WARMUP = vitrainer.GRAPH_WARMUP, warmup
+        try:
+            zero_counters()
+            runs = [timed_result(m.train_epoch_lazy, device)
+                    for _ in range(VAE_GRAPH_EPOCHS)]
+        finally:
+            vitrainer.GRAPH_WARMUP = saved
+        return m, [float(e) for _, e in runs], [t for t, _ in runs], \
+            counted(*names)
+
+    g, g_elbo, g_s, g_counts = epochs(vitrainer.GRAPH_WARMUP)
+    e, e_elbo, e_s, e_counts = epochs(10 ** 9)
+    w = vitrainer.GRAPH_WARMUP
+    check(g_counts == (w, 1, total - w - 1, total),
+          f"graphed counters {g_counts}")
+    check(e_counts == (total, 0, 0, total), f"eager counters {e_counts}")
+    elbo_rel = max(abs(a / b - 1) for a, b in zip(g_elbo, e_elbo))
+    weights_abs = max(float((p.detach() - q.detach()).abs().max())
+                      for p, q in zip(g.parameters(), e.parameters()))
+    bitwise = g_elbo == e_elbo and all(
+        torch.equal(p, q) for p, q in zip(g.parameters(), e.parameters()))
+    check(elbo_rel <= TOL_VAE_GRAPH["elbo_rel"] and weights_abs <=
+          TOL_VAE_GRAPH["weights_abs"], f"graphed jrVAE epochs off the "
+          f"eager ones: ELBO {elbo_rel}, weights {weights_abs}")
+
+    # the skip kernels at these shapes, on the fitted model's decoder
+    # inputs (its discrete latents' softmax in place of their samples)
+    x = torch.from_numpy(X[:VAE_GRAPH_BATCH]).to(device)
+    args = decoder_args(g, x, device)
+    gy = torch.randn((VAE_GRAPH_BATCH, 1, VAE_GRAPH_WINDOW ** 2),
+                     generator=torch.Generator(device).manual_seed(0),
+                     device=device) * 1e-2
+    with Precision.full().scope(device):
+        fwd_ms = device_ms(
+            lambda: sm.spatial_mlp_forward_cuda(*args, skip=True), 50, device)
+        bwd_ms = device_ms(
+            lambda: sm.spatial_mlp_backward_cuda(*args, gy, skip=True), 50,
+            device)
+        y_err = scaled_err(sm.spatial_mlp_forward_cuda(*args, skip=True),
+                           sm.spatial_mlp_reference(*args, skip=True))
+    check(y_err <= TOL_MLP_SCALED, f"skip kernel off by {y_err} at the "
+          "path's own decoder inputs")
+    dims = (VAE_GRAPH_BATCH, VAE_GRAPH_WINDOW ** 2, args[2].shape[1],
+            args[4].shape[0])
+    bounds = [roofline.bound(f, b) for f, b in
+              zip(sm.spatial_mlp_flops(*dims), sm.spatial_mlp_bytes(*dims))]
+    emit("jrvae_graph", skip_cases=rows, tolerance_scaled=TOL_MLP_SCALED,
+         windows=list(X.shape), steps_per_epoch=steps, elbo_graphed=g_elbo,
+         elbo_eager=e_elbo, elbo_rel=elbo_rel, weights_abs=weights_abs,
+         bitwise=bitwise, counters={"graphed": g_counts, "eager": e_counts},
+         epoch_s={"graphed": g_s, "eager": e_s},
+         skip_fwd_kernel_ms=fwd_ms, skip_bwd_kernel_ms=bwd_ms,
+         fwd_share_of_bound=bounds[0][0] / fwd_ms,
+         bwd_share_of_bound=bounds[1][0] / bwd_ms,
+         path_inputs_scaled_err=y_err, tolerance=TOL_VAE_GRAPH)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5034,6 +5164,7 @@ def main():
     phase_spd_mll(device)
     kernels[1]["vae_graph"], kernels[2]["vae_graph"] = \
         phase_vae_graph(device)
+    phase_jrvae_graph(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -275,19 +275,24 @@ def test_fit_records_its_spans_and_counts_its_eager_steps(tmp_path):
     (lambda: aoi.models.rVAE((12, 12), device="cpu"), True),
     (lambda: aoi.models.VAE((12, 12), device="cpu"), True),
     (lambda: aoi.models.VAE((12, 12), capacity=[5.0, 100, 30],
-                            device="cpu"), False),
+                            device="cpu"), True),
     (lambda: aoi.models.jVAE((12, 12), discrete_dim=[3], device="cpu"),
-     False),
+     True),
     (lambda: aoi.models.jrVAE((12, 12), discrete_dim=[3], device="cpu"),
-     False),
+     True),
 ])
 def test_models_that_draw_their_noise_up_front(make, static):
-    """Only models whose ELBO reads its batch and Gaussian noise alone
-    draw up front and may be graphed, and only on a card."""
+    """Every model of the family has an ELBO that reads its batch, its
+    draws and its step count alone, so may draw up front and be graphed,
+    but only on a card: on the CPU nothing is drawn up front."""
     m = make()
     m.compile_trainer((_patches(), None), batch_size=8)
     assert m._static_draws() is static
     assert not m._noise_up_front() and not m._graphed()
+    g = torch.Generator().manual_seed(0)
+    perm, eps = m._epoch_draws(g, 48, 8, 6)
+    assert perm.shape == (6, 8) and eps is None
+    assert m._uniform_draws(g, 6, 8) is None
 
 
 def test_import_loads_no_jax_and_no_kernel_library():

@@ -169,7 +169,7 @@ def test_kernel_range(H, ok):
 
 
 @pytest.mark.parametrize("kwargs,fused", [
-    ({}, True), ({"skip": True}, False), ({"hidden_dim": 100}, False),
+    ({}, True), ({"skip": True}, True), ({"hidden_dim": 100}, False),
     ({"out_dim": (8, 8, 2)}, False), ({"num_layers": 0}, True)])
 def test_decoder_routes_by_shape_and_routes_agree(kwargs, fused):
     cfg = dict(out_dim=(8, 8), latent_dim=2, num_layers=2, hidden_dim=32)
